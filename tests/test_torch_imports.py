@@ -1,0 +1,50 @@
+"""The port stands alone: every module of ``repro_torch`` imports with JAX
+made unimportable, and none of them pulls in the reference package."""
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import repro_torch
+
+_SRC = Path(repro_torch.__file__).resolve().parents[1]
+_ROOT = _SRC.parent
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any ``import jax`` now raises
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro.")
+                or m == "jax" and sys.modules[m] is not None)
+print(len(names), leaked)
+assert not leaked, leaked
+"""
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = {**os.environ, "PYTHONPATH": str(_SRC)}
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=str(_ROOT), timeout=120)
+
+
+def test_every_module_imports_without_jax_or_reference():
+    out = _run(_PROBE)
+    assert out.returncode == 0, out.stdout + out.stderr
+    count = int(out.stdout.split()[0])
+    expected = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                      "repro_torch.")]
+    assert count == len(expected) >= 20
+
+
+def test_chip_smoke_imports_neither():
+    """chip_smoke.py names no JAX and nothing of the reference."""
+    text = (_ROOT / "chip_smoke.py").read_text()
+    for bad in ("import jax", "from jax", "import repro\n", "from repro.",
+                "from repro ", "import repro."):
+        assert bad not in text, bad
