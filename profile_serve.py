@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
 """Where a serve run's time goes on the card.
 
-Runs ``chip_smoke.py``'s serve phase (TPC-H lineitem SF10 resident on the
-card, 16 avg/sum/var/std requests through a forced-POOL ``AQPSession`` with
-the reference defaults) once to warm up, then once more under
-``torch.profiler``, and prints the wall time, the device busy share (summed
-CUDA kernel time over wall time), and the top device and host ops.
+Runs one of ``chip_smoke.py``'s serve phases once to warm up, then once
+more under ``torch.profiler``, and prints the wall time, the device busy
+share (summed CUDA kernel time over wall time), and the top device and host
+ops.  The phases (TPC-H lineitem SF10 resident on the card, a forced-POOL
+``AQPSession`` with the reference defaults):
+
+* default: the solo serve, 16 avg/sum/var/std requests, GROUP BY
+  SHIPINSTRUCT;
+* ``--grouped``: the grouped serve, 8 GROUP BY requests as lane blocks and
+  4 solo requests in one pool, GROUP BY TAX.
 
 Run from the root of a checkout on a machine with a CUDA card:
-``python3 profile_serve.py [TRACE.json]``; with a path, the Chrome trace is
-written there.
+``python3 profile_serve.py [--grouped] [TRACE.json]``; with a path, the
+Chrome trace is written there.
 """
+import argparse
 import sys
 import time
 from pathlib import Path
@@ -21,7 +27,8 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from chip_smoke import SERVE, fail, nvidia_smi, serve_requests  # noqa: E402
+from chip_smoke import (SERVE, fail, grouped_requests,  # noqa: E402
+                        nvidia_smi, serve_requests)
 
 
 def serve_once(data, reqs) -> float:
@@ -31,8 +38,8 @@ def serve_once(data, reqs) -> float:
     sess = AQPSession(data, planner=Planner(mode=Route.POOL, pool_lanes=8),
                       **SERVE)
     t0 = time.perf_counter()
-    for f, e in reqs:
-        sess.submit(Request(query=Query(func=f, epsilon=e)))
+    for f, e, g in reqs:
+        sess.submit(Request(query=Query(func=f, epsilon=e, group_by=g)))
     res = sess.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -40,19 +47,28 @@ def serve_once(data, reqs) -> float:
         fail("a profiled request failed")
     st = sess.stats()
     print(f"  wall {wall * 1e3:.1f} ms, pool ticks {st['pool']['ticks']}, "
-          f"dispatches {st['fused_dispatches']}")
+          f"dispatches {st['fused_dispatches']}, block ticks "
+          f"{st['pool']['block_ticks']}")
     return wall
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--grouped", action="store_true",
+                    help="profile the grouped serve (GROUP BY TAX)")
+    ap.add_argument("trace", nargs="?", help="write the Chrome trace here")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: a CUDA card is required")
     from repro_torch.data import make_lineitem
 
     print(nvidia_smi("name,power.limit"))
-    data, _ = make_lineitem(scale_factor=10, group_by="shipinstruct",
-                            device="cuda")
-    reqs, _ = serve_requests(data)
+    data, _ = make_lineitem(scale_factor=10, group_by=(
+        "tax" if args.grouped else "shipinstruct"), device="cuda")
+    if args.grouped:
+        reqs = grouped_requests(data)[0]
+    else:
+        reqs = [r + (False,) for r in serve_requests(data)[0]]
     print("warm-up run")
     serve_once(data, reqs)
     print("profiled run")
@@ -69,8 +85,8 @@ def main() -> None:
           f"{1 - dev_us / 1e6 / wall:.3f}; {n_kernels} device kernels")
     print(events.table(sort_by="self_device_time_total", row_limit=12))
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
-    if len(sys.argv) > 1:
-        trace = Path(sys.argv[1])
+    if args.trace:
+        trace = Path(args.trace)
         trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace))
 

@@ -15,6 +15,8 @@ import torch
 
 from ..kernels.poisson_bootstrap import ops as pb_ops
 from ..kernels.poisson_bootstrap import ref as pb_ref
+from ..kernels.segment_agg import ops as seg_ops
+from ..kernels.segment_agg import ref as seg_ref
 from .estimators import Estimator, finish_by_family
 from .reduce import tree_sum
 
@@ -75,6 +77,48 @@ def lane_moment_sums(v: torch.Tensor, mf: torch.Tensor, seeds: torch.Tensor,
     else:
         M = pb_ref.bootstrap_moments_masked_ref(v, mf, seeds, B,
                                                 lane_active=act)[..., :3]
+    return M, M_plain
+
+
+def segment_moment_sums(x: torch.Tensor, gid: torch.Tensor,
+                        slot: torch.Tensor, valid: torch.Tensor,
+                        seeds: torch.Tensor, q: int, B: int, *,
+                        use_kernel: bool, n_slots: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RAW replicate moment sums over one PACKED stream of lane windows (the
+    grouped block's ESTIMATE).
+
+    ``x (L,)`` are the gathered values of the active lanes' windows
+    concatenated in lane order, slots ascending within a lane; ``gid (L,)``
+    the owning lane, ``slot (L,)`` each element's absolute buffer slot (all
+    below ``n_slots``), ``valid (L,)`` the stream's mask, ``seeds (q,)`` the
+    lanes' tick seeds.  Returns ``(M (q, B, 3), M_plain (q, 3))``, weight
+    (j, b) = ``poisson1(hash3(seeds[gid_j], slot_j, b))`` -- the draw
+    :func:`lane_moment_sums` makes for that (lane, slot, replicate).
+
+    Both sums take the solo path's order: M chunks each lane by absolute
+    slot as the Poisson-bootstrap kernel does, and M_plain is the lane's
+    :func:`tree_sum` over its slot axis, so a block lane's sums equal its
+    solo run's bit for bit.  ``use_kernel`` launches the segment kernel
+    (CUDA tensors); otherwise the plain version runs.
+    """
+    mf = valid.to(torch.float32)
+    xf = x.to(torch.float32)
+    gid = gid.to(torch.int64)
+    slot = slot.to(torch.int64)
+    feats = torch.stack([mf, mf * xf, mf * xf * xf], dim=-1)   # (L, 3)
+    dense = torch.zeros((q, max(int(n_slots), 1), 3), dtype=torch.float32,
+                        device=xf.device)
+    # Each (lane, slot) is one element of the stream, so the accumulating
+    # put only ever adds to an exact zero.
+    dense.index_put_((gid, slot), feats, accumulate=True)
+    M_plain = tree_sum(dense, 1)                               # (q, 3)
+    lane_off = torch.searchsorted(
+        gid, torch.arange(q + 1, dtype=torch.int64, device=gid.device))
+    seed_j = seeds.to(torch.int64)[gid]
+    boot = (seg_ops.segment_bootstrap_sorted if use_kernel
+            else seg_ref.segment_bootstrap_sorted_ref)
+    M = boot(xf, mf, slot, seed_j, lane_off, B, n_slots)
     return M, M_plain
 
 

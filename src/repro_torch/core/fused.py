@@ -21,9 +21,15 @@ trajectories are identical by construction.
 
 Every per-lane computation depends only on the lane's own rows and tick
 counter ``k``, so a lane's trajectory is the same whether its neighbours
-are the same age, frozen, or freshly spliced in (the lane pool).  Only the
-single-device, ``backend="poisson"``, cold-start path is here; grouped
-blocks, sharding and warm starts are later slices.
+are the same age, frozen, or freshly spliced in (the lane pool).
+
+A GROUP BY query runs as a grouped lane BLOCK (``fused_step(...,
+seg_cap=...)``, :func:`fused_grouped`): G lanes of m = 1, lane g bound to
+group g by its stratified slot table, each tick one packed gather over the
+active lanes' windows and one segment bootstrap pass
+(:func:`~.bootstrap.segment_moment_sums`) over the packed stream.  Only the
+single-device, ``backend="poisson"``, cold-start path is here; sharding and
+warm starts are later slices.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ import torch
 
 from ..kernels import prng, resolve_use_kernel
 from . import bootstrap, error_model, keys as keylib, sampling
-from .estimators import get as get_estimator
+from .estimators import get as get_estimator, moment_family_index
 from .reduce import tree_sum
 
 LOG_FLOOR = -60.0
@@ -114,6 +120,36 @@ def bucket_ladder(n_cap: int, n_max: int) -> Tuple[int, ...]:
     return _bucket_widths(n_cap, sampling.bucket_cap(min(n_max, n_cap)))
 
 
+def _window_ladder(cap: int, base: int) -> Tuple[int, ...]:
+    """Doubling ladder with midpoints (base, 1.5b, 2b, 3b, 4b, ...) to cap."""
+    base = min(max(int(base), 1), cap)
+    rungs = set()
+    w = base
+    while w < cap:
+        rungs.add(w)
+        mid = w + w // 2
+        if mid < cap:
+            rungs.add(mid)
+        w *= 2
+    rungs.add(cap)
+    return tuple(sorted(rungs))
+
+
+def seg_ladder(seg_cap: int, n_max: int) -> Tuple[int, ...]:
+    """The reference's packed-stream rungs of the grouped-block ESTIMATE.
+    The port sizes its streams exactly; the ladder names the stream lengths
+    a block's tick runs at, for measurement and cost models."""
+    return _window_ladder(seg_cap, min(sampling.bucket_cap(n_max), seg_cap))
+
+
+def grouped_seg_cap(offsets, n_cap: int) -> int:
+    """Packed-stream capacity of a grouped block: the sum of the per-group
+    slot ceilings ``min(size_g, n_cap)``, the most slots the block's windows
+    can ever cover."""
+    off = np.asarray(offsets, np.int64)
+    return int(np.minimum(np.diff(off), n_cap).sum())
+
+
 def resolve_ext_cap(n_cap: int, n_max: int,
                     ext_cap: Optional[int] = None) -> int:
     """Extension window: the most new rows one active lane-tick gathers."""
@@ -170,6 +206,51 @@ def make_lane_params(offsets, scale, keys, epsilons, deltas,
         group_sizes=torch.as_tensor(
             np.broadcast_to(sizes.astype(np.int32), (q, sizes.shape[0])).copy(),
             device=dev))
+
+
+def make_group_lane_params(offsets, scale, keys, epsilons, deltas,
+                           sample_key, est_fids=None, *, n_cap: int,
+                           slot_idx: Optional[torch.Tensor] = None,
+                           device=None) -> LaneParams:
+    """Lane-BLOCK parameters of a grouped query: lane g <- group g.
+
+    ``q = G`` lanes of m = 1: lane g's slot table is the stratified table
+    of group g (:func:`~.sampling.stratified_slot_tables`, the solo table of
+    group g's slice under ``stratum_key(sample_key, g)`` in global rows) and
+    its ``group_sizes`` row is that group's size.  ``scale (G,)``, ``keys
+    (G, 2)``, ``epsilons``/``deltas (G,)``; ``slot_idx`` passes the
+    ``(G, 1, n_cap)`` tables prebuilt (they depend only on the sample key,
+    the layout and ``n_cap``).
+    """
+    dev = torch.device(device) if device is not None else (
+        sampling.default_device())
+    off = np.asarray(offsets, np.int64)
+    sizes = np.diff(off)
+    keys = _host(keys, np.uint32)
+    q = keys.shape[0]
+    if q != sizes.shape[0]:
+        raise ValueError(
+            f"grouped block wants one lane per group: got {q} lanes for "
+            f"{sizes.shape[0]} groups")
+    sample_key = _host(sample_key, np.uint32)
+    if sample_key.ndim != 1:
+        raise ValueError("a grouped block shares one (2,) sample key")
+    if slot_idx is None:
+        slot_idx = sampling.stratified_slot_tables(sample_key, off, n_cap,
+                                                   device=dev)
+    if est_fids is None:
+        est_fids = np.zeros((q,), np.int32)
+    return LaneParams(
+        scale=torch.as_tensor(_host(scale, np.float32).reshape(q, 1),
+                              device=dev),
+        epsilons=torch.as_tensor(_host(epsilons, np.float32), device=dev),
+        deltas=torch.as_tensor(_host(deltas, np.float32), device=dev),
+        est_fids=torch.as_tensor(_host(est_fids, np.int32), device=dev),
+        boot_base=torch.as_tensor([lane_boot_seed(k) for k in keys],
+                                  dtype=torch.int64, device=dev),
+        slot_idx=slot_idx,
+        group_sizes=torch.as_tensor(sizes.astype(np.int32).reshape(q, 1),
+                                    device=dev))
 
 
 def init_lane_state(keys, m: int, *, n_cap: int, c_dim: int, p_dim: int,
@@ -281,15 +362,79 @@ def _gather_windows(values: torch.Tensor, buf: torch.Tensor,
     buf.index_put_((li, gi, tgt), src)
 
 
+def _packed(widths: torch.Tensor, total: int):
+    """Owner lane and offset in the window of each element of the stream of
+    ``widths (q,)`` windows concatenated in lane order (zero-width lanes own
+    nothing: the right-side search skips their repeated starts)."""
+    starts = torch.cumsum(widths, 0) - widths
+    j = torch.arange(total, dtype=torch.int64, device=widths.device)
+    lane = torch.searchsorted(starts, j, right=True) - 1
+    return lane, j - starts[lane]
+
+
+def _segment_tick(values: torch.Tensor, s: LaneState, p: LaneParams, *,
+                  active, win_lo, win_hi, seeds, est, B: int, seg_cap: int,
+                  metric: str, use_kernel: bool):
+    """Shared-scan SAMPLE + ESTIMATE of a grouped lane block.
+
+    The block is ``q`` lanes of m = 1, lane g bound to group g by its
+    stratified slot table.  One packed gather over the active lanes'
+    extension windows ``[filled, win_hi)`` and one segment bootstrap pass
+    over their ESTIMATE windows ``[win_lo, win_hi)`` replace the per-lane
+    gather and the shared width bucket, so a tick's cost tracks the rows
+    its lanes hold, not ``q`` times the widest.  Windows, slot bindings and
+    weight draws are the solo path's and so is the summation order, so a
+    block lane's trajectory equals its solo run's bit for bit.
+
+    The reference picks padded stream lengths with ``lax.switch``; here the
+    two stream lengths and the slot bound are read on the host in the
+    tick's one transfer and both streams are sized exactly, so no element
+    is padding and no scatter target repeats.  Returns ``(filled, e_b,
+    theta_b)``; ``s.buf`` is extended in place.
+    """
+    q = active.shape[0]
+    filled0 = s.filled[:, 0].to(torch.int64)
+    lo = win_lo[:, 0].to(torch.int64)
+    hi = win_hi[:, 0].to(torch.int64)
+    ext_w = torch.clamp(hi - filled0, min=0)       # inactive: hi <= filled
+    est_w = torch.where(active, hi - lo, 0)
+    # ---- the tick's one host read: stream lengths + slot bound ----
+    host = torch.stack([ext_w.sum(), est_w.sum(),
+                        torch.amax(torch.where(active, hi, 0))]).cpu()
+    g_total, e_total, n_slots = (int(v) for v in host)
+    if max(g_total, e_total) > seg_cap:
+        raise ValueError(f"packed stream of {max(g_total, e_total)} exceeds "
+                         f"seg_cap={seg_cap}: params and seg_cap disagree")
+    # ---- one packed gather over the extension windows ----
+    lane_j, off_j = _packed(ext_w, g_total)
+    slot_j = filled0[lane_j] + off_j
+    rows = p.slot_idx[lane_j, 0, slot_j].to(torch.int64)
+    s.buf[lane_j, 0, slot_j] = values[rows]
+    filled = torch.maximum(s.filled, win_hi)
+    # ---- one segment bootstrap pass over the ESTIMATE windows ----
+    lane_j, off_j = _packed(est_w, e_total)
+    slot_j = lo[lane_j] + off_j
+    x_j = s.buf[lane_j, 0, slot_j, 0]
+    M, M_plain = bootstrap.segment_moment_sums(
+        x_j, lane_j, slot_j, torch.ones_like(x_j), seeds[:, 0], q, B,
+        use_kernel=use_kernel, n_slots=n_slots)
+    e_b, theta_b = bootstrap.finish_lanes_moments(
+        M[:, None], M_plain[:, None], p.scale, p.deltas, est=est,
+        est_fids=p.est_fids, metric=metric)
+    return filled, e_b, theta_b
+
+
 def _step_body(values: torch.Tensor, s: LaneState, p: LaneParams, *,
                est_name: Optional[str], B: int, n_min: int, n_max: int,
                l: int, tau: float, max_iters: int, n_cap: int, metric: str,
                growth_cap: float, ext_cap: int, adaptive: bool,
-               use_kernel: bool, gate_gather: bool) -> LaneState:
+               use_kernel: bool, gate_gather: bool,
+               seg_cap: Optional[int] = None) -> LaneState:
     """One SAMPLE -> ESTIMATE -> FIT -> PREDICT -> TEST tick over all lanes.
 
     Reads two things on the host, in one transfer: the ESTIMATE bucket index
-    and the active-lane mask (which lanes gather).
+    and the active-lane mask (which lanes gather).  ``seg_cap`` runs a
+    grouped block's tick instead (:func:`_segment_tick`, its own one read).
     """
     est = get_estimator(est_name) if est_name is not None else None
     q, m = s.n_cur.shape
@@ -318,6 +463,15 @@ def _step_body(values: torch.Tensor, s: LaneState, p: LaneParams, *,
     win_lo = torch.where(act2, win_lo, torch.zeros_like(win_lo))
     win_hi = torch.where(act2, win_lo + n_vec,
                          torch.minimum(s.n_cur, s.filled))
+    if seg_cap is not None:
+        filled, e_b, theta_b = _segment_tick(
+            values, s, p, active=active, win_lo=win_lo, win_hi=win_hi,
+            seeds=_bootstrap_seeds(p, s.k, m), est=est, B=B, seg_cap=seg_cap,
+            metric=metric, use_kernel=use_kernel)
+        return _lane_epilogue(
+            s, p, max_iters=max_iters, active=active, init_phase=init_phase,
+            e_b=e_b, theta_b=theta_b, n_eff=n_vec, filled=filled, beta=beta,
+            r2=r2, failed_fit=failed_fit)
     # ---- the tick's one host read: bucket index + active lanes ----
     needed = torch.clamp(torch.amax(torch.where(act2, win_hi, 0)), min=1)
     w_arr = torch.as_tensor(widths[:-1], dtype=torch.int32, device=dev)
@@ -386,7 +540,7 @@ def fused_step(values: torch.Tensor, offsets, state: LaneState,
                metric: str = "l2", growth_cap: float = 8.0,
                ext_cap: Optional[int] = None, adaptive: bool = True,
                use_kernel: "bool | str" = "auto", gate_gather: bool = True,
-               num_ticks: int = 1) -> LaneState:
+               seg_cap: Optional[int] = None, num_ticks: int = 1) -> LaneState:
     """Host-callable resumable step: ``num_ticks`` ticks over all lanes.
 
     Converged/failed/exhausted lanes freeze (predicated updates), so ticking
@@ -394,15 +548,34 @@ def fused_step(values: torch.Tensor, offsets, state: LaneState,
     lane's estimator from ``params.est_fids``.  ``offsets`` is the group
     layout the params were built for.  The state's ``buf`` is updated in
     place.
+
+    ``seg_cap`` selects the grouped lane BLOCK path: ``q`` lanes of m = 1,
+    each bound to one group by :func:`make_group_lane_params`, ticked with
+    one packed gather and one segment bootstrap pass.  Pass
+    :func:`grouped_seg_cap` of the block's layout and the dummy ``[0, N]``
+    step offsets (the per-group sizes live in ``params.group_sizes``); it
+    needs the adaptive path and a moment-family estimator.
     """
     if len(offsets) - 1 != state.n_cur.shape[1]:
         raise ValueError("offsets do not match the state's group count")
+    if seg_cap is not None:
+        if not adaptive:
+            raise ValueError("grouped blocks require the adaptive path")
+        if len(offsets) != 2:
+            raise ValueError(
+                "a grouped block is q lanes of m=1 (one lane per group); "
+                "pass the dummy [0, N] step offsets")
+        if params.slot_idx.dim() != 3:
+            raise ValueError("grouped blocks need per-lane stratified slot "
+                             "tables (make_group_lane_params)")
+        if est_name is not None:
+            moment_family_index(est_name)   # raises for non-moment ests
     spec = dict(
         est_name=est_name, B=B, n_min=n_min, n_max=n_max, l=l, tau=tau,
         max_iters=max_iters, n_cap=n_cap, metric=metric,
         growth_cap=growth_cap, ext_cap=resolve_ext_cap(n_cap, n_max, ext_cap),
         adaptive=adaptive, use_kernel=resolve_use_kernel(use_kernel, values.device),
-        gate_gather=gate_gather)
+        gate_gather=gate_gather, seg_cap=seg_cap)
     for _ in range(num_ticks):
         state = _step_body(values, state, params, **spec)
     return state
@@ -463,6 +636,57 @@ def fused_l2miss(values: torch.Tensor, offsets, scale, key, epsilon, delta,
         _host(epsilon, np.float32).reshape(1),
         _host(delta, np.float32).reshape(1), sample_key, **static_kwargs)
     return FusedResult(*(x[0] for x in res))
+
+
+def fused_grouped(values: torch.Tensor, offsets, scale, key, epsilon, delta,
+                  sample_key=None, est_fids=None, *,
+                  est_name: Optional[str] = "avg", B: int = 500,
+                  n_min: int = 100, n_max: int = 200, l: int = 10,
+                  tau: float = 1e-3, max_iters: int = 32,
+                  n_cap: int = 1 << 16, metric: str = "l2",
+                  growth_cap: float = 8.0, ext_cap: Optional[int] = None,
+                  use_kernel: "bool | str" = "auto") -> FusedResult:
+    """GROUP BY entry point: one grouped lane block of ``G = len(offsets) -
+    1`` per-group lanes run to the end.
+
+    Lane g's bootstrap key is ``fold_in(key, g)`` and its slot table the
+    stratified table of group g under ``sample_key`` (default ``key``);
+    each group converges, extends and parks on its own ``(epsilon, delta)``
+    row (scalars or ``(G,)``).  The result equals G solo
+    :func:`fused_l2miss` runs on the group slices with those keys and
+    ``stratum_key(sample_key, g)`` bindings, bit for bit.
+
+    Returns a :class:`FusedResult` with the GROUP axis leading and the m = 1
+    axis squeezed: ``n (G,)``, ``error (G,)``, ``theta (G, p)``,
+    ``success (G,)``, ``profile_n (G, max_iters)``.
+    """
+    dev = values.device
+    off = np.asarray(offsets, np.int64)
+    G = off.shape[0] - 1
+    key = keylib.as_key(_host(key, np.uint32))
+    keys = np.stack([keylib.fold_in(key, g) for g in range(G)])
+    epsilons = np.broadcast_to(_host(epsilon, np.float32), (G,))
+    deltas = np.broadcast_to(_host(delta, np.float32), (G,))
+    params = make_group_lane_params(
+        off, scale, keys, epsilons, deltas,
+        key if sample_key is None else sample_key, est_fids, n_cap=n_cap,
+        device=dev)
+    p_dim = (get_estimator(est_name).out_dim(values.shape[1])
+             if est_name is not None else 1)
+    state = init_lane_state(keys, 1, n_cap=n_cap, c_dim=values.shape[1],
+                            p_dim=p_dim, n_min=n_min, max_iters=max_iters,
+                            device=dev, dtype=values.dtype)
+    spec = dict(
+        est_name=est_name, B=B, n_min=n_min, n_max=n_max, l=l, tau=tau,
+        max_iters=max_iters, n_cap=n_cap, metric=metric,
+        growth_cap=growth_cap, ext_cap=ext_cap, use_kernel=use_kernel,
+        seg_cap=grouped_seg_cap(off, n_cap))
+    step_offsets = [0, int(values.shape[0])]
+    while bool(lane_active(state, max_iters).any()):
+        state = fused_step(values, step_offsets, state, params, **spec)
+    res = lanes_result(state)
+    return res._replace(n=res.n[:, 0], theta=res.theta[:, 0],
+                        profile_n=res.profile_n[:, :, 0])
 
 
 def fused_l2miss_batch(values_batch: torch.Tensor, offsets, scale_batch, keys,

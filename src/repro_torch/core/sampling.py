@@ -108,6 +108,32 @@ def counter_slot_table(sample_key, starts, sizes, n_cap: int,
     return starts[:, None] + torch.minimum(idx, sizes[:, None] - 1)
 
 
+def stratum_key(sample_key, g: int) -> np.ndarray:
+    """The per-stratum sample key of group ``g`` under a shared binding.
+
+    A grouped lane block gives every group its own slot->row stream by
+    folding the group index into the shared key, so a block lane bound to
+    group g draws exactly the rows a solo run over group g's slice draws
+    when seeded with ``stratum_key(sample_key, g)`` (shifted by the group's
+    start)."""
+    return keylib.fold_in(sample_key, g)
+
+
+def stratified_slot_tables(sample_key, offsets, n_cap: int,
+                           device=None) -> torch.Tensor:
+    """(G, 1, n_cap) int32 per-stratum slot->row bindings: table g is
+    :func:`counter_slot_table` of group g alone under ``stratum_key(
+    sample_key, g)``, in global rows.  The middle axis is the lane-local
+    group axis (m = 1), so the result is a grouped block's per-lane
+    ``LaneParams.slot_idx``."""
+    off = np.asarray(offsets, np.int64)
+    starts, sizes = off[:-1], np.diff(off)
+    return torch.stack([
+        counter_slot_table(stratum_key(sample_key, g), starts[g:g + 1],
+                           sizes[g:g + 1], n_cap, device=device)
+        for g in range(len(sizes))])
+
+
 def bucket_cap(n: int, *, base: int = 256) -> int:
     """Round ``n`` up to the next power-of-two bucket >= base."""
     cap = base

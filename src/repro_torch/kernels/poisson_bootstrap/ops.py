@@ -7,99 +7,31 @@ CPU tensor it runs the plain version (:mod:`.ref`), because no card is
 there.  It never falls back.
 
 The kernel is compiled with ``nvcc`` at first use into ``build/kernels/`` of
-the checkout and bound through ``ctypes``: a plain C entry point, pointers
-from ``data_ptr()``, PyTorch's current stream.
+the checkout and bound through ``ctypes`` (:mod:`..nvcc`).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from .. import nvcc
 from . import ref
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "poisson_bootstrap.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 _MAX_GRID_YZ = 65535
 
 
-class LaunchCounter:
-    """Number of times the wrapper launched the kernel (not the plain
-    version); a run resets it and reads it back to show it went through
-    the kernel."""
-
-    def __init__(self):
-        self.launches = 0
-
-    def reset(self) -> None:
-        self.launches = 0
+def _declare(lib: ctypes.CDLL) -> None:
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.pb_launch.argtypes = [P, LL, P, LL, P, P, P, P, I, I, I, P]
+    lib.pb_launch.restype = I
 
 
-counter = LaunchCounter()
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-    return path
-
-
-def library_path() -> Path:
-    """Where the built library lands: keyed by the source and the flags, so
-    an edited source is rebuilt and a stale library is never loaded."""
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libpoisson_bootstrap_{digest.hexdigest()[:16]}.so"
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel unless it is already built; returns the library.
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
-    out = library_path()
-    if out.exists() and not verbose:
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, str(_SRC)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
-
-
-def library() -> ctypes.CDLL:
-    """Build (first use) and load the kernel library."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.pb_launch.argtypes = [P, LL, P, LL, P, P, P, P, I, I, I, P]
-            lib.pb_launch.restype = I
-            _lib = lib
-    return _lib
+_LIB = nvcc.Library("poisson_bootstrap.cu", _declare)
+counter = nvcc.LaunchCounter()
+build = _LIB.build
+library = _LIB.load
 
 
 def _rows(t: torch.Tensor, name: str, G: int, n: int):

@@ -1,6 +1,7 @@
-from .lane_pool import LanePool, PoolResponse
+from .lane_pool import GroupPoolResponse, LanePool, PoolResponse
 from .planner import Planner, PoolPlan, Route
 from .session import AQPSession, SessionResponse, SessionTicket
 
-__all__ = ["AQPSession", "LanePool", "Planner", "PoolPlan", "PoolResponse",
-           "Route", "SessionResponse", "SessionTicket"]
+__all__ = ["AQPSession", "GroupPoolResponse", "LanePool", "Planner",
+           "PoolPlan", "PoolResponse", "Route", "SessionResponse",
+           "SessionTicket"]

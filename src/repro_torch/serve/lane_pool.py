@@ -19,6 +19,11 @@ goes to the free-laned tier with the smallest active watermark.
 Lanes pick their estimator per lane by moment-family index, so
 avg/sum/count/std/var/proportion queries share one pool.  SUM/COUNT lanes
 carry their population scale in their scale row.
+
+A GROUP BY query is admitted as a resident lane BLOCK (:meth:`submit_group`):
+one lane per group, ticked in the same scheduling round as the tiers with
+one shared-scan dispatch (``fused_step(..., seg_cap=...)``), retired whole
+when every group has finished.
 """
 from __future__ import annotations
 
@@ -34,9 +39,11 @@ from ..aqp.query import Query
 from ..core import estimators
 from ..core import keys as keylib
 from ..core.fused import (LaneParams, LaneState, fused_step,
-                          init_lane_state, lane_boot_seed, make_lane_params,
+                          grouped_seg_cap, init_lane_state, lane_boot_seed,
+                          make_group_lane_params, make_lane_params,
                           resolve_ext_cap)
-from ..core.sampling import GroupedData, counter_slot_table
+from ..core.sampling import (GroupedData, counter_slot_table,
+                             stratified_slot_tables)
 from ..kernels import resolve_use_kernel
 
 
@@ -59,6 +66,39 @@ class PoolResponse:
     tier: int               # width tier the query rode in
     spliced_tier_width: int  # tier's max active watermark at splice time
     beta: Optional[np.ndarray] = None   # (m+1,) final fitted coefficients
+
+
+@dataclasses.dataclass
+class GroupPoolResponse:
+    """One retired GROUP BY query: one answer and one ``(epsilon, delta)``
+    verdict per group.  ``success`` is the conjunction over groups,
+    ``error`` the (G,) per-group quantiles."""
+    qid: int
+    func: str
+    theta: np.ndarray          # (G,) scaled per-group estimates
+    error: np.ndarray          # (G,) per-group error quantiles
+    group_success: np.ndarray  # (G,) per-group verdicts
+    success: bool              # every group met its bound
+    failed: bool               # any group hit an Algorithm-2 failure
+    n: np.ndarray              # (G,) final per-group sizes
+    iterations: np.ndarray     # (G,) per-group iteration counts
+    rows_sampled: int          # sum of per-group filled watermarks
+    wall_time_s: float         # submit -> harvest
+    queue_wait_s: float        # 0.0: blocks admit at submit
+    ticks_in_block: int        # loop ticks while resident
+    beta: Optional[np.ndarray] = None   # (G, 2) per-group coefficients
+    group_by: bool = True
+
+
+@dataclasses.dataclass
+class _Block:
+    """One resident grouped block: its own carry/params, ticked whole."""
+    qid: int
+    func: str
+    state: LaneState           # q = G lanes of m = 1
+    params: LaneParams
+    submitted_s: float
+    admitted_tick: int
 
 
 @dataclasses.dataclass
@@ -214,6 +254,14 @@ class LanePool:
                 state=state, params=params, occupant=[None] * tl,
                 filled_host=np.zeros((tl, m), np.int64)))
         self._queue: Deque[_Ticket] = deque()
+        # Resident grouped blocks.  Admission is at submit (no ticket
+        # queue); every block of the pool has q = num_groups lanes of m = 1
+        # and steps on the dummy offsets [0, N]: its slot tables already
+        # hold global rows.
+        self._blocks: Dict[int, _Block] = {}
+        self._gseg_cap = grouped_seg_cap(self._offsets, n_cap)
+        self._goffsets = [0, int(self._offsets[-1])]
+        self._gtables: Optional[torch.Tensor] = None  # per sample epoch
         self._pending_sample_key: Optional[np.ndarray] = None
         self.sample_epochs = 0
         self._scale_rows: Dict[str, np.ndarray] = {}
@@ -225,6 +273,9 @@ class LanePool:
         self.lane_ticks_busy = 0  # occupied-lane ticks (occupancy integral)
         self.submitted = 0
         self.retired = 0
+        self.grouped_submitted = 0   # blocks admitted
+        self.grouped_retired = 0     # blocks harvested
+        self.block_ticks = 0         # block-resident loop ticks
         self.peak_queue_depth = 0
         self._active_frac_sum = 0.0
         self._retired_rows = 0
@@ -237,6 +288,10 @@ class LanePool:
     @property
     def busy_lanes(self) -> int:
         return sum(t.busy for t in self._tiers)
+
+    @property
+    def busy_blocks(self) -> int:
+        return len(self._blocks)
 
     def supports(self, query: Query) -> bool:
         """Whether this pool can serve ``query`` (moment family, this
@@ -279,8 +334,68 @@ class LanePool:
         self.peak_queue_depth = max(self.peak_queue_depth, len(self._queue))
         return qid
 
-    def submit_group(self, query: Query, key=None, **kwargs) -> int:
-        raise _later("13 (grouped blocks)")
+    def supports_grouped(self, query: Query) -> bool:
+        """Whether this pool can serve ``query`` as a grouped lane block
+        (the clause constraints of :meth:`supports`, GROUP BY or not)."""
+        return (query.func in self._family
+                and query.metric == self._spec["metric"]
+                and query.epsilon is not None and query.predicate is None)
+
+    def _grouped_tables(self) -> torch.Tensor:
+        """The stratified slot tables under the current sample key, built
+        once per epoch and shared by every block admitted in it (rotation,
+        which fires only with no block resident, drops them)."""
+        if self._gtables is None:
+            self._gtables = stratified_slot_tables(
+                self._sample_key, self._offsets, self._spec["n_cap"],
+                device=self.device)
+        return self._gtables
+
+    def submit_group(self, query: Query, key=None, *, warm_n0=None,
+                     warm_beta=None) -> int:
+        """Admit one GROUP BY query as a resident lane BLOCK; returns its
+        qid.  Lane g's bootstrap key is ``fold_in(key, g)`` and its slot
+        table stratum g of the pool's sample key.  The block is built here
+        and ticks from the next round on; its :class:`GroupPoolResponse`
+        lands in :attr:`results` once every group has converged, failed or
+        run out of iterations."""
+        if warm_n0 is not None or warm_beta is not None:
+            raise _later("11 (warm cache)")
+        if not self.supports_grouped(query):
+            raise ValueError(
+                f"lane pool cannot serve grouped func={query.func!r} "
+                f"metric={query.metric!r} (needs a moment-family func, "
+                f"metric {self._spec['metric']!r}, absolute epsilon, no "
+                f"predicate)")
+        if key is None:
+            self.key, key = keylib.split(self.key)
+        key = keylib.as_key(key)
+        G = self.data.num_groups
+        scale_row = self._scale_rows.get(query.func)
+        if scale_row is None:
+            scale_row = estimators.population_scale_row(
+                query.func, self.data.scale)
+            self._scale_rows[query.func] = scale_row
+        keys = np.stack([keylib.fold_in(key, g) for g in range(G)])
+        n_cap = self._spec["n_cap"]
+        params = make_group_lane_params(
+            self._offsets, scale_row, keys,
+            np.full((G,), query.epsilon, np.float32),
+            np.full((G,), query.delta, np.float32), self._sample_key,
+            np.full((G,), self._family[query.func], np.int32), n_cap=n_cap,
+            slot_idx=self._grouped_tables(), device=self.device)
+        state = init_lane_state(
+            keys, 1, n_cap=n_cap, c_dim=self.data.values.shape[1], p_dim=1,
+            n_min=self._spec["n_min"], max_iters=self._spec["max_iters"],
+            device=self.device, dtype=self.data.values.dtype)
+        qid = self._next_qid
+        self._next_qid += 1
+        self.submitted += 1
+        self.grouped_submitted += 1
+        self._blocks[qid] = _Block(
+            qid=qid, func=query.func, state=state, params=params,
+            submitted_s=time.perf_counter(), admitted_tick=self.ticks)
+        return qid
 
     # -- scheduling ---------------------------------------------------------
     def _place_tier(self) -> Optional[int]:
@@ -369,9 +484,50 @@ class LanePool:
                 n_retired += 1
         return n_retired
 
+    def _harvest_blocks(self) -> int:
+        """Retire the blocks whose EVERY lane has finished; per-group
+        answers leave together as one :class:`GroupPoolResponse`.  One
+        host read per block (all fields as float64, exact for int32 and
+        float32)."""
+        max_iters = self._spec["max_iters"]
+        now = time.perf_counter()
+        finished = []
+        for qid, blk in self._blocks.items():
+            s = blk.state
+            G = s.k.shape[0]
+            f64 = torch.float64
+            host = torch.cat([
+                s.done.to(f64), s.failed.to(f64), s.k.to(f64),
+                s.iters.to(f64), s.n_cur[:, 0].to(f64),
+                s.filled[:, 0].to(f64), s.e.to(f64), s.theta[:, 0, 0].to(f64),
+                s.beta.reshape(-1).to(f64)]).cpu().numpy()
+            done, failed, k, iters, n, filled, e, theta = \
+                host[:8 * G].reshape(8, G)
+            done, failed = done != 0, failed != 0
+            if not np.all(done | failed | (k >= max_iters)):
+                continue
+            rows = int(filled.sum())
+            self.results[qid] = GroupPoolResponse(
+                qid=qid, func=blk.func, theta=theta.astype(np.float32),
+                error=e.astype(np.float32), group_success=done,
+                success=bool(done.all()), failed=bool(failed.any()),
+                n=n.astype(np.int32), iterations=iters.astype(np.int32),
+                rows_sampled=rows, wall_time_s=now - blk.submitted_s,
+                queue_wait_s=0.0,
+                ticks_in_block=self.ticks - blk.admitted_tick,
+                beta=host[8 * G:].reshape(G, -1).astype(np.float32))
+            self.retired += 1
+            self.grouped_retired += 1
+            self._retired_rows += rows
+            finished.append(qid)
+        for qid in finished:
+            del self._blocks[qid]
+        return len(finished)
+
     def tick(self) -> int:
         """One scheduling round: refill, run ``ticks_per_sync`` ticks per
-        busy tier (one dispatch each), harvest.  Returns busy lanes."""
+        busy tier and per resident block (one dispatch each), harvest.
+        Returns busy lanes + blocks."""
         self._maybe_rotate()
         self._refill()
         ran = False
@@ -386,17 +542,27 @@ class LanePool:
             self.lane_ticks_busy += busy * self.ticks_per_sync
             self._active_frac_sum += busy / self.tier_lanes
             ran = True
+        for blk in self._blocks.values():
+            blk.state = fused_step(
+                self._values, self._goffsets, blk.state, blk.params,
+                num_ticks=self.ticks_per_sync, seg_cap=self._gseg_cap,
+                **self._spec)
+            self.dispatches += 1
+            self.block_ticks += self.ticks_per_sync
+            ran = True
         if not ran:
             return 0
         self.ticks += self.ticks_per_sync
         self._harvest()
-        return self.busy_lanes
+        self._harvest_blocks()
+        return self.busy_lanes + self.busy_blocks
 
     def drain(self, max_ticks: int = 100_000) -> List[PoolResponse]:
         """Tick until the queue and every lane are empty; pop and return
         every retired result not yet collected, in qid order."""
         guard = 0
-        while (self._queue or self.busy_lanes) and guard < max_ticks:
+        while (self._queue or self.busy_lanes or self._blocks) \
+                and guard < max_ticks:
             self.tick()
             guard += self.ticks_per_sync
         return [self.results.pop(qid) for qid in sorted(self.results)]
@@ -405,7 +571,7 @@ class LanePool:
     def set_sample_key(self, sample_key) -> None:
         """Rotate the pool-shared slot->row binding; only legal while idle
         (a resident lane's prefix is defined by the old binding)."""
-        if self.busy_lanes or self._queue:
+        if self.busy_lanes or self._queue or self._blocks:
             raise RuntimeError("cannot rotate sample_key with queries in "
                                "flight; drain() first or use "
                                "request_sample_key()")
@@ -419,7 +585,8 @@ class LanePool:
         return self._maybe_rotate()
 
     def _maybe_rotate(self) -> bool:
-        if self._pending_sample_key is None or self.busy_lanes:
+        if self._pending_sample_key is None or self.busy_lanes \
+                or self._blocks:
             return False
         key, self._pending_sample_key = self._pending_sample_key, None
         self._apply_sample_key(key)
@@ -432,6 +599,7 @@ class LanePool:
             self._spec["n_cap"], device=self.device)
         for tier in self._tiers:
             tier.params = tier.params._replace(slot_idx=slot_idx)
+        self._gtables = None
         self.sample_epochs += 1
 
     # -- accounting ---------------------------------------------------------
@@ -450,6 +618,10 @@ class LanePool:
             "dispatches": self.dispatches,
             "submitted": self.submitted,
             "retired": self.retired,
+            "grouped_submitted": self.grouped_submitted,
+            "grouped_retired": self.grouped_retired,
+            "busy_blocks": self.busy_blocks,
+            "block_ticks": self.block_ticks,
             "queue_depth": self.queue_depth,
             "peak_queue_depth": self.peak_queue_depth,
             "lane_occupancy": self.lane_ticks_busy / cap,

@@ -8,9 +8,10 @@
 * :meth:`poll` pops a finished response (None while in flight).
 * :meth:`drain` pumps until idle.
 
-Routes served here: POOL (continuous lanes), BATCHED (one closed-loop
-dispatch per func group) and LOOP (one dispatch per query).  HOST, WARM and
-GROUP BY requests belong to later slices and raise ``NotImplementedError``.
+Routes served here: POOL (continuous lanes, and GROUP BY requests as
+grouped lane blocks of the same pool), BATCHED (one closed-loop dispatch per
+func group) and LOOP (one dispatch per query).  HOST and WARM requests
+belong to later slices and raise ``NotImplementedError``.
 
 One ``sample_key`` per epoch pins the fused slot->row binding; the epoch
 rotates after ``reshuffle_every`` completions, and a rotation with pool
@@ -33,7 +34,7 @@ from ..core import keys as keylib
 from ..core.fused import fused_l2miss_batch
 from ..core.sampling import GroupedData
 from ..kernels import resolve_use_kernel
-from .lane_pool import LanePool
+from .lane_pool import GroupPoolResponse, LanePool
 from .planner import Planner, Route, fusable
 
 
@@ -62,6 +63,12 @@ class SessionResponse:
     deadline_s: Optional[float] = None
     slo_met: Optional[bool] = None      # None when no deadline was set
     epsilon: Optional[float] = None     # requested bound
+    # GROUP BY requests: ``theta``/``n`` hold one row per group,
+    # ``error``/``success`` the summary (max over groups / the conjunction),
+    # and the per-group quantiles and verdicts land here.
+    group_by: bool = False
+    group_error: Optional[np.ndarray] = None     # (G,)
+    group_success: Optional[np.ndarray] = None   # (G,)
 
 
 @dataclasses.dataclass
@@ -169,7 +176,8 @@ class AQPSession:
         self._retune()
         self._admit()
         pool = self._pool
-        if pool is not None and (pool.busy_lanes or pool.queue_depth):
+        if pool is not None and (pool.busy_lanes or pool.busy_blocks
+                                 or pool.queue_depth):
             d0 = pool.dispatches
             pool.tick()
             self.fused_dispatches += pool.dispatches - d0
@@ -212,7 +220,8 @@ class AQPSession:
 
     def _complete(self, entry: _InFlight, *, theta, error, success, n,
                   wall_time_s: float, queue_wait_s: float, route: Route,
-                  rows_sampled: int, now: Optional[float] = None) -> None:
+                  rows_sampled: int, now: Optional[float] = None,
+                  group_error=None, group_success=None) -> None:
         now = time.perf_counter() if now is None else now
         latency = now - entry.ticket.submitted_s
         ddl = entry.request.deadline_s
@@ -222,7 +231,9 @@ class AQPSession:
             queue_wait_s=queue_wait_s, route=route,
             rows_sampled=rows_sampled, deadline_s=ddl,
             slo_met=None if ddl is None else latency <= ddl,
-            epsilon=entry.request.query.epsilon)
+            epsilon=entry.request.query.epsilon,
+            group_by=bool(entry.request.query.group_by),
+            group_error=group_error, group_success=group_success)
         del self._inflight[entry.request.rid]
         self.completed += 1
         self.planner.observe_completion()
@@ -257,8 +268,8 @@ class AQPSession:
         if plan.ticks_per_sync != pool.ticks_per_sync:
             pool.ticks_per_sync = plan.ticks_per_sync
             self.planner.retunes += 1
-        if (plan.rebuild and not pool.busy_lanes and not pool.queue_depth
-                and not pool.results):
+        if (plan.rebuild and not pool.busy_lanes and not pool.busy_blocks
+                and not pool.queue_depth and not pool.results):
             self._pool = self._build_pool(plan.lanes, plan.ticks_per_sync)
             self.pool_rebuilds += 1
 
@@ -271,8 +282,8 @@ class AQPSession:
         wave = [self._inflight[rid] for rid in self._arrivals]
         self._arrivals.clear()
         pool = self._pool
-        pool_busy = pool is not None and bool(pool.busy_lanes
-                                              or pool.queue_depth)
+        pool_busy = pool is not None and bool(
+            pool.busy_lanes or pool.busy_blocks or pool.queue_depth)
         n_fus = 0
         for e in wave:
             if fusable(e.request):
@@ -289,8 +300,6 @@ class AQPSession:
             if Route.HOST in groups:
                 raise _later("the host route (item 10)")
             if Route.POOL in groups:
-                if any(e.request.query.group_by for e in groups[Route.POOL]):
-                    raise _later("GROUP BY lane blocks (item 13)")
                 self._admit_pool(groups[Route.POOL])
             if Route.BATCHED in groups:
                 self._run_batched(groups[Route.BATCHED])
@@ -325,10 +334,15 @@ class AQPSession:
         pool = self._ensure_pool()
         for e, key in zip(entries, self._lane_keys(entries)):
             req = e.request
-            deadline_at = (None if req.deadline_s is None
-                           else e.ticket.submitted_s + req.deadline_s)
-            qid = pool.submit(req.query, key=key, priority=req.priority,
-                              deadline_at=deadline_at)
+            if req.query.group_by:
+                # A grouped request is admitted at once as a lane block: no
+                # ticket queue, no priority/deadline reorder.
+                qid = pool.submit_group(req.query, key=key)
+            else:
+                deadline_at = (None if req.deadline_s is None
+                               else e.ticket.submitted_s + req.deadline_s)
+                qid = pool.submit(req.query, key=key, priority=req.priority,
+                                  deadline_at=deadline_at)
             self._pool_rids[qid] = req.rid
 
     def _harvest_pool(self) -> None:
@@ -345,11 +359,15 @@ class AQPSession:
             entry = self._inflight[rid]
             wall = now - entry.ticket.submitted_s
             resident = r.wall_time_s - r.queue_wait_s
+            grouped = isinstance(r, GroupPoolResponse)
             self._complete(
-                entry, theta=r.theta, error=float(r.error),
+                entry, theta=r.theta,
+                error=float(np.max(r.error)) if grouped else float(r.error),
                 success=bool(r.success), n=r.n, wall_time_s=wall,
                 queue_wait_s=max(wall - resident, 0.0), route=Route.POOL,
-                rows_sampled=r.rows_sampled, now=now)
+                rows_sampled=r.rows_sampled, now=now,
+                group_error=r.error if grouped else None,
+                group_success=r.group_success if grouped else None)
 
     # -- synchronous routes -------------------------------------------------
     def _dispatch_fused(self, func: str, queries: List[Query], keys):

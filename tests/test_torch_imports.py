@@ -40,6 +40,9 @@ def test_every_module_imports_without_jax_or_reference():
     expected = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                       "repro_torch.")]
     assert count == len(expected) >= 20
+    for name in ("kernels.nvcc", "kernels.segment_agg.ops",
+                 "kernels.segment_agg.ref"):
+        assert f"repro_torch.{name}" in expected, name
 
 
 def test_chip_smoke_imports_neither():

@@ -184,7 +184,8 @@ def test_later_slices_raise(cont):
         pool.submit(Query(func="avg", epsilon=0.1), warm_n0=np.ones(2),
                     warm_beta=np.ones(3))
     with pytest.raises(NotImplementedError):
-        pool.submit_group(Query(func="avg", epsilon=0.1, group_by=True))
+        pool.submit_group(Query(func="avg", epsilon=0.1, group_by=True),
+                          warm_n0=np.ones(2), warm_beta=np.ones((2, 2)))
     with pytest.raises(ValueError):
         pool.submit(Query(func="median", epsilon=0.1))
     sess = AQPSession(td, **SESSION_KW)
