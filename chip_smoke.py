@@ -5,9 +5,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs a CUDA
 card and exits non-zero without one.  Phases, in order; any failure exits
 non-zero and nothing falls back to the CPU:
 
-1. card and build: print the card's name and power limit, build the kernel
-   libraries from ``src/repro_torch/csrc`` with nvcc, one process per source,
-   all started together;
+1. card and build: print the card's name and power limit, build the three
+   kernel libraries from ``src/repro_torch/csrc`` with nvcc, one process per
+   source, all started together;
 2. Poisson-bootstrap kernel against its plain PyTorch version on the card at
    the serve phase's tier shape (4 lanes x 4 groups, B = 300) on every rung
    of the width ladder: rtol 1e-5 (bit-exact expected: same summation
@@ -45,15 +45,41 @@ non-zero and nothing falls back to the CPU:
    exact answer, every solo request succeeds, and both bootstrap kernels
    launched;
 8. the segment-bootstrap kernel checked and timed once more, with its plain
-   version, at the stream length phase 7 launched most; then the result
-   lines: a JSON object of kernel measurements, then
+   version, at the stream length phase 7 launched most;
+9. decode-attention kernel against its plain version on the card at the LM
+   serve's shape (8 rows, 12 query heads over 2 KV heads, d = 128, S_max =
+   2048, bf16, per-row lengths in the serve's range, positions past each
+   length poisoned), in f32 at the same shape, and at the four shapes of
+   the reference's kernel test in both types: f32 at rtol 1e-5 / atol 1e-6,
+   bf16 within one bf16 ulp (beyond that atol) of the plain version's f32
+   result; kernel,
+   plain and library (``scaled_dot_product_attention`` with a length mask
+   and ``enable_gqa``) times over eight rotating caches (colder than L2),
+   from a CUDA graph of 64 calls (the device's time; eager back-to-back
+   times, which the host's enqueue rate bounds, are printed beside them)
+   against the byte bound;
+10. the LM port on the card against the CPU at the CPU tests' size: reduced
+   ``qwen2-1.5b`` (f32) with the same seeded weights and prompts; the
+   batcher's tokens equal (6 requests through 2 slots, retires at EOS and
+   at s_max - 1), prefill and decode logits at rtol/atol 2e-4;
+11. full-width consistency: Qwen2-1.5B in f32 (TF32 off), ``prefill`` then
+   four ``decode_step``s through the kernel against ``train_logits`` over
+   the extended sequence: rtol/atol 2e-4, argmax equal where the top-2
+   margin exceeds 2e-4;
+12. LM serve at full width: Qwen2-1.5B in bf16, weights from a seeded
+   generator on the card, ``ContinuousBatcher(slots=8, s_max=2048)``
+   answers 16 requests (prompts of 32-1024 random tokens, 32 new tokens
+   each); every request completes with its 32 tokens, and the
+   decode-attention kernel launched 28 times per decode step; then the
+   result lines: a JSON object of kernel measurements, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
-Phases 6 and 7 are the main paths: every kernel's launch count is set to 0
-just before each and read just after; the launches of phases 2-5 and 8
+Phases 6, 7 and 12 are the main paths: every kernel's launch count is set to
+0 just before each and read just after; the launches of the other phases
 (the comparisons with the plain versions) count nowhere.
 """
 import collections
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -96,11 +122,13 @@ def nvidia_smi(query: str) -> str:
 
 
 def _counters():
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.poisson_bootstrap import ops as pb_ops
     from repro_torch.kernels.segment_agg import ops as seg_ops
     return {"poisson_bootstrap": pb_ops.counter,
             "segment_bootstrap": seg_ops.boot_counter,
-            "segment_aggregate": seg_ops.agg_counter}
+            "segment_aggregate": seg_ops.agg_counter,
+            "decode_attention": da_ops.counter}
 
 
 def reset_counts() -> None:
@@ -130,6 +158,34 @@ def cuda_ms(fn, reps: int, rounds: int) -> float:
         e0.record()
         for _ in range(reps):
             fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / reps)
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps: int, rounds: int) -> float:
+    """Median over ``rounds`` of the CUDA-event time of one replay of a CUDA
+    graph holding ``reps`` calls, over ``reps``: the device's time for a
+    call without the host's enqueue rate, which back-to-back eager calls of
+    a few-microsecond op measure instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
         e1.record()
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1) / reps)
@@ -668,6 +724,347 @@ def phase_grouped_serve(data):
     return counts, lengths
 
 
+# ---------------------------------------------------------------------------
+# phases 9-12: the LM serving path (dense decoder, Qwen2-1.5B)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "qwen2-1.5b"
+LM_SLOTS, LM_S_MAX, LM_REQUESTS, LM_NEW = 8, 2048, 16, 32
+LM_PROMPT = (32, 1024)          # prompt lengths, inclusive
+LM_TOL = dict(rtol=2e-4, atol=2e-4)
+F32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
+DECODE_SHAPES = [               # tests/test_kernels.py's decode shapes
+    (1, 8, 2, 128, 1024), (2, 4, 4, 64, 600), (1, 16, 8, 128, 512),
+    (2, 8, 1, 128, 768)]
+
+
+def _bf16_ulps(got: torch.Tensor, want_f32: torch.Tensor) -> float:
+    """Largest |got - bf16(want)| beyond the f32 atol (1e-6), in bf16 ulps of
+    the larger magnitude: an output that cancels to ~1e-6 carries f32
+    rounding of ~1e-8 from either summation order, more than a bf16 ulp of
+    so small a value."""
+    want = want_f32.to(torch.bfloat16).float()
+    g = got.float()
+    mag = torch.maximum(g.abs(), want.abs())
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    return float(((g - want).abs() - 1e-6).clamp_min(0.0).div(ulp).max())
+
+
+def _decode_inputs(B, Hq, Hkv, d, S, dtype, gen, lens):
+    """q, and a cache whose positions past each row's length are poisoned."""
+    dev = "cuda"
+    q = torch.randn(B, Hq, d, generator=gen, device=dev).to(dtype) * 0.3
+    k = (torch.randn(B, S, Hkv, d, generator=gen, device=dev) * 0.3).to(dtype)
+    v = torch.randn(B, S, Hkv, d, generator=gen, device=dev).to(dtype)
+    for b, L in enumerate(lens.tolist()):
+        k[b, L:] = 100.0
+        v[b, L:] = 1e4
+    return q, k, v
+
+
+def phase_decode_kernel():
+    """Kernel vs plain at the serve's shape (bf16 and f32) and at the
+    reference test's shapes; times over rotating caches."""
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rng = np.random.default_rng(13)
+    B, Hq, Hkv, d, S = LM_SLOTS, 12, 2, 128, LM_S_MAX
+    lo, hi = LM_PROMPT[0] + 1, LM_PROMPT[1] + LM_NEW
+    n_rot = 8                   # 8 x 16.8 MB of cache: colder than L2
+    sets = []
+    for _ in range(n_rot):
+        lens = torch.as_tensor(rng.integers(lo, hi + 1, B), dtype=torch.int32,
+                               device="cuda")
+        sets.append((*_decode_inputs(B, Hq, Hkv, d, S, torch.bfloat16, gen,
+                                     lens), lens))
+    max_err, worst_ulps = 0.0, 0.0
+    for q, k, v, lens in sets:
+        got = ops.decode_attention(q, k, v, lens)
+        plain = ref.decode_attention_ref(q, k, v, lens)
+        f32 = ref.decode_attention_ref(q.float(), k.float(), v.float(), lens)
+        torch.cuda.synchronize()
+        max_err = max(max_err, float((got.float() - plain.float()).abs().max()))
+        worst_ulps = max(worst_ulps, _bf16_ulps(got, f32))
+    check(worst_ulps <= 1.0, f"bf16 kernel {worst_ulps} ulps from the plain "
+                             f"version's f32 result")
+    q, k, v, lens = sets[0]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    got = ops.decode_attention(qf, kf, vf, lens)
+    want = ref.decode_attention_ref(qf, kf, vf, lens)
+    torch.cuda.synchronize()
+    f32_err = float((got - want).abs().max())
+    max_err = max(max_err, f32_err)
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+          f"f32 kernel != plain at the serve shape (max abs err {f32_err})")
+    print(f"  serve shape B={B} Hq={Hq} Hkv={Hkv} d={d} S={S}: bf16 within "
+          f"{worst_ulps:.2f} ulp of plain f32 (max abs err vs plain bf16 "
+          f"{max_err:.3g}), f32 max abs err {f32_err:.3g}; lengths "
+          f"{lens.tolist()}")
+    for Bs, Hqs, Hkvs, ds, Ss in DECODE_SHAPES:
+        full = torch.full((Bs,), Ss, dtype=torch.int32, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            qs, ks, vs = _decode_inputs(Bs, Hqs, Hkvs, ds, Ss, dt, gen, full)
+            got = ops.decode_attention(qs, ks, vs, Ss)
+            f32 = ref.decode_attention_ref(qs.float(), ks.float(), vs.float(),
+                                           Ss)
+            torch.cuda.synchronize()
+            if dt == torch.float32:
+                err = float((got - f32).abs().max())
+                check(torch.allclose(got, f32, rtol=1e-5, atol=1e-6),
+                      f"f32 kernel != plain at {(Bs, Hqs, Hkvs, ds, Ss)}")
+            else:
+                ulps = _bf16_ulps(got, f32)
+                check(ulps <= 1.0, f"bf16 kernel {ulps} ulps off at "
+                                   f"{(Bs, Hqs, Hkvs, ds, Ss)}")
+                err = float((got.float() - ref.decode_attention_ref(
+                    qs, ks, vs, Ss).float()).abs().max())
+            max_err = max(max_err, err)
+    print(f"  reference test shapes {DECODE_SHAPES}: f32 and bf16 pass")
+
+    it = iter(range(1 << 30))
+    masks = [(torch.arange(S, device="cuda")[None, :] < s[3][:, None])[
+        :, None, None] for s in sets]
+
+    def library(i):
+        q, k, v, _ = sets[i]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=masks[i], enable_gqa=True)
+
+    times = {}
+    for name, fn in (("ms", lambda i: ops.decode_attention(*sets[i])),
+                     ("plain_ms", lambda i: ref.decode_attention_ref(*sets[i])),
+                     ("library_ms", library)):
+        def call(fn=fn):
+            return fn(next(it) % n_rot)
+        times[name] = graph_ms(call, reps=64, rounds=5)
+        times["eager_" + name] = cuda_ms(call, reps=64, rounds=5)
+    k_ms, p_ms, l_ms = times["ms"], times["plain_ms"], times["library_ms"]
+    q, k, v, lens = sets[0]
+    lib = torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=masks[0], enable_gqa=True)[:, :, 0]
+    lib_err = float((lib.float() - ref.decode_attention_ref(
+        q.float(), k.float(), v.float(), lens)).abs().max())
+    tot = sum(int(s[3].sum()) for s in sets) / n_rot       # mean sum of lengths
+    n_bytes = tot * Hkv * d * 2 * 2 + 2 * B * Hq * d * 2 + 4 * B
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = tot * Hq * d * 4 / F32_FLOPS * 1e3
+    row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               max_abs_err=max_err)
+    print(f"  eager back-to-back calls (host enqueue included): kernel "
+          f"{times['eager_ms']:.4f} ms  plain {times['eager_plain_ms']:.4f} "
+          f"ms  library {times['eager_library_ms']:.4f} ms")
+    print(f"  CUDA graph of 64 calls: kernel {k_ms:.4f} ms  plain "
+          f"{p_ms:.4f} ms  library "
+          f"{l_ms:.4f} ms (max abs err vs plain f32 {lib_err:.3g})  bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}: {n_bytes / 1e6:.2f} MB"
+          f" per call, mean sum of lengths {tot:.0f}); {n_rot} rotating "
+          f"caches of {B * S * Hkv * d * 2 * 2 / 1e6:.1f} MB")
+    return row
+
+
+LM_CPU_SPECS = [(6, 8), (6, 12), (6, 8), (6, 8), (16, 16), (6, 16)]
+LM_CPU_S_MAX, LM_CPU_SLOTS, LM_CPU_EOS_RID = 24, 2, 1
+
+
+def _lm_small_serve(cfg, params, prompts, eos):
+    """tests/test_torch_lm_serve.py's batcher run: 6 requests, 2 slots."""
+    from repro_torch.serve.batching import ContinuousBatcher, Request
+
+    b = ContinuousBatcher(cfg, params, slots=LM_CPU_SLOTS, s_max=LM_CPU_S_MAX)
+    for rid, (p, (_, new)) in enumerate(zip(prompts, LM_CPU_SPECS)):
+        b.submit(Request(rid=rid, prompt=p, max_new_tokens=new,
+                         eos_id=eos if rid == LM_CPU_EOS_RID else None))
+    return {r.rid: list(map(int, r.out_tokens)) for r in b.run()}
+
+
+def phase_lm_card_vs_cpu():
+    """The reduced LM on the card (kernel) against the CPU (plain version):
+    the CPU serve test's weights and prompts."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy, lm_tree_from_seed
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.models import model as M
+    from repro_torch.models.config import reduced_for_smoke
+
+    cfg = reduced_for_smoke(get_config(LM_ARCH))
+    tree = lm_tree_from_seed(cfg, 2)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n, _ in LM_CPU_SPECS]
+    pc = lm_params_from_numpy(cfg, tree, device="cuda")
+    ph = lm_params_from_numpy(cfg, tree, device="cpu")
+    free = _lm_small_serve(cfg, ph, prompts, None)
+    eos = free[LM_CPU_EOS_RID][3]
+    n0 = da_ops.counter.launches
+    card = _lm_small_serve(cfg, pc, prompts, eos)
+    launched = da_ops.counter.launches - n0
+    cpu = _lm_small_serve(cfg, ph, prompts, eos)
+    check(card == cpu, f"batcher tokens card != cpu: {card} vs {cpu}")
+    check(launched > 0, "the card's batcher never launched the kernel")
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 12))
+    logs = []
+    for p, dev in ((pc, "cuda"), (ph, "cpu")):
+        seq = torch.as_tensor(tokens, device=dev)
+        last, raw, _ = M.prefill(cfg, p, {"tokens": seq})
+        caches = M.caches_from_prefill(cfg, raw, S_max=16)
+        out = [last]
+        for t in range(3):
+            last, caches = M.decode_step(cfg, p, seq[:, t:t + 1], caches)
+            out.append(last)
+        logs.append(torch.cat(out, dim=1).cpu().numpy())
+    err = float(np.abs(logs[0] - logs[1]).max())
+    check(np.allclose(logs[0], logs[1], **LM_TOL),
+          f"LM logits card != cpu (max abs err {err})")
+    print(f"  reduced {LM_ARCH}: batcher tokens card == cpu for "
+          f"{len(card)} requests ({launched} kernel launches on the card), "
+          f"prefill + 3 decode logits max abs err {err:.3g}")
+
+
+def phase_lm_full_width_f32():
+    """Qwen2-1.5B in f32: prefill -> decode_step (the kernel) against
+    train_logits over the extended sequence."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    t = time.perf_counter()
+    params = M.init_model(cfg, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    n_params = M.count_params(params)
+    print(f"  {LM_ARCH} f32: {n_params / 1e9:.3f} B params, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, built "
+          f"in {time.perf_counter() - t:.1f} s")
+    seq = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64)), device="cuda")
+    last, raw, _ = M.prefill(cfg, params, {"tokens": seq})
+    caches = M.caches_from_prefill(cfg, raw, S_max=128)
+    worst, clear_n = 0.0, 0
+    for _ in range(4):
+        nxt = last[:, -1].argmax(-1)[:, None]
+        seq = torch.cat([seq, nxt], dim=1)
+        last, caches = M.decode_step(cfg, params, nxt, caches)
+        full, _ = M.train_logits(cfg, params, {"tokens": seq})
+        a, b = last[:, 0], full[:, -1]
+        err = float((a - b).abs().max())
+        worst = max(worst, err)
+        check(torch.allclose(a, b, **LM_TOL),
+              f"full-width decode != train_logits (max abs err {err})")
+        top2 = torch.topk(b, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > LM_TOL["atol"]
+        clear_n += int(clear.sum())
+        check(torch.equal(a.argmax(-1)[clear], b.argmax(-1)[clear]),
+              "full-width argmax differs")
+    print(f"  prefill(64) + 4 decode steps vs train_logits: max abs err "
+          f"{worst:.3g} (rtol/atol 2e-4), argmax equal on {clear_n} of 8 "
+          f"clear rows")
+    del params, caches, last, full
+    torch.cuda.empty_cache()
+
+
+def lm_requests(cfg):
+    """The full-width serve's 16 prompts (numpy seed 0)."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+
+
+def run_lm_serve(cfg, params, prompts) -> dict:
+    """One ContinuousBatcher serve of ``prompts``; host-clock times around
+    work that ends in a host read (each splice and step reads tokens)."""
+    from repro_torch.serve.batching import ContinuousBatcher, Request
+
+    batcher = ContinuousBatcher(cfg, params, slots=LM_SLOTS, s_max=LM_S_MAX)
+    splice_s, step_s, steps = [], [], [0]
+    splice, decode = batcher._splice, batcher._decode
+
+    def timed_splice(slot, req):
+        t = time.perf_counter()
+        splice(slot, req)
+        splice_s.append(time.perf_counter() - t)
+
+    def counted_decode(*a):
+        steps[0] += 1
+        return decode(*a)
+
+    batcher._splice, batcher._decode = timed_splice, counted_decode
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=LM_NEW)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        batcher.submit(r)
+    done_s = {}
+    while batcher.queue or batcher.active:
+        n_spl, n_steps = len(splice_s), steps[0]
+        t = time.perf_counter()
+        batcher.step()
+        dt = time.perf_counter() - t
+        if steps[0] > n_steps:
+            step_s.append(dt - sum(splice_s[n_spl:]))
+        now = time.perf_counter()
+        for r in batcher.completed:
+            done_s.setdefault(r.rid, now - t0)
+    wall = time.perf_counter() - t0
+    return dict(wall=wall, done=batcher.completed, splice_s=splice_s,
+                step_s=step_s, steps=steps[0], latency_s=done_s)
+
+
+def phase_lm_serve():
+    """Qwen2-1.5B bf16 at full width: 16 requests through 8 slots."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(LM_ARCH)
+    t = time.perf_counter()
+    params = M.init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  {LM_ARCH} bf16: {M.count_params(params) / 1e9:.3f} B params, "
+          f"built in {time.perf_counter() - t:.1f} s")
+    prompts = lm_requests(cfg)
+    run_lm_serve(cfg, params, prompts[:2])          # warm-up: first calls
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    st = run_lm_serve(cfg, params, prompts)
+    counts = read_counts()
+    n_da = counts["decode_attention"]
+    done = st["done"]
+    check(len(done) == LM_REQUESTS, f"{len(done)} of {LM_REQUESTS} requests "
+                                    f"completed")
+    for r in done:
+        check(len(r.out_tokens) == LM_NEW,
+              f"request {r.rid} has {len(r.out_tokens)} tokens")
+        check(all(0 <= x < cfg.vocab_size for x in r.out_tokens),
+              f"request {r.rid}: token out of the vocabulary")
+    check(n_da > 0 and n_da == cfg.n_layers * st["steps"],
+          f"decode-attention launches {n_da} != {cfg.n_layers} x "
+          f"{st['steps']} decode steps")
+    tokens = sum(len(r.out_tokens) for r in done)
+    lat = np.asarray(list(st["latency_s"].values())) * 1e3
+    step_ms = np.asarray(st["step_s"]) * 1e3
+    print(f"  serve: {len(done)} requests, {tokens} tokens in "
+          f"{st['wall']:.3f} s = {tokens / st['wall']:.1f} tokens/s; "
+          f"{st['steps']} decode steps, decode step mean "
+          f"{step_ms.mean():.2f} ms p50 {np.percentile(step_ms, 50):.2f} ms; "
+          f"prefill (+splice) mean {np.mean(st['splice_s']) * 1e3:.2f} ms "
+          f"over {len(st['splice_s'])} prompts of {LM_PROMPT[0]}-"
+          f"{LM_PROMPT[1]} tokens; latency (submit -> last token) p50 "
+          f"{np.percentile(lat, 50):.2f} ms p99 {np.percentile(lat, 99):.2f} "
+          f"ms; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB;"
+          f" decode-attention launches {n_da}")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _lineitem(group_by: str):
     from repro_torch.data import make_lineitem
 
@@ -684,6 +1081,7 @@ def _lineitem(group_by: str):
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: a CUDA card is required")
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.poisson_bootstrap import ops as pb_ops
     from repro_torch.kernels.segment_agg import ops as seg_ops
 
@@ -695,11 +1093,13 @@ def main() -> None:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}; max SM clock {clock_mhz:.0f} MHz")
     t = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as ex:
-        list(ex.map(lambda b: b(verbose=True), (pb_ops.build, seg_ops.build)))
+    builds = (pb_ops.build, seg_ops.build, da_ops.build)
+    with ThreadPoolExecutor(max_workers=len(builds)) as ex:
+        list(ex.map(lambda b: b(verbose=True), builds))
     pb_ops.library()
     seg_ops.library()
-    print(f"phase 1: both kernel libraries built in "
+    da_ops.library()
+    print(f"phase 1: the three kernel libraries built in "
           f"{time.perf_counter() - t:.1f} s")
     data, _ = _lineitem("shipinstruct")
     tax, tax_gid = _lineitem("tax")
@@ -734,9 +1134,27 @@ def main() -> None:
           f"stream length")
     s = seg_measure(L_main, plain=True)
     seg_err = max(row["max_abs_err"] for row in [s, *seg_rows.values()])
+    del data, tax, tax_gid
+    torch.cuda.empty_cache()
+    # -- phase 9 --
+    print("phase 9: decode-attention kernel vs plain on the card")
+    da = phase_decode_kernel()
+    # -- phase 10 --
+    print("phase 10: LM card vs cpu at the CPU tests' size")
+    phase_lm_card_vs_cpu()
+    # -- phase 11 --
+    print(f"phase 11: {LM_ARCH} full width in f32, prefill -> decode_step vs "
+          f"train_logits")
+    phase_lm_full_width_f32()
+    # -- phase 12 --
+    print(f"phase 12: LM serve, {LM_ARCH} bf16 at full width")
+    lm_counts = phase_lm_serve()
+    launches = add_counts(launches, lm_counts)
+    print(f"  launches on the main paths (phases 6 + 7 + 12): {launches}")
     print(f"  result rows: Poisson bootstrap at the solo serve's most used "
           f"width w={w_main}; segment bootstrap at L={L_main}; aggregate over "
-          f"the whole table (no serve-path caller: 0 launches); total "
+          f"the whole table (no serve-path caller: 0 launches); decode "
+          f"attention at the LM serve's shape; total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "poisson_bootstrap", "route": "cuda",
@@ -759,7 +1177,14 @@ def main() -> None:
         "max_abs_err": agg["max_abs_err"],
         "ms": agg["ms"], "plain_ms": agg["plain_ms"],
         "bound_ms": agg["bound_ms"], "bound_by": "bytes",
-        "library_ms": agg["library_ms"]}]}))
+        "library_ms": agg["library_ms"]}, {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:33",
+        "launches": launches["decode_attention"],
+        "max_abs_err": da["max_abs_err"], "ms": da["ms"],
+        "plain_ms": da["plain_ms"], "bound_ms": da["bound_ms"],
+        "bound_by": da["bound_by"], "library_ms": da["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

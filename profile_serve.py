@@ -10,11 +10,15 @@ ops.  The phases (TPC-H lineitem SF10 resident on the card, a forced-POOL
 * default: the solo serve, 16 avg/sum/var/std requests, GROUP BY
   SHIPINSTRUCT;
 * ``--grouped``: the grouped serve, 8 GROUP BY requests as lane blocks and
-  4 solo requests in one pool, GROUP BY TAX.
+  4 solo requests in one pool, GROUP BY TAX;
+* ``--lm``: the LM serve of ``chip_smoke.py`` phase 12 (Qwen2-1.5B bf16 at
+  full width, 16 requests through a ``ContinuousBatcher`` of 8 slots), then
+  four lone decode steps of the 8-slot pool for the kernels per decode
+  step; it also prints the decode-attention kernel's share of device time.
 
 Run from the root of a checkout on a machine with a CUDA card:
-``python3 profile_serve.py [--grouped] [TRACE.json]``; with a path, the
-Chrome trace is written there.
+``python3 profile_serve.py [--grouped | --lm] [TRACE.json]``; with a path,
+the Chrome trace is written there.
 """
 import argparse
 import sys
@@ -27,8 +31,9 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from chip_smoke import (SERVE, fail, grouped_requests,  # noqa: E402
-                        nvidia_smi, serve_requests)
+from chip_smoke import (LM_ARCH, LM_S_MAX, LM_SLOTS,  # noqa: E402
+                        SERVE, fail, grouped_requests, lm_requests,
+                        nvidia_smi, run_lm_serve, serve_requests)
 
 
 def serve_once(data, reqs) -> float:
@@ -52,17 +57,87 @@ def serve_once(data, reqs) -> float:
     return wall
 
 
+def device_summary(prof, wall: float, what: str):
+    """Device busy time over ``wall`` and the kernel count of a profile."""
+    events = prof.key_averages()
+    cuda = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in cuda)
+    n_kernels = sum(e.count for e in cuda)
+    print(f"  {what}: device busy {dev_us / 1e3:.2f} ms of {wall * 1e3:.1f} "
+          f"ms wall: busy share {dev_us / 1e6 / wall:.3f}, idle share "
+          f"{1 - dev_us / 1e6 / wall:.3f}; {n_kernels} device kernels")
+    return events, cuda, dev_us, n_kernels
+
+
+def profile_lm(trace) -> None:
+    """The LM serve under the profiler, then four lone decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.models import model as M
+
+    da_ops.library()
+    cfg = get_config(LM_ARCH)
+    params = M.init_model(cfg, seed=0, device="cuda")
+    prompts = lm_requests(cfg)
+    print("warm-up run")
+    run_lm_serve(cfg, params, prompts[:2])
+    print("profiled run")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        st = run_lm_serve(cfg, params, prompts)
+    steps = st["steps"]
+    print(f"  {len(st['done'])} requests, {steps} decode steps, "
+          f"{len(st['splice_s'])} prefills, wall {st['wall'] * 1e3:.1f} ms")
+    events, cuda, dev_us, _ = device_summary(prof, st["wall"], "serve")
+    da_us = sum(e.self_device_time_total for e in cuda
+                if "decode_attn" in e.key)
+    da_n = sum(e.count for e in cuda if "decode_attn_kernel" in e.key)
+    print(f"  decode attention: {da_n} launches, {da_us / 1e3:.3f} ms = "
+          f"{da_us / max(dev_us, 1e-9):.4f} of device time "
+          f"({da_us / max(da_n, 1):.2f} us a launch, merge included)")
+    print(events.table(sort_by="self_device_time_total", row_limit=15))
+    print(events.table(sort_by="self_cpu_time_total", row_limit=12))
+    if trace:
+        trace = Path(trace)
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace))
+    # Lone decode steps of the full pool at the serve's mean length.
+    n = 4
+    caches = M.init_caches(cfg, LM_SLOTS, LM_S_MAX, length=600,
+                           device="cuda")
+    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.long, device="cuda")
+    _, caches = M.decode_step(cfg, params, tok, caches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            _, caches = M.decode_step(cfg, params, tok, caches)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _, _, step_us, n_kernels = device_summary(prof, wall,
+                                             f"{n} lone decode steps")
+    print(f"  per decode step: {n_kernels / n:.0f} device kernels, device "
+          f"busy {step_us / n / 1e3:.3f} ms, wall {wall / n * 1e3:.3f} ms")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--grouped", action="store_true",
                     help="profile the grouped serve (GROUP BY TAX)")
+    ap.add_argument("--lm", action="store_true",
+                    help="profile the LM serve (Qwen2-1.5B bf16, 8 slots)")
     ap.add_argument("trace", nargs="?", help="write the Chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: a CUDA card is required")
+    print(nvidia_smi("name,power.limit"))
+    if args.lm:
+        profile_lm(args.trace)
+        return
     from repro_torch.data import make_lineitem
 
-    print(nvidia_smi("name,power.limit"))
     data, _ = make_lineitem(scale_factor=10, group_by=(
         "tax" if args.grouped else "shipinstruct"), device="cuda")
     if args.grouped:
@@ -75,14 +150,7 @@ def main() -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         wall = serve_once(data, reqs)
-    events = prof.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-    n_kernels = sum(e.count for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"  device busy {dev_us / 1e3:.2f} ms of {wall * 1e3:.1f} ms wall: "
-          f"busy share {dev_us / 1e6 / wall:.3f}, idle share "
-          f"{1 - dev_us / 1e6 / wall:.3f}; {n_kernels} device kernels")
+    events = device_summary(prof, wall, "serve")[0]
     print(events.table(sort_by="self_device_time_total", row_limit=12))
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
     if args.trace:

@@ -1,0 +1,174 @@
+"""The port's decode-attention op against the JAX reference: its plain
+version against the reference's Pallas kernel (interpret mode, as the
+reference's own tests run it) on the four shapes of the reference's kernel
+test in f32 and bf16, a poisoned tail, per-row lengths against the
+reference decode path's ``_sdpa`` under the decode mask, and, on a card, the
+CUDA kernel against its plain version.
+
+Tolerances: f32 at rtol 1e-5, atol 1e-6 (both sides accumulate in f32 in
+different orders); bf16 within one bf16 ulp, since both sides compute in f32
+and round once to bf16.  On the card the bf16 check adds the f32 atol: an
+output that cancels to ~1e-6 carries f32 rounding of ~1e-8 from either
+summation order, more than a bf16 ulp of so small a value.
+"""
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_allclose
+
+from repro_torch.kernels.decode_attention import ops, ref
+
+SHAPES = [                      # tests/test_kernels.py's decode shapes
+    (1, 8, 2, 128, 1024, 512),
+    (2, 4, 4, 64, 600, 256),    # kv_len not a tile multiple
+    (1, 16, 8, 128, 512, 128),
+    (2, 8, 1, 128, 768, 256),   # MQA
+]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.decode_attention import ops as jops
+    from repro.models import attention as jattn
+    return dict(jnp=jnp, ops=jops, attn=jattn)
+
+
+def _case(B, Hq, Hkv, d, S, seed):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((B, Hq, d)) * 0.3).astype(np.float32)
+    k = (rng.standard_normal((B, S, Hkv, d)) * 0.3).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, d)).astype(np.float32)
+    return q, k, v
+
+
+def assert_within_bf16_ulp(got: torch.Tensor, want_f32: torch.Tensor,
+                           atol: float = 0.0):
+    """|got - bf16(want)| <= atol + one bf16 ulp of the larger magnitude."""
+    want = want_f32.to(torch.bfloat16).float()
+    g = got.float()
+    mag = torch.maximum(g.abs(), want.abs())
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    bad = (g - want).abs() > ulp + atol
+    assert not bad.any(), (g[bad][:5], want[bad][:5])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,d,S,tk", SHAPES)
+def test_plain_vs_reference_kernel(jx, B, Hq, Hkv, d, S, tk, dtype):
+    jnp = jx["jnp"]
+    q, k, v = _case(B, Hq, Hkv, d, S, seed=B * 1000 + S)
+    jdt = getattr(jnp, dtype)
+    got_j = jx["ops"].decode_attention(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        kv_len=S, tk=tk, interpret=True)
+    tdt = getattr(torch, dtype)
+    tq, tk_, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    got = ops.decode_attention(tq, tk_, tv, S)
+    assert got.dtype == tdt and got.shape == (B, Hq, d)
+    want = np.asarray(got_j.astype(jnp.float32))
+    if dtype == "float32":
+        assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    else:
+        # The reference kernel's f32 result, rounded once to bf16.
+        assert_within_bf16_ulp(got, torch.from_numpy(want.copy()))
+        f32 = ref.decode_attention_ref(tq.float(), tk_.float(), tv.float(), S)
+        assert_within_bf16_ulp(got, f32)
+
+
+def test_poisoned_tail_adds_nothing():
+    """Positions at and past kv_len never contribute, whatever they hold."""
+    B, Hq, Hkv, d, S, L = 1, 4, 2, 64, 512, 300
+    q, k, v = (torch.from_numpy(a) for a in _case(B, Hq, Hkv, d, S, seed=5))
+    clean = ops.decode_attention(q, k[:, :L].clone(), v[:, :L].clone(), L)
+    k[:, L:] = 100.0
+    v[:, L:] = 1e9
+    v[:, L + 7] = float("nan")
+    got = ops.decode_attention(q, k, v, L)
+    assert torch.isfinite(got).all()
+    assert float(got.abs().max()) < 100.0
+    assert_allclose(got.numpy(), clean.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_per_row_lengths_match_reference_decode_mask(jx):
+    """Each row attends over its own first kv_len[b] positions: the
+    reference decode path's ``_sdpa`` with ``kj < kv_len[b]``; a row of
+    length 0 reads zeros (nothing to attend)."""
+    jnp = jx["jnp"]
+    B, Hq, Hkv, d, S = 5, 12, 2, 128, 96
+    q, k, v = _case(B, Hq, Hkv, d, S, seed=17)
+    lens = np.array([1, 37, 96, 64, 5], np.int32)
+    mask = np.arange(S)[None, None, :] < lens[:, None, None]     # (B, 1, S)
+    want = np.asarray(jx["attn"]._sdpa(
+        jnp.asarray(q[:, None]), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(mask), None))[:, 0]
+    got = ops.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), torch.from_numpy(lens))
+    assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    zero = ops.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v),
+                                torch.tensor([0, 3, 0, 1, 2]))
+    assert not zero[0].any() and not zero[2].any()
+
+
+def test_cpu_never_launches_and_kernel_demand_raises():
+    q, k, v = (torch.from_numpy(a) for a in _case(2, 4, 2, 32, 40, seed=3))
+    n = ops.counter.launches
+    ops.decode_attention(q, k, v, 10)
+    assert ops.counter.launches == n
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.decode_attention(q, k, v, 10, use_kernel=True)
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, k[:, :, :1], v, 10)        # shapes differ
+
+
+def test_splits_follow_cache_length_and_grid():
+    """The split count depends on S and the grid, never on lengths."""
+    n_split, chunk = ops.splits(8, 2, 2048, 132)
+    assert chunk % ops.CHUNK_QUANTUM == 0 and n_split * chunk >= 2048
+    assert (n_split - 1) * chunk < 2048
+    assert n_split * 8 * 2 >= 132                    # fills the card
+    assert ops.splits(64, 8, 128, 132) == (1, 128)   # wide grid: one split
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_matches_plain_version(dtype):
+    """On the card: the kernel against its plain version at the serve's
+    shape with per-row lengths and a poisoned tail, and at the reference
+    test's shapes; one counted launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(0)
+    cases = [(8, 12, 2, 128, 2048, rng.integers(1, 1057, 8))]
+    cases += [(B, Hq, Hkv, d, S, np.full(B, S)) for B, Hq, Hkv, d, S, _
+              in SHAPES]
+    for B, Hq, Hkv, d, S, lens in cases:
+        q, k, v = (torch.from_numpy(a).to(dev, tdt)
+                   for a in _case(B, Hq, Hkv, d, S, seed=S))
+        kv_len = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        for b, L in enumerate(lens):
+            k[b, L:] = 100.0
+            v[b, L:] = float("nan")
+        n = ops.counter.launches
+        got = ops.decode_attention(q, k, v, kv_len)
+        assert ops.counter.launches == n + 1
+        want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                        kv_len)
+        torch.cuda.synchronize()
+        if dtype == "float32":
+            assert torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+        else:
+            assert_within_bf16_ulp(got, want, atol=1e-6)

@@ -41,7 +41,11 @@ def test_every_module_imports_without_jax_or_reference():
                                                       "repro_torch.")]
     assert count == len(expected) >= 20
     for name in ("kernels.nvcc", "kernels.segment_agg.ops",
-                 "kernels.segment_agg.ref"):
+                 "kernels.segment_agg.ref", "kernels.decode_attention.ops",
+                 "kernels.decode_attention.ref", "models.config",
+                 "models.nn", "models.mlp", "models.attention",
+                 "models.model", "configs.registry", "configs.qwen2_1_5b",
+                 "serve.batching", "launch.serve"):
         assert f"repro_torch.{name}" in expected, name
 
 
