@@ -12,13 +12,15 @@ non-zero and nothing falls back to the CPU:
    the serve phase's tier shape (4 lanes x 4 groups, B = 300) on every rung
    of the width ladder: rtol 1e-5 (bit-exact expected: same summation
    order), gated == ungated and narrow == wide bucket bit-exact; kernel and
-   plain times from CUDA events against the kernel's operation bound;
+   plain times from CUDA events against the kernel's operation bound, the
+   kernel's both eagerly back to back and from a CUDA graph of 20 calls;
 3. segment-bootstrap kernel at the grouped serve phase's block (9 lanes of
    lineitem SF10 GROUP BY TAX, B = 300) on packed streams of live windows at
    every ``seg_ladder`` rung: against its plain version (rtol 1e-5, bit-exact
    expected) and against the Poisson-bootstrap kernel on the same windows
    (bit-exact: same order); a masked-out (gated) lane adds nothing; kernel
-   times against the operation bound, the plain version's at L = 8192;
+   times (eager and from a CUDA graph) against the operation bound, the
+   plain version's at L = 8192;
 4. exact segment-aggregate kernel over the whole 60 M-row table GROUP BY
    TAX: against its plain version (bit-exact expected) and numpy float64
    (sums rtol 1e-4, min/max exact); kernel, plain and library (index_add_
@@ -49,15 +51,19 @@ non-zero and nothing falls back to the CPU:
 9. decode-attention kernel against its plain version on the card at the LM
    serve's shape (8 rows, 12 query heads over 2 KV heads, d = 128, S_max =
    2048, bf16, per-row lengths in the serve's range, positions past each
-   length poisoned), in f32 at the same shape, and at the four shapes of
-   the reference's kernel test in both types: f32 at rtol 1e-5 / atol 1e-6,
+   length poisoned), in f32 at the same shape, at the edge lengths (0, 1,
+   63, 64, 65, S_max, S_max + 1) in both types, at a grid-bound shape (264
+   pairs, S = 2112), and at the four shapes of the reference's kernel test
+   in both types: f32 at rtol 1e-5 / atol 1e-6,
    bf16 within one bf16 ulp (beyond that atol) of the plain version's f32
-   result; kernel,
-   plain and library (``scaled_dot_product_attention`` with a length mask
-   and ``enable_gqa``) times over eight rotating caches (colder than L2),
-   from a CUDA graph of 64 calls (the device's time; eager back-to-back
-   times, which the host's enqueue rate bounds, are printed beside them)
-   against the byte bound;
+   result; int32, int64 and int lengths give the same output, two calls and
+   two CUDA-graph replays the eager output bit for bit, and a trace of 16
+   calls holds 16 device kernels and nothing else; kernel, plain and
+   library (``scaled_dot_product_attention`` with a length mask and
+   ``enable_gqa``) times over eight rotating caches (colder than L2) at the
+   serve's lengths, at full length (2048) and at 64, from a CUDA graph of
+   64 calls (the device's time; eager back-to-back times, which the host's
+   enqueue rate bounds, are printed beside them) against the byte bound;
 10. the LM port on the card against the CPU at the CPU tests' size: reduced
    ``qwen2-1.5b`` (f32) with the same seeded weights and prompts; the
    batcher's tokens equal (6 requests through 2 slots, retires at EOS and
@@ -236,8 +242,11 @@ def phase_kernel(data, clock_hz: float):
             buf, torch.nn.functional.pad(mask, (0, N_CAP - w)), seeds, B,
             lane_active=act)
         check(torch.equal(wide, got), f"narrow != wide bucket at w={w}")
-        k_ms = cuda_ms(lambda: ops.bootstrap_moments_masked(
-            x, mask, seeds, B, lane_active=act), reps=20, rounds=5)
+        def call():
+            return ops.bootstrap_moments_masked(x, mask, seeds, B,
+                                                lane_active=act)
+        k_ms = cuda_ms(call, reps=20, rounds=5)
+        g_ms = graph_ms(call, reps=20, rounds=5)
         p_ms = cuda_ms(lambda: ref.bootstrap_moments_masked_ref(
             x, mask, seeds, B, lane_active=act), reps=1, rounds=3)
         pairs = int((mask * act[..., None]).sum().item()) * B
@@ -245,10 +254,12 @@ def phase_kernel(data, clock_hz: float):
             H100_SMS * INT32_LANES_PER_SM * clock_hz) * 1e3
         n_bytes = 2 * q * m * w * 4 + q * m * (8 + 4) + q * m * B * 5 * 4
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        rows[w] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=max(ops_ms, bytes_ms),
+        rows[w] = dict(ms=k_ms, graph_ms=g_ms, plain_ms=p_ms,
+                       bound_ms=max(ops_ms, bytes_ms),
                        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                        pairs=pairs, exact=torch.equal(got, want))
-        print(f"  w={w:6d} pairs={pairs:10d} kernel {k_ms:.4f} ms  plain "
+        print(f"  w={w:6d} pairs={pairs:10d} kernel {k_ms:.4f} ms (graph "
+              f"{g_ms:.4f} ms)  plain "
               f"{p_ms:.3f} ms  bound {rows[w]['bound_ms']:.4f} ms "
               f"({rows[w]['bound_by']})  bit-exact={rows[w]['exact']}")
     print("  library: no single PyTorch call computes Poisson-bootstrap "
@@ -323,16 +334,20 @@ def phase_segment_boot(data, clock_hz: float):
             masked[live[1:]], got[live[1:]]), f"gated lane added at L={L}")
         k_ms = cuda_ms(lambda: ops.segment_bootstrap_sorted(*args),
                        reps=20, rounds=5)
+        g_ms = graph_ms(lambda: ops.segment_bootstrap_sorted(*args),
+                        reps=20, rounds=5)
         p_ms = (cuda_ms(lambda: ref.segment_bootstrap_sorted_ref(*args),
                         reps=1, rounds=3) if plain else None)
         pairs = L * B
         ops_ms = pairs * OPS_PER_PAIR / (
             H100_SMS * INT32_LANES_PER_SM * clock_hz) * 1e3
         bytes_ms = (20 * L + 8 * (q + 1) + q * B * 3 * 4) / HBM_BYTES_PER_S * 1e3
-        row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=max(ops_ms, bytes_ms),
+        row = dict(ms=k_ms, graph_ms=g_ms, plain_ms=p_ms,
+                   bound_ms=max(ops_ms, bytes_ms),
                    bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                    max_abs_err=err, exact=torch.equal(got, want))
-        print(f"  L={L:7d} pairs={pairs:11d} kernel {k_ms:.4f} ms  bound "
+        print(f"  L={L:7d} pairs={pairs:11d} kernel {k_ms:.4f} ms (graph "
+              f"{g_ms:.4f} ms)  bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']})  plain "
               f"{'-' if p_ms is None else f'{p_ms:.3f} ms'}  "
               f"bit-exact={row['exact']} == poisson_bootstrap")
@@ -762,68 +777,41 @@ def _decode_inputs(B, Hq, Hkv, d, S, dtype, gen, lens):
     return q, k, v
 
 
-def phase_decode_kernel():
-    """Kernel vs plain at the serve's shape (bf16 and f32) and at the
-    reference test's shapes; times over rotating caches."""
-    from repro_torch.kernels.decode_attention import ops, ref
+DECODE_SERVE = (LM_SLOTS, 12, 2, 128, LM_S_MAX)     # B, Hq, Hkv, d, S
+DECODE_EDGE_LENS = [0, 1, 63, 64, 65, LM_S_MAX, LM_S_MAX + 1, 700]
+# 264 (row, KV head) pairs, one block each on 132 SMs, and chunks past the
+# kernel's 32 candidates (its bisect path).
+DECODE_GRID_BOUND = (264, 4, 1, 32, 2112)
+DECODE_ROT = 8              # 8 x 16.8 MB of cache: colder than L2
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    rng = np.random.default_rng(13)
-    B, Hq, Hkv, d, S = LM_SLOTS, 12, 2, 128, LM_S_MAX
-    lo, hi = LM_PROMPT[0] + 1, LM_PROMPT[1] + LM_NEW
-    n_rot = 8                   # 8 x 16.8 MB of cache: colder than L2
+
+def decode_sets(kind: str, seed: int = 13):
+    """``DECODE_ROT`` rotating bf16 caches at the serve's shape, with their
+    (B,) int32 lengths: ``serve`` draws them in the serve's range (prompt +
+    new tokens), ``full`` sets every length to S_max, ``short`` to 64."""
+    B, Hq, Hkv, d, S = DECODE_SERVE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
     sets = []
-    for _ in range(n_rot):
-        lens = torch.as_tensor(rng.integers(lo, hi + 1, B), dtype=torch.int32,
-                               device="cuda")
+    for _ in range(DECODE_ROT):
+        if kind == "serve":
+            lens = rng.integers(LM_PROMPT[0] + 1, LM_PROMPT[1] + LM_NEW + 1, B)
+        else:
+            lens = np.full(B, S if kind == "full" else 64)
+        lens = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
         sets.append((*_decode_inputs(B, Hq, Hkv, d, S, torch.bfloat16, gen,
                                      lens), lens))
-    max_err, worst_ulps = 0.0, 0.0
-    for q, k, v, lens in sets:
-        got = ops.decode_attention(q, k, v, lens)
-        plain = ref.decode_attention_ref(q, k, v, lens)
-        f32 = ref.decode_attention_ref(q.float(), k.float(), v.float(), lens)
-        torch.cuda.synchronize()
-        max_err = max(max_err, float((got.float() - plain.float()).abs().max()))
-        worst_ulps = max(worst_ulps, _bf16_ulps(got, f32))
-    check(worst_ulps <= 1.0, f"bf16 kernel {worst_ulps} ulps from the plain "
-                             f"version's f32 result")
-    q, k, v, lens = sets[0]
-    qf, kf, vf = q.float(), k.float(), v.float()
-    got = ops.decode_attention(qf, kf, vf, lens)
-    want = ref.decode_attention_ref(qf, kf, vf, lens)
-    torch.cuda.synchronize()
-    f32_err = float((got - want).abs().max())
-    max_err = max(max_err, f32_err)
-    check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
-          f"f32 kernel != plain at the serve shape (max abs err {f32_err})")
-    print(f"  serve shape B={B} Hq={Hq} Hkv={Hkv} d={d} S={S}: bf16 within "
-          f"{worst_ulps:.2f} ulp of plain f32 (max abs err vs plain bf16 "
-          f"{max_err:.3g}), f32 max abs err {f32_err:.3g}; lengths "
-          f"{lens.tolist()}")
-    for Bs, Hqs, Hkvs, ds, Ss in DECODE_SHAPES:
-        full = torch.full((Bs,), Ss, dtype=torch.int32, device="cuda")
-        for dt in (torch.float32, torch.bfloat16):
-            qs, ks, vs = _decode_inputs(Bs, Hqs, Hkvs, ds, Ss, dt, gen, full)
-            got = ops.decode_attention(qs, ks, vs, Ss)
-            f32 = ref.decode_attention_ref(qs.float(), ks.float(), vs.float(),
-                                           Ss)
-            torch.cuda.synchronize()
-            if dt == torch.float32:
-                err = float((got - f32).abs().max())
-                check(torch.allclose(got, f32, rtol=1e-5, atol=1e-6),
-                      f"f32 kernel != plain at {(Bs, Hqs, Hkvs, ds, Ss)}")
-            else:
-                ulps = _bf16_ulps(got, f32)
-                check(ulps <= 1.0, f"bf16 kernel {ulps} ulps off at "
-                                   f"{(Bs, Hqs, Hkvs, ds, Ss)}")
-                err = float((got.float() - ref.decode_attention_ref(
-                    qs, ks, vs, Ss).float()).abs().max())
-            max_err = max(max_err, err)
-    print(f"  reference test shapes {DECODE_SHAPES}: f32 and bf16 pass")
+    return sets
 
+
+def decode_timing(kind: str, sets) -> dict:
+    """Kernel, plain and library (``scaled_dot_product_attention`` with a
+    length mask and ``enable_gqa``) times over the rotating ``sets``: from a
+    CUDA graph of 64 calls (the device's time) and eagerly back to back (the
+    host's enqueue rate included), beside the byte bound of the lengths."""
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    B, Hq, Hkv, d, S = DECODE_SERVE
     it = iter(range(1 << 30))
     masks = [(torch.arange(S, device="cuda")[None, :] < s[3][:, None])[
         :, None, None] for s in sets]
@@ -839,34 +827,168 @@ def phase_decode_kernel():
                      ("plain_ms", lambda i: ref.decode_attention_ref(*sets[i])),
                      ("library_ms", library)):
         def call(fn=fn):
-            return fn(next(it) % n_rot)
+            return fn(next(it) % len(sets))
         times[name] = graph_ms(call, reps=64, rounds=5)
         times["eager_" + name] = cuda_ms(call, reps=64, rounds=5)
-    k_ms, p_ms, l_ms = times["ms"], times["plain_ms"], times["library_ms"]
-    q, k, v, lens = sets[0]
-    lib = torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=masks[0], enable_gqa=True)[:, :, 0]
-    lib_err = float((lib.float() - ref.decode_attention_ref(
-        q.float(), k.float(), v.float(), lens)).abs().max())
-    tot = sum(int(s[3].sum()) for s in sets) / n_rot       # mean sum of lengths
+    tot = sum(int(s[3].sum()) for s in sets) / len(sets)   # mean sum of lengths
     n_bytes = tot * Hkv * d * 2 * 2 + 2 * B * Hq * d * 2 + 4 * B
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = tot * Hq * d * 4 / F32_FLOPS * 1e3
-    row = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-               bound_ms=max(bytes_ms, ops_ms),
+    row = dict(times, bound_ms=max(bytes_ms, ops_ms),
                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               max_abs_err=max_err)
-    print(f"  eager back-to-back calls (host enqueue included): kernel "
-          f"{times['eager_ms']:.4f} ms  plain {times['eager_plain_ms']:.4f} "
-          f"ms  library {times['eager_library_ms']:.4f} ms")
-    print(f"  CUDA graph of 64 calls: kernel {k_ms:.4f} ms  plain "
-          f"{p_ms:.4f} ms  library "
-          f"{l_ms:.4f} ms (max abs err vs plain f32 {lib_err:.3g})  bound "
-          f"{row['bound_ms']:.5f} ms ({row['bound_by']}: {n_bytes / 1e6:.2f} MB"
-          f" per call, mean sum of lengths {tot:.0f}); {n_rot} rotating "
-          f"caches of {B * S * Hkv * d * 2 * 2 / 1e6:.1f} MB")
+               mb=n_bytes / 1e6, mean_len_sum=tot)
+    print(f"  {kind:5s} lengths (mean sum {tot:.0f}, {row['mb']:.2f} MB a "
+          f"call), CUDA graph of 64 calls: kernel {row['ms']:.5f} ms  "
+          f"library {row['library_ms']:.5f} ms  plain {row['plain_ms']:.4f} "
+          f"ms  bound {row['bound_ms']:.5f} ms ({row['bound_by']}; kernel at "
+          f"{row['bound_ms'] / row['ms']:.1%} of it); eager back to back: "
+          f"kernel {row['eager_ms']:.4f}  library "
+          f"{row['eager_library_ms']:.4f}  plain {row['eager_plain_ms']:.4f} "
+          f"ms")
     return row
+
+
+def _decode_checks(sets) -> float:
+    """The kernel against its plain version at the serve's shape (bf16
+    rotating sets, f32, the edge lengths in both types) and the reference
+    test's shapes; int32, int64 and int lengths alike; repeat calls and
+    graph replays bit-equal; one device kernel a call.  Returns the largest
+    abs error against the plain version in the kernel's type."""
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    B, Hq, Hkv, d, S = DECODE_SERVE
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    max_err, worst_ulps = 0.0, 0.0
+    for q, k, v, lens in sets:
+        got = ops.decode_attention(q, k, v, lens)
+        again = ops.decode_attention(q, k, v, lens)
+        plain = ref.decode_attention_ref(q, k, v, lens)
+        f32 = ref.decode_attention_ref(q.float(), k.float(), v.float(), lens)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), "two calls differ")
+        max_err = max(max_err, float((got.float() - plain.float()).abs().max()))
+        worst_ulps = max(worst_ulps, _bf16_ulps(got, f32))
+    check(worst_ulps <= 1.0, f"bf16 kernel {worst_ulps} ulps from the plain "
+                             f"version's f32 result")
+    q, k, v, lens = sets[0]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    got = ops.decode_attention(qf, kf, vf, lens)
+    want = ref.decode_attention_ref(qf, kf, vf, lens)
+    torch.cuda.synchronize()
+    f32_err = float((got - want).abs().max())
+    max_err = max(max_err, f32_err)
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+          f"f32 kernel != plain at the serve shape (max abs err {f32_err})")
+    print(f"  serve shape B={B} Hq={Hq} Hkv={Hkv} d={d} S={S}: bf16 within "
+          f"{worst_ulps:.2f} ulp of plain f32 (max abs err vs plain bf16 "
+          f"{max_err:.3g}), f32 max abs err {f32_err:.3g}; repeat calls "
+          f"bit-equal")
+    # Edge lengths: 0 reads zeros; past S_max clamps; tile edges.
+    edge = torch.as_tensor(DECODE_EDGE_LENS, dtype=torch.int32, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = _decode_inputs(B, Hq, Hkv, d, S, dt, gen, edge.clamp(max=S))
+        got = ops.decode_attention(q, k, v, edge)
+        want = ref.decode_attention_ref(q.float(), k.float(), v.float(), edge)
+        wide = ops.decode_attention(q, k, v, edge.long())
+        torch.cuda.synchronize()
+        check(torch.equal(got, wide), f"int64 lengths != int32 in {dt}")
+        check(not got[0].any(), "a row of length 0 is not zero")
+        if dt == torch.float32:
+            check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+                  f"f32 kernel != plain at the edge lengths "
+                  f"(max abs err {float((got - want).abs().max())})")
+        else:
+            ulps = _bf16_ulps(got, want)
+            check(ulps <= 1.0, f"bf16 kernel {ulps} ulps off at the edge "
+                               f"lengths")
+            max_err = max(max_err, float((got.float() - ref.decode_attention_ref(
+                q, k, v, edge).float()).abs().max()))
+    print(f"  edge lengths {DECODE_EDGE_LENS}: f32 and bf16 pass, int64 == "
+          f"int32 lengths")
+    Bg, Hqg, Hkvg, dg, Sg = DECODE_GRID_BOUND
+    glen = torch.as_tensor(np.random.default_rng(7).integers(0, Sg + 1, Bg),
+                           dtype=torch.int32, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = _decode_inputs(Bg, Hqg, Hkvg, dg, Sg, dt, gen, glen)
+        got = ops.decode_attention(q, k, v, glen)
+        want = ref.decode_attention_ref(q.float(), k.float(), v.float(), glen)
+        torch.cuda.synchronize()
+        if dt == torch.float32:
+            check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+                  f"f32 kernel != plain at {DECODE_GRID_BOUND}")
+        else:
+            ulps = _bf16_ulps(got, want)
+            check(ulps <= 1.0, f"bf16 kernel {ulps} ulps off at "
+                               f"{DECODE_GRID_BOUND}")
+    print(f"  grid-bound shape {DECODE_GRID_BOUND} (one block a pair, chunks "
+          f"past 32 tiles): f32 and bf16 pass")
+    for Bs, Hqs, Hkvs, ds, Ss in DECODE_SHAPES:
+        full = torch.full((Bs,), Ss, dtype=torch.int32, device="cuda")
+        for dt in (torch.float32, torch.bfloat16):
+            qs, ks, vs = _decode_inputs(Bs, Hqs, Hkvs, ds, Ss, dt, gen, full)
+            got = ops.decode_attention(qs, ks, vs, Ss)
+            f32 = ref.decode_attention_ref(qs.float(), ks.float(), vs.float(),
+                                           Ss)
+            same = ops.decode_attention(qs, ks, vs, full)
+            torch.cuda.synchronize()
+            check(torch.equal(got, same), "int and tensor lengths differ")
+            if dt == torch.float32:
+                err = float((got - f32).abs().max())
+                check(torch.allclose(got, f32, rtol=1e-5, atol=1e-6),
+                      f"f32 kernel != plain at {(Bs, Hqs, Hkvs, ds, Ss)}")
+            else:
+                ulps = _bf16_ulps(got, f32)
+                check(ulps <= 1.0, f"bf16 kernel {ulps} ulps off at "
+                                   f"{(Bs, Hqs, Hkvs, ds, Ss)}")
+                err = float((got.float() - ref.decode_attention_ref(
+                    qs, ks, vs, Ss).float()).abs().max())
+            max_err = max(max_err, err)
+    print(f"  reference test shapes {DECODE_SHAPES}: f32 and bf16 pass")
+    # A CUDA graph of one call replays the eager result twice over: the
+    # arrival counters were left zero.
+    q, k, v, lens = sets[1]
+    eager = ops.decode_attention(q, k, v, lens)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, k, v, lens)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(first, eager) and torch.equal(out, first),
+          "graph replay != eager call")
+    # One device kernel a call: every device op of 16 calls in a trace.
+    from torch.profiler import ProfilerActivity, profile
+    n = 16
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            ops.decode_attention(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    dev_ops = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    check(len(dev_ops) == 1 and sum(dev_ops.values()) == n
+          and "decode_attn_kernel" in next(iter(dev_ops)),
+          f"{n} calls ran {dev_ops} on the device")
+    print(f"  graph replays == eager; {n} calls ran {n} device kernels "
+          f"({next(iter(dev_ops))[:48]}...) and nothing else")
+    return max_err
+
+
+def phase_decode_kernel():
+    """Kernel vs plain at the serve's shape (bf16 and f32), the edge lengths
+    and the reference test's shapes; then timed at the serve's, full and
+    short lengths.  Returns the serve row for the result line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sets = decode_sets("serve")
+    max_err = _decode_checks(sets)
+    rows = {"serve": decode_timing("serve", sets)}
+    del sets
+    for kind in ("full", "short"):
+        rows[kind] = decode_timing(kind, decode_sets(kind))
+    torch.cuda.empty_cache()
+    return dict(rows["serve"], max_abs_err=max_err, rows=rows)
 
 
 LM_CPU_SPECS = [(6, 8), (6, 12), (6, 8), (6, 8), (16, 16), (6, 16)]
@@ -1161,13 +1283,14 @@ def main() -> None:
         "source": "src/repro_torch/csrc/poisson_bootstrap.cu",
         "replaces": "src/repro/kernels/poisson_bootstrap/kernel.py:51",
         "launches": launches["poisson_bootstrap"], "max_abs_err": pb_err,
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None}, {
+        "ms": r["ms"], "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None}, {
         "name": "segment_bootstrap", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
         "replaces": "src/repro/kernels/segment_agg/kernel.py:66",
         "launches": launches["segment_bootstrap"], "max_abs_err": seg_err,
-        "ms": s["ms"],
+        "ms": s["ms"], "graph_ms": s["graph_ms"],
         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
         "bound_by": s["bound_by"], "library_ms": None}, {
         "name": "segment_aggregate", "route": "cuda",

@@ -15,12 +15,20 @@ ops.  The phases (TPC-H lineitem SF10 resident on the card, a forced-POOL
   full width, 16 requests through a ``ContinuousBatcher`` of 8 slots), then
   four lone decode steps of the 8-slot pool for the kernels per decode
   step; it also prints the decode-attention kernel's share of device time.
+* ``--decode [TREE ...]``: the decode-attention kernel alone, timed as
+  ``chip_smoke.py`` phase 9 times it (CUDA graphs of 64 calls over 8
+  rotating caches at the serve's, full and short lengths, against SDPA and
+  the byte bound), once for each checkout TREE in the order given (this one
+  by default), each in its own process with its own build: to compare two
+  versions of the kernel on one card, list them as A B B A.
 
 Run from the root of a checkout on a machine with a CUDA card:
-``python3 profile_serve.py [--grouped | --lm] [TRACE.json]``; with a path,
-the Chrome trace is written there.
+``python3 profile_serve.py [--grouped | --lm | --decode [TREE ...]]
+[TRACE.json]``; with a path, the Chrome trace is written there.
 """
 import argparse
+import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -92,10 +100,11 @@ def profile_lm(trace) -> None:
     events, cuda, dev_us, _ = device_summary(prof, st["wall"], "serve")
     da_us = sum(e.self_device_time_total for e in cuda
                 if "decode_attn" in e.key)
-    da_n = sum(e.count for e in cuda if "decode_attn_kernel" in e.key)
-    print(f"  decode attention: {da_n} launches, {da_us / 1e3:.3f} ms = "
-          f"{da_us / max(dev_us, 1e-9):.4f} of device time "
-          f"({da_us / max(da_n, 1):.2f} us a launch, merge included)")
+    da_n = sum(e.count for e in cuda if "decode_attn" in e.key)
+    calls = cfg.n_layers * steps
+    print(f"  decode attention: {calls} calls ran {da_n} device kernels, "
+          f"{da_us / 1e3:.3f} ms = {da_us / max(dev_us, 1e-9):.4f} of device "
+          f"time ({da_us / max(calls, 1):.2f} us a call)")
     print(events.table(sort_by="self_device_time_total", row_limit=15))
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
     if trace:
@@ -122,17 +131,79 @@ def profile_lm(trace) -> None:
           f"busy {step_us / n / 1e3:.3f} ms, wall {wall / n * 1e3:.3f} ms")
 
 
+def decode_one(tree: str) -> None:
+    """Time the decode-attention kernel of checkout ``tree`` (run in a
+    process of its own, so that its ``repro_torch`` is the one imported).
+    Its bf16 error against the plain f32 result, in ulps, is reported
+    beside the times and does not stop the run: a stripped-down copy of the
+    kernel may be timed to see what a part of it costs."""
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    import chip_smoke as cs
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    ops.build(verbose=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    result = {"tree": tree}
+    for kind in ("serve", "full", "short"):
+        sets = cs.decode_sets(kind)
+        q, k, v, lens = sets[0]
+        ulps = cs._bf16_ulps(ops.decode_attention(q, k, v, lens),
+                             ref.decode_attention_ref(q.float(), k.float(),
+                                                      v.float(), lens))
+        row = cs.decode_timing(kind, sets)
+        result[kind] = {key: row[key] for key in (
+            "ms", "library_ms", "plain_ms", "bound_ms", "eager_ms", "mb")}
+        result[kind]["ulps"] = ulps
+        del sets
+        torch.cuda.empty_cache()
+    print("DECODE " + json.dumps(result))
+
+
+def profile_decode(trees) -> None:
+    """``decode_one`` for each tree in turn; a summary table at the end."""
+    rows = []
+    for tree in trees:
+        print(f"== {tree}", flush=True)
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--decode-tree",
+             tree], capture_output=True, text=True, timeout=900)
+        print(proc.stdout[-6000:], proc.stderr[-3000:], sep="\n")
+        if proc.returncode != 0:
+            fail(f"timing {tree} failed ({proc.returncode})")
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("DECODE ")][-1]
+        rows.append(json.loads(line[len("DECODE "):]))
+    print("tree | kind | kernel ms | library ms | bound ms | kernel/bound | "
+          "bf16 ulps vs plain f32 (> 1: wrong)")
+    for r in rows:
+        for kind in ("serve", "full", "short"):
+            x = r[kind]
+            print(f"{r['tree']} | {kind} | {x['ms']:.5f} | "
+                  f"{x['library_ms']:.5f} | {x['bound_ms']:.5f} | "
+                  f"{x['ms'] / x['bound_ms']:.2f} | {x['ulps']:.2f}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--grouped", action="store_true",
                     help="profile the grouped serve (GROUP BY TAX)")
     ap.add_argument("--lm", action="store_true",
                     help="profile the LM serve (Qwen2-1.5B bf16, 8 slots)")
+    ap.add_argument("--decode", nargs="*", metavar="TREE",
+                    help="time the decode-attention kernel of each checkout "
+                         "(default: this one)")
+    ap.add_argument("--decode-tree", help=argparse.SUPPRESS)
     ap.add_argument("trace", nargs="?", help="write the Chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: a CUDA card is required")
+    if args.decode_tree:
+        decode_one(args.decode_tree)
+        return
     print(nvidia_smi("name,power.limit"))
+    if args.decode is not None:
+        profile_decode(args.decode or [str(ROOT)])
+        return
     if args.lm:
         profile_lm(args.trace)
         return

@@ -3,19 +3,26 @@
 ``decode_attention(q, k, v, kv_len)`` is the decode step's attention: one
 query token per row (q ``(B, Hq, d)``) over the first ``kv_len[b]``
 positions of the cache in its serving layout (k/v ``(B, S_max, Hkv, d)``),
-with ``kv_len`` an int or a ``(B,)`` device tensor that the kernel reads
-itself -- no host read of the lengths.  On a CUDA tensor it launches the
-kernel (or raises); on a CPU tensor it runs the plain version (:mod:`.ref`),
-because no card is there.  It never falls back.
+with ``kv_len`` an int or a ``(B,)`` int32/int64 device tensor that the
+kernel reads itself -- no host read of the lengths, no conversion.  On a
+CUDA tensor it launches the kernel, one launch a call (or raises); on a CPU
+tensor it runs the plain version (:mod:`.ref`), because no card is there.
+It never falls back.
 
 Unlike the reference's wrapper, it neither pads nor transposes the cache:
 the kernel reads K and V rows through their strides, and only positions
-below each row's length.
+below each row's length.  The grid is fixed by the shapes and the card
+(:func:`grid_blocks`); the kernel splits the valid positions over it by the
+lengths on the device (:func:`partition` is the same arithmetic).  The
+splits' partials and the pairs' arrival counters are allocated once per
+device and shape and kept, so a CUDA graph that captured them keeps valid
+pointers; calls on one device therefore run in stream order, not
+concurrently on two streams.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Union
+from typing import Dict, List, Tuple, Union
 
 import torch
 
@@ -24,16 +31,17 @@ from . import ref
 
 HEAD_DIMS = (32, 64, 128)
 MAX_G = 16                  # query heads per KV head (kMaxG in the source)
-CHUNK_QUANTUM = 64          # a split covers whole 64-position tiles
-BLOCKS_PER_SM = 2           # splits aim at this many blocks per SM
-_MAX_GRID_YZ = 65535
+MAX_B = 1024                # rows (kMaxB: the lengths sit in shared memory)
+BLOCKS_PER_SM = 2           # the grid holds about this many blocks per SM
+_MAX_GRID = (1 << 31) - 1
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.da_launch.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I,
-                              LL, LL, LL, LL, LL, LL, I, I, ctypes.c_float,
-                              I, P]
+    lib.da_prepare.argtypes = []
+    lib.da_prepare.restype = I
+    lib.da_launch.argtypes = [P, P, P, P, I, I, P, P, P, I, I, I, I, I, I,
+                              LL, LL, LL, LL, LL, LL, ctypes.c_float, I, P]
     lib.da_launch.restype = I
 
 
@@ -41,17 +49,58 @@ _LIB = nvcc.Library("decode_attention.cu", _declare)
 counter = nvcc.LaunchCounter()
 build = _LIB.build
 library = _LIB.load
+_sm_count: Dict[int, int] = {}            # device index -> SMs (prepared)
+_workspace: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def splits(B: int, Hkv: int, S: int, n_sm: int) -> tuple[int, int]:
-    """``(n_split, chunk)``: the cache axis cut into ``n_split`` slices of
-    ``chunk`` positions (a multiple of the 64-position tile) so that the
-    grid holds about ``BLOCKS_PER_SM`` blocks per SM.  It depends on the
-    cache's length and the grid, never on the lengths' values."""
-    want = max(1, -(-BLOCKS_PER_SM * n_sm // (B * Hkv)))
-    per = -(-S // want)
-    chunk = -(-per // CHUNK_QUANTUM) * CHUNK_QUANTUM
-    return -(-S // chunk), chunk
+def tile_rows(dtype: torch.dtype) -> int:
+    """Positions of one K/V tile in shared memory: 64 in bf16, 32 in f32."""
+    return 64 if dtype == torch.bfloat16 else 32
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def grid_blocks(B: int, Hkv: int, S: int, n_sm: int, tile: int = 64) -> int:
+    """The kernel's grid: about ``BLOCKS_PER_SM`` blocks per SM, at least
+    one per (row, KV head) pair and at most one per tile of the cache.  It
+    depends on the shapes and the card, never on the lengths."""
+    return max(B * Hkv, min(BLOCKS_PER_SM * n_sm, B * Hkv * _cdiv(S, tile)))
+
+
+def partition(lengths, B: int, Hkv: int, S_max: int, n_sm: int,
+              tile: int = 64) -> Tuple[int, int, List[Tuple[int, int, int,
+                                                            int]]]:
+    """``(n_blocks, chunk, blocks)``: what every block of the kernel computes
+    from the lengths.  ``chunk`` is the smallest whole number of tiles for
+    which the splits of every (row, KV head) pair -- ``ceil(len / chunk)``,
+    or one for a length of 0 -- fit the ``n_blocks`` of the grid.
+    ``blocks[i] = (b, h, lo, hi)`` is block i's slice of row b's positions
+    for KV head h, rows in order, then heads, then splits; blocks past
+    ``len(blocks)`` exit at once.  A pair of length 0 has one block with
+    ``lo == hi == 0``, which writes zeros."""
+    lens = [min(max(int(x), 0), S_max) for x in lengths]
+    if len(lens) != B:
+        raise ValueError(f"need {B} lengths, got {len(lens)}")
+    n_blocks = grid_blocks(B, Hkv, S_max, n_sm, tile)
+
+    def fits(t: int) -> bool:
+        splits = sum(max(1, _cdiv(L, t * tile)) for L in lens)
+        return Hkv * splits <= n_blocks
+
+    lo, hi = 1, _cdiv(S_max, tile)       # one split a pair always fits
+    while lo < hi:                       # the count falls as chunks grow
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if fits(mid) else (mid + 1, hi)
+    chunk = lo * tile
+    blocks = []
+    for b, L in enumerate(lens):
+        ns = max(1, _cdiv(L, chunk))
+        for h in range(Hkv):
+            blocks += [(b, h, min(s * chunk, L), min(s * chunk + chunk, L))
+                       for s in range(ns)]
+    return n_blocks, chunk, blocks
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -87,6 +136,40 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(q, k, v, kv_len)
 
 
+def _prepared(dev: torch.device, lib: ctypes.CDLL) -> int:
+    """The device's SM count; the first call on a device also raises the
+    kernels' shared-memory limit there."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    n_sm = _sm_count.get(idx)
+    if n_sm is None:
+        with torch.cuda.device(idx):
+            rc = lib.da_prepare()
+        if rc != 0:
+            raise RuntimeError(f"decode attention setup failed: CUDA error "
+                               f"{rc}")
+        n_sm = torch.cuda.get_device_properties(idx).multi_processor_count
+        _sm_count[idx] = n_sm
+    return n_sm
+
+
+def _buffers(dev: torch.device, B: int, Hkv: int, n_blocks: int, G: int,
+             d: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The splits' partials and the pairs' arrival counters (zeros, which
+    every call leaves zero), kept for the life of the process."""
+    key = (dev, B, Hkv, n_blocks, G, d)
+    bufs = _workspace.get(key)
+    if bufs is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode attention allocates its workspace on "
+                               "its first call for a shape: make one call "
+                               "outside graph capture first")
+        bufs = (torch.empty((n_blocks * G * (d + 2),), dtype=torch.float32,
+                            device=dev),
+                torch.zeros((B * Hkv,), dtype=torch.int32, device=dev))
+        _workspace[key] = bufs
+    return bufs
+
+
 def _launch(q, k, v, kv_len):
     B, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -96,9 +179,10 @@ def _launch(q, k, v, kv_len):
     if d not in HEAD_DIMS or not 1 <= G <= MAX_G:
         raise ValueError(f"the kernel takes d in {HEAD_DIMS} and at most "
                          f"{MAX_G} query heads per KV head; got d={d}, G={G}")
-    if S < 1 or B > _MAX_GRID_YZ or Hkv > _MAX_GRID_YZ:
+    tile = tile_rows(q.dtype)
+    if not 1 <= B <= MAX_B or S < 1 or B * Hkv * _cdiv(S, tile) > _MAX_GRID:
         raise ValueError(f"cache shape {tuple(k.shape)} out of the kernel's "
-                         f"range")
+                         f"range (at most {MAX_B} rows)")
     item = q.element_size()
     for name, t in (("k", k), ("v", v)):
         if t.stride(3) != 1 or any(s * item % 16 for s in t.stride()[:3]) \
@@ -110,26 +194,27 @@ def _launch(q, k, v, kv_len):
         if kv_len.shape != (B,):
             raise ValueError(f"kv_len must be ({B},), got "
                              f"{tuple(kv_len.shape)}")
-        lens = kv_len.to(device=dev, dtype=torch.int32).contiguous()
+        if kv_len.device != dev or kv_len.dtype not in (torch.int32,
+                                                        torch.int64):
+            kv_len = kv_len.to(device=dev, dtype=torch.int32)
+        lens = kv_len.contiguous()
+        lens_ptr, kind, fixed = lens.data_ptr(), 1 + (
+            lens.dtype == torch.int64), 0
     else:
-        lens = ref.lengths(kv_len, B, S, dev)
+        lens_ptr, kind, fixed = None, 0, min(max(int(kv_len), 0), S)
     q = q.contiguous()
     out = torch.empty_like(q)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split, chunk = splits(B, Hkv, S, n_sm)
-    parts = B * Hkv * n_split * G if n_split > 1 else 0
-    m_part = torch.empty((parts,), dtype=torch.float32, device=dev)
-    l_part = torch.empty((parts,), dtype=torch.float32, device=dev)
-    acc_part = torch.empty((parts * d,), dtype=torch.float32, device=dev)
     lib = library()
+    n_sm = _prepared(dev, lib)
+    n_blocks = grid_blocks(B, Hkv, S, n_sm, tile)
+    part, arrivals = _buffers(dev, B, Hkv, n_blocks, G, d)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.da_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           lens.data_ptr(), out.data_ptr(), m_part.data_ptr(),
-                           l_part.data_ptr(), acc_part.data_ptr(), B, S, Hkv,
-                           G, d, *k.stride()[:3], *v.stride()[:3], n_split,
-                           chunk, d ** -0.5,
-                           int(q.dtype == torch.bfloat16), stream)
+                           lens_ptr, kind, fixed, out.data_ptr(),
+                           part.data_ptr(), arrivals.data_ptr(), n_blocks, B,
+                           S, Hkv, G, d, *k.stride()[:3], *v.stride()[:3],
+                           d ** -0.5, int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"decode attention launch failed: CUDA error {rc}")
     counter.launches += 1

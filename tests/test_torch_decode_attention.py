@@ -131,28 +131,101 @@ def test_cpu_never_launches_and_kernel_demand_raises():
         ops.decode_attention(q, k[:, :, :1], v, 10)        # shapes differ
 
 
-def test_splits_follow_cache_length_and_grid():
-    """The split count depends on S and the grid, never on lengths."""
-    n_split, chunk = ops.splits(8, 2, 2048, 132)
-    assert chunk % ops.CHUNK_QUANTUM == 0 and n_split * chunk >= 2048
-    assert (n_split - 1) * chunk < 2048
-    assert n_split * 8 * 2 >= 132                    # fills the card
-    assert ops.splits(64, 8, 128, 132) == (1, 128)   # wide grid: one split
+SERVE_LENS = np.random.default_rng(13).integers(33, 1057, 8)   # the serve's
+EDGE_LENS = [0, 1, 63, 64, 65, 2048, 2049, 700]                 # S_max = 2048
+# 264 (row, KV head) pairs fill a 132-SM grid one block each, and S = 2112
+# needs chunks past the kernel's 32 candidates: its bisect path.
+GRID_BOUND = (264, 4, 1, 32, 2112)
+GRID_LENS = np.random.default_rng(7).integers(0, 2113, 264)
+
+
+def _coverage(lens, Hkv, S, n_sm, tile):
+    n_blocks, chunk, blocks = ops.partition(lens, len(lens), Hkv, S, n_sm,
+                                            tile)
+    seen = {}
+    for b, h, lo, hi in blocks:
+        seen.setdefault((b, h), []).append((lo, hi))
+    return n_blocks, chunk, blocks, seen
+
+
+@pytest.mark.parametrize("tile", [64, 32])
+@pytest.mark.parametrize("Hkv,S,n_sm,lens", [
+    (2, 2048, 132, SERVE_LENS),
+    (2, 2048, 132, EDGE_LENS),
+    (2, 2048, 132, [2048] * 8),
+    (2, 2048, 132, [64] * 8),
+    (2, 2048, 132, [0] * 8),
+    (1, 600, 132, [600, 599]),
+    (8, 512, 4, [512]),                 # fewer SMs than pairs x tiles
+    (4, 4096, 132, [5000, 17, 0, 4096, 1]),
+    (2, 96, 132, [1, 37, 96, 64, 5]),
+    (1, 2112, 132, GRID_LENS),
+])
+def test_partition_covers_every_position_once(Hkv, S, n_sm, lens, tile):
+    """Every valid position of every (row, KV head) lies in exactly one
+    split, in order; no split of a non-empty pair is empty, a pair of
+    length 0 has one block (it writes zeros); the splits fit the grid."""
+    n_blocks, chunk, blocks, seen = _coverage(lens, Hkv, S, n_sm, tile)
+    assert chunk % tile == 0 and len(blocks) <= n_blocks
+    assert sorted(seen) == [(b, h) for b in range(len(lens))
+                            for h in range(Hkv)]
+    assert blocks == sorted(blocks)     # rows, then heads, then splits
+    for (b, h), spans in seen.items():
+        L = min(max(int(lens[b]), 0), S)
+        if L == 0:
+            assert spans == [(0, 0)]
+            continue
+        assert all(0 <= lo < hi <= lo + chunk for lo, hi in spans)
+        covered = [t for lo, hi in spans for t in range(lo, hi)]
+        assert covered == list(range(L))
+
+
+@pytest.mark.parametrize("B,Hkv,S,n_sm", [(8, 2, 2048, 132), (2, 4, 600, 132),
+                                          (64, 8, 128, 132), (1, 1, 64, 8)])
+def test_partition_grid_depends_only_on_shape(B, Hkv, S, n_sm):
+    """The grid (and so a CUDA graph's launch) depends on (B, Hkv, S_max,
+    n_sm) only; the lengths move the chunk and the busy blocks."""
+    rng = np.random.default_rng(B * S)
+    grids = {ops.partition(lens, B, Hkv, S, n_sm)[0]
+             for lens in ([0] * B, [S] * B, rng.integers(0, S + 1, B),
+                          rng.integers(0, 2 * S, B))}
+    assert grids == {ops.grid_blocks(B, Hkv, S, n_sm)}
+    assert B * Hkv <= grids.pop() <= max(B * Hkv, ops.BLOCKS_PER_SM * n_sm)
+
+
+@pytest.mark.parametrize("lens", [SERVE_LENS, [2048] * 8, [64] * 8,
+                                  EDGE_LENS])
+def test_partition_balances_the_serve(lens):
+    """At the serve's shape no block holds more than one tile beyond the
+    even share of the valid positions rounded up to whole tiles, and the
+    busy blocks cover the card's SMs as far as whole tiles allow."""
+    Hkv, S, n_sm, tile = 2, 2048, 132, 64
+    n_blocks, chunk, blocks, _ = _coverage(lens, Hkv, S, n_sm, tile)
+    work = Hkv * sum(min(int(L), S) for L in lens)
+    even = -(-work // n_blocks)
+    assert chunk <= -(-even // tile) * tile + tile
+    assert max(hi - lo for _, _, lo, hi in blocks) <= chunk
+    assert len(blocks) >= min(n_sm, work // chunk)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain_version(dtype):
     """On the card: the kernel against its plain version at the serve's
-    shape with per-row lengths and a poisoned tail, and at the reference
-    test's shapes; one counted launch per call."""
+    shape with per-row lengths and a poisoned tail, at the edge lengths, at
+    a grid-bound shape, and at the reference test's shapes; one counted
+    launch per call; repeated
+    calls and CUDA-graph replays equal bit for bit; int32, int64 and int
+    lengths alike."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     tdt = getattr(torch, dtype)
     rng = np.random.default_rng(0)
-    cases = [(8, 12, 2, 128, 2048, rng.integers(1, 1057, 8))]
+    serve = (8, 12, 2, 128, 2048)
+    cases = [(*serve, rng.integers(1, 1057, 8)), (*serve, np.array(EDGE_LENS)),
+             (*GRID_BOUND, GRID_LENS)]
     cases += [(B, Hq, Hkv, d, S, np.full(B, S)) for B, Hq, Hkv, d, S, _
               in SHAPES]
     for B, Hq, Hkv, d, S, lens in cases:
@@ -172,3 +245,24 @@ def test_cuda_kernel_matches_plain_version(dtype):
             assert torch.allclose(got, want, rtol=1e-5, atol=1e-6)
         else:
             assert_within_bf16_ulp(got, want, atol=1e-6)
+        assert torch.equal(ops.decode_attention(q, k, v, kv_len), got)
+        assert torch.equal(ops.decode_attention(q, k, v, kv_len.long()), got)
+        if len(set(np.minimum(lens, S).tolist())) == 1:
+            assert torch.equal(ops.decode_attention(q, k, v, int(lens[0])),
+                               got)
+    # A CUDA graph of one call replays the eager result, and a second replay
+    # the first (the arrival counters were left zero).
+    B, Hq, Hkv, d, S = serve
+    q, k, v = (torch.from_numpy(a).to(dev, tdt)
+               for a in _case(B, Hq, Hkv, d, S, seed=1))
+    kv_len = torch.as_tensor(rng.integers(1, S + 1, B), device=dev)
+    eager = ops.decode_attention(q, k, v, kv_len)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, k, v, kv_len)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, eager) and torch.equal(out, first)
