@@ -7,20 +7,28 @@ non-zero and nothing falls back to the CPU:
 
 1. card and build: print the card's name and power limit, build the three
    kernel libraries from ``src/repro_torch/csrc`` with nvcc, one process per
-   source, all started together;
+   source, all started together, and count the two bootstrap kernels'
+   instructions a (element, replicate) pair in their SASS, by pipe: the
+   operation bound of both (the 30-integer-op estimate printed beside it);
 2. Poisson-bootstrap kernel against its plain PyTorch version on the card at
    the serve phase's tier shape (4 lanes x 4 groups, B = 300) on every rung
-   of the width ladder: rtol 1e-5 (bit-exact expected: same summation
-   order), gated == ungated and narrow == wide bucket bit-exact; kernel and
-   plain times from CUDA events against the kernel's operation bound, the
-   kernel's both eagerly back to back and from a CUDA graph of 20 calls;
+   of the width ladder and on stacked init-probe windows at w = 8192: rtol
+   1e-5 (bit-exact expected: same summation order), gated == ungated and
+   narrow == wide bucket bit-exact, two calls and two graph replays
+   bit-equal, one device kernel a call; kernel and plain times from CUDA
+   events against the kernel's operation bound, the kernel's both eagerly
+   back to back and from a CUDA graph of 20 calls;
 3. segment-bootstrap kernel at the grouped serve phase's block (9 lanes of
    lineitem SF10 GROUP BY TAX, B = 300) on packed streams of live windows at
    every ``seg_ladder`` rung: against its plain version (rtol 1e-5, bit-exact
    expected) and against the Poisson-bootstrap kernel on the same windows
    (bit-exact: same order); a masked-out (gated) lane adds nothing; kernel
    times (eager and from a CUDA graph) against the operation bound, the
-   plain version's at L = 8192;
+   plain version's at L = 8192; then the serve's own streams (stacked init
+   probes and the 2000-wide probes after them, and L = 9000 with the
+   windows at slot 0 and at the end of the buffer), bit-exact and timed
+   from graphs; two calls and two graph replays bit-equal, one device kernel
+   a call;
 4. exact segment-aggregate kernel over the whole 60 M-row table GROUP BY
    TAX: against its plain version (bit-exact expected) and numpy float64
    (sums rtol 1e-4, min/max exact); kernel, plain and library (index_add_
@@ -38,6 +46,7 @@ non-zero and nothing falls back to the CPU:
    tiers) answers 16 avg/sum/var/std requests, then one singleton on the
    LOOP route; every request must succeed, 14 of 16 must lie within epsilon
    of the exact answer, and the Poisson-bootstrap kernel must have launched;
+   every launch's arguments are kept (device copies, no sync) for phase 8;
 7. grouped serve at real size: ``lineitem`` SF10 GROUP BY TAX (9 groups), one
    session as in phase 6 answers 8 GROUP BY requests (avg/sum at epsilon 1 %
    and 2 %, var at 3 % and 4 %, std at 1.5 % and 2 % of the smallest exact
@@ -45,9 +54,15 @@ non-zero and nothing falls back to the CPU:
    same pool; every grouped request succeeds with every group's error within
    epsilon, 64 of the 72 per-group answers lie within epsilon of numpy's
    exact answer, every solo request succeeds, and both bootstrap kernels
-   launched;
-8. the segment-bootstrap kernel checked and timed once more, with its plain
-   version, at the stream length phase 7 launched most;
+   launched; every segment launch's arguments are kept for phase 8;
+8. both bootstrap kernels on the serves' own calls: one recorded call of
+   each length (segment, up to 20 000) and width (Poisson, up to 16 384)
+   against the plain version bit for bit, then one CUDA graph of the calls
+   at the most used length or width and one of all calls in order: device
+   ms a call and a serve beside the operation bound summed over the same
+   calls; then the segment-bootstrap kernel checked and timed once more,
+   with its plain version, on phase 3's random stream at the length phase 7
+   launched most;
 9. decode-attention kernel against its plain version on the card at the LM
    serve's shape (8 rows, 12 query heads over 2 KV heads, d = 128, S_max =
    2048, bf16, per-row lengths in the serve's range, positions past each
@@ -87,6 +102,8 @@ Phases 6, 7 and 12 are the main paths: every kernel's launch count is set to
 import collections
 import dataclasses
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -103,9 +120,13 @@ sys.path.insert(0, str(ROOT / "src"))
 B = 300
 N_CAP = 1 << 16
 N_MAX = 2000
-SERVE = dict(B=B, n_min=1000, n_max=N_MAX, max_iters=24, n_cap=N_CAP, seed=0)
-OPS_PER_PAIR = 30       # integer ops per (slot, replicate): hash + ladder
+N_MIN = 1000
+SERVE = dict(B=B, n_min=N_MIN, n_max=N_MAX, max_iters=24, n_cap=N_CAP, seed=0)
+OPS_PER_PAIR = 30       # the earlier estimate: integer ops a (slot, replicate)
 INT32_LANES_PER_SM = 64
+FP32_LANES_PER_SM = 128
+ISSUE_PER_SM = 128      # 4 schedulers x one warp instruction a clock
+BOOT_UNROLL = 8         # pairs a thread draws an iteration (boot::kUnroll)
 H100_SMS = 132
 HBM_BYTES_PER_S = 3.35e12
 
@@ -199,20 +220,178 @@ def graph_ms(fn, reps: int, rounds: int) -> float:
 
 
 # ---------------------------------------------------------------------------
+# the bootstrap kernels' operation bound, from their SASS
+# ---------------------------------------------------------------------------
+
+_SASS_LINE = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
+_FP32 = ("FADD", "FMUL", "FFMA")
+_INT = ("IMAD", "IADD", "VIADD", "LOP", "SHF", "ISETP", "LEA", "SEL",
+        "IMNMX", "VIMNMX", "PRMT", "IABS", "MOV", "I2F")
+
+
+def sass_ops_per_pair(lib: Path, kernel: str):
+    """Instructions a (element, replicate) pair in ``kernel``'s draw loop,
+    from ``cuobjdump -sass`` of the built library: the loop closed by a
+    backward branch that holds the most of the ladder's FADD.SAT steps, over
+    the BOOT_UNROLL pairs an iteration draws, split into the INT pipe (64 lanes an SM a clock),
+    the FP32 pipe (128) and the rest (shared loads, the branch), and the
+    rarely taken tail of the ladder apart.  None when the dump or the loop
+    cannot be read."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        dump = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    for body in dump.split("Function : ")[1:]:
+        if kernel not in body.splitlines()[0]:
+            continue
+        ins = [(int(m[1], 16), m[2], m[3]) for m in
+               map(_SASS_LINE.match, body.splitlines()) if m]
+
+        def branches(forward: bool):
+            out = []
+            for a, op, arg in ins:
+                if op == "BRA" and arg.strip().startswith("0x"):
+                    t = int(arg.split()[0], 16)
+                    if (t > a) == forward:
+                        out.append((min(a, t), max(a, t)))
+            return out
+
+        def sats(lo, hi, const=""):
+            return sum(1 for a, op, arg in ins if lo <= a <= hi
+                       and op.startswith("FADD.SAT") and const in arg)
+
+        loops = [r for r in branches(False) if sats(*r)]
+        if not loops:
+            return None
+        lo, hi = max(loops, key=lambda r: sats(*r))
+        # The ladder's tail (its first step subtracts g(K_5 - 1)) sits behind
+        # a warp-uniform branch taken about one iteration in seven: it is
+        # left out of the count and reported beside it.
+        tails = [r for r in branches(True) if lo < r[0] and r[1] <= hi
+                 and sats(r[0], r[1], "33534492")]
+        tail = min(tails, key=lambda r: r[1] - r[0], default=(0, 0))
+        ops = [op.split(".")[0] for a, op, _ in ins
+               if lo <= a <= hi and not tail[0] < a < tail[1]]
+        n_fp = sum(op in _FP32 for op in ops)
+        n_int = sum(op.startswith(_INT) for op in ops)
+        n_tail = sum(1 for a, _, _ in ins if tail[0] < a < tail[1])
+        return {"int": n_int / BOOT_UNROLL, "fp32": n_fp / BOOT_UNROLL,
+                "other": (len(ops) - n_fp - n_int) / BOOT_UNROLL,
+                "tail_branch": n_tail / BOOT_UNROLL}
+    return None
+
+
+def pair_clocks(per_pair) -> float:
+    """SM clocks a pair needs at least: the busier of the INT and FP32
+    pipes, or the issue of all its instructions (the 30-integer-op estimate
+    where the SASS was not read)."""
+    if per_pair is None:
+        return OPS_PER_PAIR / INT32_LANES_PER_SM
+    total = per_pair["int"] + per_pair["fp32"] + per_pair["other"]
+    return max(per_pair["int"] / INT32_LANES_PER_SM,
+               per_pair["fp32"] / FP32_LANES_PER_SM, total / ISSUE_PER_SM)
+
+
+def op_bound_ms(pairs: int, per_pair, clock_hz: float) -> float:
+    return pairs * pair_clocks(per_pair) / (H100_SMS * clock_hz) * 1e3
+
+
+def old_bound_ms(pairs: int, clock_hz: float) -> float:
+    """The bound at the earlier estimate of 30 integer operations a pair."""
+    return op_bound_ms(pairs, None, clock_hz)
+
+
+def replays_equal(fn) -> bool:
+    """Two eager calls and two replays of a CUDA graph of one call give the
+    same result bit for bit (the arrival counters are left at zero)."""
+    first = fn()
+    again = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    once = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    return (torch.equal(first, again) and torch.equal(once, first)
+            and torch.equal(out, once))
+
+
+def device_kernels(fn, n: int) -> dict:
+    """Device kernels, by name, that ``n`` calls of ``fn`` ran: the second
+    of two profiler steps of ``n`` calls (the first warms the tracer up,
+    which can drop a session's first kernel)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def graph_seq_ms(fns, rounds: int) -> float:
+    """Median CUDA-event time of one replay of a CUDA graph holding one call
+    of each of ``fns`` in order (each warmed eagerly first): the device's
+    time for the sequence."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    del graph
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
 # phase 2: the kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def phase_kernel(data, clock_hz: float):
+def pb_sets(data):
+    """Phase 2's inputs at the solo serve's tier shape: the tier's carried
+    buffer (4 lanes x m groups x N_CAP, each lane's groups filled through
+    its own slot table), seeds, a gate with lane 2 off, and ``(label, w,
+    mask)`` sets -- a window [0, hi) with hi in [w/2, w] on every rung of
+    the width ladder, then stacked init-probe windows [1000k, 1000k + n)
+    (k < 7, n = n_min or n_max) at w = 8192, as the serve's ticks read
+    them."""
     from repro_torch.core import keys, sampling
     from repro_torch.core.fused import bucket_ladder
-    from repro_torch.kernels.poisson_bootstrap import ops, ref
 
     dev = data.values.device
     q, m = 4, data.num_groups
     rng = np.random.default_rng(11)
     starts, sizes = data.offsets[:-1], np.diff(data.offsets)
-    # The tier's carried buffer: each lane's groups filled through its own
-    # slot table from the resident table, as the serve phase fills them.
     buf = torch.stack([
         data.values[sampling.counter_slot_table(
             keys.prng_key(100 + lane), starts, sizes, N_CAP,
@@ -220,12 +399,45 @@ def phase_kernel(data, clock_hz: float):
     seeds = torch.as_tensor(rng.integers(0, 2**32, (q, m)), device=dev)
     act = torch.tensor([True, True, False, True], device=dev)[:, None]
     act = act.expand(q, m)
-    rows = {}
-    max_err = 0.0
+    sets = []
     for w in bucket_ladder(N_CAP, N_MAX):
         hi = torch.as_tensor(rng.integers(w // 2, w + 1, (q, m)), device=dev)
         pos = torch.arange(w, device=dev)
-        mask = (pos < hi[..., None]).to(torch.float32)
+        sets.append((f"w={w}", w, (pos < hi[..., None]).to(torch.float32)))
+    w = 8192
+    lo = torch.as_tensor(rng.integers(0, 7, (q, m)) * N_MIN, device=dev)
+    n = torch.as_tensor(rng.choice([N_MIN, N_MAX], (q, m)), device=dev)
+    pos = torch.arange(w, device=dev)
+    sets.append(("stacked w=8192", w, ((pos >= lo[..., None])
+                                       & (pos < (lo + n)[..., None])).float()))
+    return buf, seeds, act, sets
+
+
+def pb_pairs(mask: torch.Tensor, act, B_: int) -> int:
+    """(live slot, replicate) pairs of a call: the kernel's work."""
+    live = mask != 0
+    if act is not None:
+        live = live & act[..., None]
+    return int(live.sum().item()) * B_
+
+
+def pb_graph_times(buf, seeds, act, sets) -> dict:
+    """Graph ms a call (20 calls a graph, median of 5) of every set."""
+    from repro_torch.kernels.poisson_bootstrap import ops
+
+    return {label: graph_ms(lambda: ops.bootstrap_moments_masked(
+        buf[..., :w], mask, seeds, B, lane_active=act), reps=20, rounds=5)
+        for label, w, mask in sets}
+
+
+def phase_kernel(data, clock_hz: float, per_pair):
+    from repro_torch.kernels.poisson_bootstrap import ops, ref
+
+    buf, seeds, act, sets = pb_sets(data)
+    rows = {}
+    max_err = 0.0
+    g_ms = pb_graph_times(buf, seeds, act, sets)
+    for label, w, mask in sets:
         x = buf[..., :w]                       # strided bucket slice
         got = ops.bootstrap_moments_masked(x, mask, seeds, B, lane_active=act)
         want = ref.bootstrap_moments_masked_ref(x, mask, seeds, B,
@@ -234,34 +446,47 @@ def phase_kernel(data, clock_hz: float):
         err = float((got - want).abs().max())
         max_err = max(max_err, err)
         check(torch.allclose(got, want, rtol=1e-5, atol=0.0),
-              f"kernel != plain at w={w} (max abs err {err})")
+              f"kernel != plain at {label} (max abs err {err})")
         ungated = ops.bootstrap_moments_masked(x, mask, seeds, B)
-        check(torch.equal(ungated[act], got[act]), f"gated != ungated at {w}")
-        check(not got[~act].any(), f"inactive groups not zero at {w}")
+        check(torch.equal(ungated[act], got[act]), f"gated != ungated at {label}")
+        check(not got[~act].any(), f"inactive groups not zero at {label}")
         wide = ops.bootstrap_moments_masked(
             buf, torch.nn.functional.pad(mask, (0, N_CAP - w)), seeds, B,
             lane_active=act)
-        check(torch.equal(wide, got), f"narrow != wide bucket at w={w}")
+        check(torch.equal(wide, got), f"narrow != wide bucket at {label}")
+
         def call():
             return ops.bootstrap_moments_masked(x, mask, seeds, B,
                                                 lane_active=act)
         k_ms = cuda_ms(call, reps=20, rounds=5)
-        g_ms = graph_ms(call, reps=20, rounds=5)
         p_ms = cuda_ms(lambda: ref.bootstrap_moments_masked_ref(
             x, mask, seeds, B, lane_active=act), reps=1, rounds=3)
-        pairs = int((mask * act[..., None]).sum().item()) * B
-        ops_ms = pairs * OPS_PER_PAIR / (
-            H100_SMS * INT32_LANES_PER_SM * clock_hz) * 1e3
-        n_bytes = 2 * q * m * w * 4 + q * m * (8 + 4) + q * m * B * 5 * 4
+        pairs = pb_pairs(mask, act, B)
+        ops_ms = op_bound_ms(pairs, per_pair, clock_hz)
+        G = mask.numel() // w
+        n_bytes = 2 * G * w * 4 + G * (8 + 1) + G * B * 5 * 4
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        rows[w] = dict(ms=k_ms, graph_ms=g_ms, plain_ms=p_ms,
-                       bound_ms=max(ops_ms, bytes_ms),
-                       bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                       pairs=pairs, exact=torch.equal(got, want))
-        print(f"  w={w:6d} pairs={pairs:10d} kernel {k_ms:.4f} ms (graph "
-              f"{g_ms:.4f} ms)  plain "
-              f"{p_ms:.3f} ms  bound {rows[w]['bound_ms']:.4f} ms "
-              f"({rows[w]['bound_by']})  bit-exact={rows[w]['exact']}")
+        rows[label] = dict(ms=k_ms, graph_ms=g_ms[label], plain_ms=p_ms,
+                           bound_ms=max(ops_ms, bytes_ms),
+                           bound_30ops_ms=old_bound_ms(pairs, clock_hz),
+                           bound_by="operations" if ops_ms >= bytes_ms
+                           else "bytes", pairs=pairs,
+                           exact=torch.equal(got, want))
+        r = rows[label]
+        print(f"  {label:15s} pairs={pairs:10d} kernel {k_ms:.4f} ms (graph "
+              f"{r['graph_ms']:.4f} ms)  plain {p_ms:.3f} ms  bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; 30-op bound "
+              f"{r['bound_30ops_ms']:.4f})  bit-exact={r['exact']}")
+    x, mask = buf[..., :8192], sets[-1][2]
+
+    def stacked():
+        return ops.bootstrap_moments_masked(x, mask, seeds, B, lane_active=act)
+    check(replays_equal(stacked), "repeat calls or graph replays differ")
+    dev_ops = device_kernels(stacked, 8)
+    check(sum(dev_ops.values()) == 8 and all("pb_kernel" in k for k in dev_ops),
+          f"8 calls ran {dev_ops} on the device")
+    print(f"  two calls and two graph replays bit-equal; 8 calls ran 8 device"
+          f" kernels ({next(iter(dev_ops))[:40]}...) and nothing else")
     print("  library: no single PyTorch call computes Poisson-bootstrap "
           "moment sums with counter-hash weights; no library yardstick")
     return rows, max_err
@@ -281,42 +506,106 @@ def _split(total: int, k: int, cap: int, rng) -> np.ndarray:
     return w
 
 
-def phase_segment_boot(data, clock_hz: float):
-    """Kernel vs plain and vs the Poisson-bootstrap kernel on packed streams
-    of live windows at every seg_ladder rung, plain version timed at one;
-    returns the per-rung rows and ``measure(L, plain)``, which checks and
-    times one more stream of ``L`` elements (the grouped serve's length)."""
-    from repro_torch.core import fused, keys, sampling
-    from repro_torch.kernels.poisson_bootstrap import ops as pb_ops
-    from repro_torch.kernels.segment_agg import ops, ref
+def seg_block(data):
+    """The grouped serve's block on lineitem GROUP BY TAX: each lane's
+    buffer through its stratified slot table (9 lanes x N_CAP), the lanes'
+    seeds, and the generator phase 3 draws its random streams from."""
+    from repro_torch.core import keys, sampling
 
     dev = data.values.device
-    q = data.num_groups
     rng = np.random.default_rng(12)
     tables = sampling.stratified_slot_tables(keys.prng_key(77), data.offsets,
                                              N_CAP, device=dev)
     buf = data.values[tables[:, 0].long(), 0]                  # (q, N_CAP)
-    seeds = torch.as_tensor(rng.integers(0, 2**32, q), device=dev)
-    gated = 4                  # frozen lane: no window while others fit
+    seeds = torch.as_tensor(rng.integers(0, 2**32, data.num_groups),
+                            device=dev)
+    return buf, seeds, rng
+
+
+def seg_stream(buf, seeds, lo, w):
+    """``segment_bootstrap_sorted``'s arguments for the packed stream of
+    the lanes' windows ``[lo[g], lo[g] + w[g])`` in lane order."""
+    dev = buf.device
+    lo, w = np.asarray(lo, np.int64), np.asarray(w, np.int64)
+    gid = torch.as_tensor(np.repeat(np.arange(len(w)), w), device=dev)
+    slot = torch.as_tensor(np.concatenate(
+        [np.arange(a, a + b) for a, b in zip(lo, w)]), dtype=torch.int32,
+        device=dev)
+    x = buf[gid, slot.long()]
+    off = torch.as_tensor(np.concatenate([[0], np.cumsum(w)]), device=dev)
+    return (x, torch.ones_like(x), slot,
+            seeds[gid], off, B, int((lo + w).max()))
+
+
+GATED_LANE = 4          # phase 3's frozen lane: no window while others fit
+
+
+def seg_random_stream(buf, seeds, rng, L: int):
+    """Phase 3's stream of L elements: the live lanes' window widths split
+    at random (at most N_CAP each), each window at a random offset."""
+    q = buf.shape[0]
+    live = [g for g in range(q) if g != GATED_LANE or L > (q - 1) * N_CAP]
+    w = np.zeros(q, np.int64)
+    w[live] = _split(L, len(live), N_CAP, rng)
+    lo = rng.integers(0, N_CAP - w + 1)
+    return seg_stream(buf, seeds, lo, w), live
+
+
+def seg_serve_sets(buf, seeds):
+    """The grouped serve's own streams, no serve needed: a TAX block's 9
+    lanes reading stacked init probes [1000k, 1000k + 1000), k = 0..6 (L =
+    9000), then the 2000-wide probes that follow (L = 18000); and the L =
+    9000 stream with its windows at slot 0 and at the end of the buffer."""
+    q = buf.shape[0]
+    sets = [(f"probe [{N_MIN * k},+{N_MIN})",
+             seg_stream(buf, seeds, [N_MIN * k] * q, [N_MIN] * q))
+            for k in range(7)]
+    sets += [(f"probe [{7 * N_MIN + N_MAX * k},+{N_MAX})",
+              seg_stream(buf, seeds, [7 * N_MIN + N_MAX * k] * q,
+                         [N_MAX] * q)) for k in range(4)]
+    sets += [(f"L=9000 at {lo}", seg_stream(buf, seeds, [lo] * q, [N_MIN] * q))
+             for lo in (0, N_CAP - N_MIN)]
+    return sets
+
+
+def seg_graph_ms(args) -> float:
+    from repro_torch.kernels.segment_agg import ops
+
+    return graph_ms(lambda: ops.segment_bootstrap_sorted(*args), reps=20,
+                    rounds=5)
+
+
+def phase_segment_boot(data, clock_hz: float, per_pair):
+    """Kernel vs plain and vs the Poisson-bootstrap kernel on packed streams
+    of live windows at every seg_ladder rung (plain version timed at one),
+    then the serve's own streams (``seg_serve_sets``); returns the rung rows,
+    the serve rows and ``measure(L, plain)``, which checks and times one
+    more random stream of ``L`` elements (the grouped serve's length)."""
+    from repro_torch.core import fused
+    from repro_torch.kernels.poisson_bootstrap import ops as pb_ops
+    from repro_torch.kernels.segment_agg import ops, ref
+
+    dev = data.values.device
+    buf, seeds, rng = seg_block(data)
+    q = buf.shape[0]
+
+    def bound(L):
+        pairs = L * B
+        ops_ms = op_bound_ms(pairs, per_pair, clock_hz)
+        bytes_ms = (20 * L + 8 * (q + 1) + q * B * 3 * 4) / HBM_BYTES_PER_S * 1e3
+        return dict(bound_ms=max(ops_ms, bytes_ms),
+                    bound_30ops_ms=old_bound_ms(pairs, clock_hz),
+                    bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
     def measure(L: int, plain: bool) -> dict:
-        live = [g for g in range(q) if g != gated or L > (q - 1) * N_CAP]
-        w = np.zeros(q, np.int64)
-        w[live] = _split(L, len(live), N_CAP, rng)
-        lo = rng.integers(0, N_CAP - w + 1)
-        gid = np.repeat(np.arange(q), w)
-        slot = np.concatenate([np.arange(a, a + b) for a, b in zip(lo, w)])
-        gid_t = torch.as_tensor(gid, device=dev)
-        slot_t = torch.as_tensor(slot, dtype=torch.int32, device=dev)
-        x = buf[gid_t, slot_t.long()]
-        off = torch.as_tensor(np.concatenate([[0], np.cumsum(w)]), device=dev)
-        args = (x, torch.ones_like(x), slot_t, seeds[gid_t], off, B,
-                int((lo + w).max()))
+        args, live = seg_random_stream(buf, seeds, rng, L)
+        x, off = args[0], args[4]
         got = ops.segment_bootstrap_sorted(*args)
         want = ref.segment_bootstrap_sorted_ref(*args)
         pos = torch.arange(N_CAP, device=dev)
-        lo_t, hi_t = (torch.as_tensor(v, device=dev) for v in (lo, lo + w))
-        mask = ((pos >= lo_t[:, None]) & (pos < hi_t[:, None])).float()
+        lo_t = args[2][off[:-1].clamp(max=L - 1)].long()
+        n_t = off[1:] - off[:-1]
+        mask = ((pos >= lo_t[:, None]) & (pos < (lo_t + n_t)[:, None])).float()
         pb = pb_ops.bootstrap_moments_masked(buf, mask, seeds, B)[..., :3]
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -324,31 +613,24 @@ def phase_segment_boot(data, clock_hz: float):
               f"segment kernel != plain at L={L} (max abs err {err})")
         check(torch.equal(got, pb),
               f"segment kernel != Poisson-bootstrap kernel at L={L}")
-        if gated not in live:
-            check(not got[gated].any(), f"frozen lane not zero at L={L}")
+        if GATED_LANE not in live:
+            check(not got[GATED_LANE].any(), f"frozen lane not zero at L={L}")
         # A masked-out lane's elements in the stream add nothing.
+        gid = torch.repeat_interleave(torch.arange(q, device=dev), n_t)
         mk = torch.ones_like(x)
-        mk[gid_t == live[0]] = 0.0
+        mk[gid == live[0]] = 0.0
         masked = ops.segment_bootstrap_sorted(x, mk, *args[2:])
         check(not masked[live[0]].any() and torch.equal(
             masked[live[1:]], got[live[1:]]), f"gated lane added at L={L}")
         k_ms = cuda_ms(lambda: ops.segment_bootstrap_sorted(*args),
                        reps=20, rounds=5)
-        g_ms = graph_ms(lambda: ops.segment_bootstrap_sorted(*args),
-                        reps=20, rounds=5)
         p_ms = (cuda_ms(lambda: ref.segment_bootstrap_sorted_ref(*args),
                         reps=1, rounds=3) if plain else None)
-        pairs = L * B
-        ops_ms = pairs * OPS_PER_PAIR / (
-            H100_SMS * INT32_LANES_PER_SM * clock_hz) * 1e3
-        bytes_ms = (20 * L + 8 * (q + 1) + q * B * 3 * 4) / HBM_BYTES_PER_S * 1e3
-        row = dict(ms=k_ms, graph_ms=g_ms, plain_ms=p_ms,
-                   bound_ms=max(ops_ms, bytes_ms),
-                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                   max_abs_err=err, exact=torch.equal(got, want))
-        print(f"  L={L:7d} pairs={pairs:11d} kernel {k_ms:.4f} ms (graph "
-              f"{g_ms:.4f} ms)  bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})  plain "
+        row = dict(ms=k_ms, graph_ms=seg_graph_ms(args), plain_ms=p_ms,
+                   max_abs_err=err, exact=torch.equal(got, want), **bound(L))
+        print(f"  L={L:7d} pairs={L * B:11d} kernel {k_ms:.4f} ms (graph "
+              f"{row['graph_ms']:.4f} ms)  bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}; 30-op {row['bound_30ops_ms']:.4f})  plain "
               f"{'-' if p_ms is None else f'{p_ms:.3f} ms'}  "
               f"bit-exact={row['exact']} == poisson_bootstrap")
         return row
@@ -356,9 +638,33 @@ def phase_segment_boot(data, clock_hz: float):
     seg_cap = fused.grouped_seg_cap(data.offsets, N_CAP)
     rows = {L: measure(L, plain=L == 8192)
             for L in fused.seg_ladder(seg_cap, N_MAX)}
+    print("  the grouped serve's own streams (9 lanes of stacked probes):")
+    serve = {}
+    for label, args in seg_serve_sets(buf, seeds):
+        got = ops.segment_bootstrap_sorted(*args)
+        check(torch.equal(got, ref.segment_bootstrap_sorted_ref(*args)),
+              f"segment kernel != plain on {label}")
+        L = args[0].shape[0]
+        serve[label] = dict(L=L, graph_ms=seg_graph_ms(args), **bound(L))
+        print(f"  {label:22s} L={L:6d} graph {serve[label]['graph_ms']:.4f} ms"
+              f"  bound {serve[label]['bound_ms']:.4f} ms  bit-exact=True")
+    near0, near_end = (serve[f"L=9000 at {lo}"]["graph_ms"]
+                       for lo in (0, N_CAP - N_MIN))
+    print(f"  windows at slot 0 vs at {N_CAP - N_MIN}: {near0:.4f} vs "
+          f"{near_end:.4f} ms ({abs(near0 - near_end) / min(near0, near_end):.1%}"
+          f" apart)")
+    args = seg_serve_sets(buf, seeds)[3][1]
+    check(replays_equal(lambda: ops.segment_bootstrap_sorted(*args)),
+          "segment kernel: repeat calls or graph replays differ")
+    dev_ops = device_kernels(lambda: ops.segment_bootstrap_sorted(*args), 8)
+    check(sum(dev_ops.values()) == 8
+          and all("seg_boot_kernel" in k for k in dev_ops),
+          f"8 segment calls ran {dev_ops} on the device")
+    print(f"  two calls and two graph replays bit-equal; 8 calls ran 8 device"
+          f" kernels ({next(iter(dev_ops))[:40]}...) and nothing else")
     print("  library: no single PyTorch call computes segment Poisson-bootstrap"
           " moment sums with counter-hash weights; no library yardstick")
-    return rows, measure
+    return rows, serve, measure
 
 
 # ---------------------------------------------------------------------------
@@ -583,11 +889,16 @@ def phase_serve(data):
 
     reqs, exact = serve_requests(data)
     widths = collections.Counter()
+    calls = []
     launch = ops.bootstrap_moments_masked
 
-    def recording(x, *a, **k):          # host metadata only: no sync
+    def recording(x, mask, seeds, B_, *, lane_active=None):
+        # Device copies of the arguments (the carried buffer changes in
+        # place) and host metadata: no sync.
         widths[x.shape[-1]] += 1
-        return launch(x, *a, **k)
+        calls.append((x.clone(), mask.clone(), seeds.clone(), B_,
+                      None if lane_active is None else lane_active.clone()))
+        return launch(x, mask, seeds, B_, lane_active=lane_active)
 
     sess = AQPSession(data, planner=Planner(mode=Route.POOL, pool_lanes=8),
                       **SERVE)
@@ -637,7 +948,7 @@ def phase_serve(data):
     print(f"  loop singleton: wall {loop_wall:.3f} s, n={lres.n.tolist()}, "
           f"kernel launches {loop_launches}")
     print(f"  launches by bucket width: {dict(sorted(widths.items()))}")
-    return add_counts(pool_counts, loop_counts), widths
+    return add_counts(pool_counts, loop_counts), widths, calls
 
 
 # ---------------------------------------------------------------------------
@@ -678,11 +989,16 @@ def phase_grouped_serve(data):
     grouped = [r[:2] for r in reqs if r[2]]
     solo = [r[:2] for r in reqs if not r[2]]
     lengths = collections.Counter()
+    calls = []
     launch = seg_ops.segment_bootstrap_sorted
 
-    def recording(x, *a, **k):          # host metadata only: no sync
+    def recording(x, mask, slot, seed, lane_off, B_, n_slots):
+        # Device copies of the arguments (slots as the kernel reads them,
+        # int32) and host metadata: no sync.
         lengths[x.shape[0]] += 1
-        return launch(x, *a, **k)
+        calls.append((x.clone(), mask.clone(), slot.to(torch.int32),
+                      seed.clone(), lane_off.clone(), B_, n_slots))
+        return launch(x, mask, slot, seed, lane_off, B_, n_slots)
 
     sess = AQPSession(data, planner=Planner(mode=Route.POOL, pool_lanes=8),
                       **SERVE)
@@ -736,7 +1052,72 @@ def phase_grouped_serve(data):
           f"poisson_bootstrap {pb_launches}")
     print(f"  segment launches by stream length: "
           f"{dict(sorted(lengths.items()))}")
-    return counts, lengths
+    return counts, lengths, calls
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the bootstrap kernels on the serves' own calls
+# ---------------------------------------------------------------------------
+
+def replay_calls(name: str, calls, key, fn, plain, pairs_of, per_pair,
+                 clock_hz: float, check_upto: int) -> dict:
+    """Check one recorded call of each ``key`` up to ``check_upto`` against
+    the plain version bit for bit, then replay from one CUDA graph the calls
+    at the most used key and all calls in order; the device's ms a call and
+    a serve beside the operation bound summed over the same calls."""
+    by_key = collections.defaultdict(list)
+    for c in calls:
+        by_key[key(c)].append(c)
+    checked = []
+    for k in sorted(by_key):
+        if k <= check_upto:
+            c = by_key[k][0]
+            check(torch.equal(fn(*c), plain(*c)),
+                  f"{name}: recorded call at {k} != plain")
+            checked.append(k)
+    main = max(by_key, key=lambda k: len(by_key[k]))
+    fns = [lambda c=c: fn(*c) for c in calls]
+    main_fns = [lambda c=c: fn(*c) for c in by_key[main]]
+    main_ms = graph_seq_ms(main_fns, rounds=5)
+    serve_ms = graph_seq_ms(fns, rounds=5)
+    b_main = sum(op_bound_ms(pairs_of(c), per_pair, clock_hz)
+                 for c in by_key[main])
+    b_serve = sum(op_bound_ms(pairs_of(c), per_pair, clock_hz) for c in calls)
+    n_main = len(by_key[main])
+    print(f"  {name}: {n_main} calls at {main}: {main_ms / n_main:.4f} ms a "
+          f"call (bound {b_main / n_main:.4f}); all {len(calls)} calls in "
+          f"order: {serve_ms:.4f} ms of device time a serve (bound "
+          f"{b_serve:.4f}); recorded calls at {checked} == plain bit-exact")
+    return dict(calls=len(calls), main=main, main_calls=n_main,
+                ms_a_call=main_ms / n_main, bound_ms_a_call=b_main / n_main,
+                device_ms_a_serve=serve_ms, bound_ms_a_serve=b_serve)
+
+
+def phase_serve_replays(pb_calls, seg_calls, pb_pp, seg_pp, clock_hz: float):
+    from repro_torch.kernels.poisson_bootstrap import ops as pb_ops
+    from repro_torch.kernels.poisson_bootstrap import ref as pb_ref
+    from repro_torch.kernels.segment_agg import ops as seg_ops
+    from repro_torch.kernels.segment_agg import ref as seg_ref
+
+    def pb(x, mask, seeds, B_, act):
+        return pb_ops.bootstrap_moments_masked(x, mask, seeds, B_,
+                                               lane_active=act)
+
+    def pb_plain(x, mask, seeds, B_, act):
+        return pb_ref.bootstrap_moments_masked_ref(x, mask, seeds, B_,
+                                                   lane_active=act)
+
+    seg = replay_calls(
+        "segment bootstrap, grouped serve", seg_calls,
+        lambda c: c[0].shape[0], seg_ops.segment_bootstrap_sorted,
+        seg_ref.segment_bootstrap_sorted_ref,
+        lambda c: int((c[1] > 0).sum().item()) * c[5], seg_pp, clock_hz,
+        check_upto=20000)
+    pbr = replay_calls(
+        "Poisson bootstrap, solo serve", pb_calls, lambda c: c[0].shape[-1],
+        pb, pb_plain, lambda c: pb_pairs(c[1], c[4], c[3]), pb_pp, clock_hz,
+        check_upto=16384)
+    return pbr, seg
 
 
 # ---------------------------------------------------------------------------
@@ -959,14 +1340,10 @@ def _decode_checks(sets) -> float:
     check(torch.equal(first, eager) and torch.equal(out, first),
           "graph replay != eager call")
     # One device kernel a call: every device op of 16 calls in a trace.
-    from torch.profiler import ProfilerActivity, profile
     n = 16
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            ops.decode_attention(*sets[i % len(sets)])
-        torch.cuda.synchronize()
-    dev_ops = {e.key: e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA}
+    it = iter(range(1 << 30))
+    dev_ops = device_kernels(
+        lambda: ops.decode_attention(*sets[next(it) % len(sets)]), n)
     check(len(dev_ops) == 1 and sum(dev_ops.values()) == n
           and "decode_attn_kernel" in next(iter(dev_ops)),
           f"{n} calls ran {dev_ops} on the device")
@@ -1223,16 +1600,25 @@ def main() -> None:
     da_ops.library()
     print(f"phase 1: the three kernel libraries built in "
           f"{time.perf_counter() - t:.1f} s")
+    pb_pp = sass_ops_per_pair(pb_ops.build(), "pb_kernel")
+    seg_pp = sass_ops_per_pair(seg_ops.build(), "seg_boot_kernel")
+    for name, pp in (("poisson_bootstrap", pb_pp), ("segment_bootstrap",
+                                                    seg_pp)):
+        print(f"  {name}: instructions a (element, replicate) pair in the "
+              f"draw loop (SASS): {pp}; {pair_clocks(pp):.4f} SM clocks a "
+              f"pair at the least (the 30-integer-op estimate: "
+              f"{OPS_PER_PAIR / INT32_LANES_PER_SM:.4f})")
     data, _ = _lineitem("shipinstruct")
     tax, tax_gid = _lineitem("tax")
     # -- phase 2 --
     print("phase 2: Poisson-bootstrap kernel vs plain on the card "
           "(tier 4x4, B=300)")
-    pb_rows, pb_err = phase_kernel(data, clock_mhz * 1e6)
+    pb_rows, pb_err = phase_kernel(data, clock_mhz * 1e6, pb_pp)
     # -- phase 3 --
     print("phase 3: segment-bootstrap kernel vs plain on the card "
           "(9-lane block, B=300)")
-    seg_rows, seg_measure = phase_segment_boot(tax, clock_mhz * 1e6)
+    seg_rows, seg_serve, seg_measure = phase_segment_boot(
+        tax, clock_mhz * 1e6, seg_pp)
     # -- phase 4 --
     print("phase 4: exact segment-aggregate kernel over lineitem SF10 "
           "GROUP BY TAX")
@@ -1242,21 +1628,24 @@ def main() -> None:
     phase_card_vs_cpu()
     # -- phase 6 --
     print("phase 6: solo serve, lineitem SF10 GROUP BY SHIPINSTRUCT")
-    solo_counts, widths = phase_serve(data)
+    solo_counts, widths, pb_calls = phase_serve(data)
     # -- phase 7 --
     print("phase 7: grouped serve, lineitem SF10 GROUP BY TAX")
-    grouped_counts, lengths = phase_grouped_serve(tax)
+    grouped_counts, lengths, seg_calls = phase_grouped_serve(tax)
     launches = add_counts(solo_counts, grouped_counts)
     print(f"  launches on the main paths (phases 6 + 7): {launches}")
     # -- phase 8 --
     w_main = widths.most_common(1)[0][0]
-    r = pb_rows[w_main]
+    r = pb_rows[f"w={w_main}"]
     L_main = lengths.most_common(1)[0][0]
-    print(f"phase 8: segment bootstrap at the grouped serve's most used "
-          f"stream length")
+    print("phase 8: both bootstrap kernels on the serves' own calls, then "
+          "the segment bootstrap on phase 3's stream at the grouped serve's "
+          "most used length")
+    pb_serve, seg_replay = phase_serve_replays(pb_calls, seg_calls, pb_pp,
+                                               seg_pp, clock_mhz * 1e6)
     s = seg_measure(L_main, plain=True)
     seg_err = max(row["max_abs_err"] for row in [s, *seg_rows.values()])
-    del data, tax, tax_gid
+    del data, tax, tax_gid, pb_calls, seg_calls
     torch.cuda.empty_cache()
     # -- phase 9 --
     print("phase 9: decode-attention kernel vs plain on the card")
@@ -1285,14 +1674,21 @@ def main() -> None:
         "launches": launches["poisson_bootstrap"], "max_abs_err": pb_err,
         "ms": r["ms"], "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "bound_30ops_ms": r["bound_30ops_ms"],
+        "ops_per_pair": pb_pp, "stacked_w8192_graph_ms":
+            pb_rows["stacked w=8192"]["graph_ms"], "serve_replay": pb_serve},
+        {
         "name": "segment_bootstrap", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
         "replaces": "src/repro/kernels/segment_agg/kernel.py:66",
         "launches": launches["segment_bootstrap"], "max_abs_err": seg_err,
         "ms": s["ms"], "graph_ms": s["graph_ms"],
         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-        "bound_by": s["bound_by"], "library_ms": None}, {
+        "bound_by": s["bound_by"], "library_ms": None,
+        "bound_30ops_ms": s["bound_30ops_ms"], "ops_per_pair": seg_pp,
+        "serve_streams_graph_ms": {k: v["graph_ms"]
+                                   for k, v in seg_serve.items()},
+        "serve_replay": seg_replay}, {
         "name": "segment_aggregate", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
         "replaces": "src/repro/kernels/segment_agg/kernel.py:37",

@@ -21,10 +21,17 @@ ops.  The phases (TPC-H lineitem SF10 resident on the card, a forced-POOL
   the byte bound), once for each checkout TREE in the order given (this one
   by default), each in its own process with its own build: to compare two
   versions of the kernel on one card, list them as A B B A.
+* ``--boot [TREE ...]``: the two bootstrap kernels alone, on
+  ``chip_smoke.py``'s phase 2 and phase 3 sets (every width rung and the
+  stacked init probes; every stream-length rung, phase 8's L = 9000 stream
+  and the grouped serve's own streams), each from a CUDA graph of 20
+  calls, once for each checkout TREE as ``--decode`` does.
 
-Run from the root of a checkout on a machine with a CUDA card:
-``python3 profile_serve.py [--grouped | --lm | --decode [TREE ...]]
-[TRACE.json]``; with a path, the Chrome trace is written there.
+The solo and grouped profiles print each bootstrap kernel's share of the
+device time.  Run from the root of a checkout on a machine with a CUDA
+card: ``python3 profile_serve.py [--grouped | --lm | --decode [TREE ...] |
+--boot [TREE ...]] [TRACE.json]``; with a path, the Chrome trace is written
+there.
 """
 import argparse
 import json
@@ -39,8 +46,8 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from chip_smoke import (LM_ARCH, LM_S_MAX, LM_SLOTS,  # noqa: E402
-                        SERVE, fail, grouped_requests, lm_requests,
+from chip_smoke import (LM_ARCH, LM_S_MAX, LM_SLOTS, N_CAP,  # noqa: E402
+                        N_MAX, SERVE, fail, grouped_requests, lm_requests,
                         nvidia_smi, run_lm_serve, serve_requests)
 
 
@@ -159,20 +166,82 @@ def decode_one(tree: str) -> None:
     print("DECODE " + json.dumps(result))
 
 
-def profile_decode(trees) -> None:
-    """``decode_one`` for each tree in turn; a summary table at the end."""
+def boot_one(tree: str) -> None:
+    """Time both bootstrap kernels of checkout ``tree`` (in a process of its
+    own) on chip_smoke's phase 2 and phase 3 sets.  Each kernel's equality
+    with its plain version at one set is reported and does not stop the
+    run: a stripped-down copy may be timed to see what a part costs."""
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    import chip_smoke as cs
+    from repro_torch.core import fused
+    from repro_torch.data import make_lineitem
+    from repro_torch.kernels.poisson_bootstrap import ops as pb, ref as pb_ref
+    from repro_torch.kernels.segment_agg import ops as seg, ref as seg_ref
+
+    pb.build(verbose=True)
+    seg.build(verbose=True)
+    result = {"tree": tree}
+    data, _ = make_lineitem(scale_factor=10, group_by="shipinstruct",
+                            device="cuda")
+    buf, seeds, act, sets = cs.pb_sets(data)
+    x, mask = buf[..., :sets[0][1]], sets[0][2]
+    result["pb_exact"] = torch.equal(
+        pb.bootstrap_moments_masked(x, mask, seeds, cs.B, lane_active=act),
+        pb_ref.bootstrap_moments_masked_ref(x, mask, seeds, cs.B,
+                                            lane_active=act))
+    result["pb"] = cs.pb_graph_times(buf, seeds, act, sets)
+    del data, buf, x
+    torch.cuda.empty_cache()
+    tax, _ = make_lineitem(scale_factor=10, group_by="tax", device="cuda")
+    buf, seeds, rng = cs.seg_block(tax)
+    seg_cap = fused.grouped_seg_cap(tax.offsets, N_CAP)
+    streams = [(f"L={L}", cs.seg_random_stream(buf, seeds, rng, L)[0])
+               for L in fused.seg_ladder(seg_cap, N_MAX)]
+    streams.append(("phase 8 L=9000",
+                    cs.seg_random_stream(buf, seeds, rng, 9000)[0]))
+    streams += cs.seg_serve_sets(buf, seeds)
+    args = streams[0][1]
+    result["seg_exact"] = torch.equal(seg.segment_bootstrap_sorted(*args),
+                                      seg_ref.segment_bootstrap_sorted_ref(
+                                          *args))
+    result["seg"] = {label: cs.seg_graph_ms(a) for label, a in streams}
+    print("BOOT " + json.dumps(result))
+
+
+def run_trees(trees, flag: str, tag: str):
+    """Run this script with ``flag TREE`` for each tree in turn, each in a
+    process of its own; the JSON each prints after ``tag``."""
     rows = []
     for tree in trees:
         print(f"== {tree}", flush=True)
         proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--decode-tree",
-             tree], capture_output=True, text=True, timeout=900)
+            [sys.executable, str(Path(__file__).resolve()), flag, tree],
+            capture_output=True, text=True, timeout=900)
         print(proc.stdout[-6000:], proc.stderr[-3000:], sep="\n")
         if proc.returncode != 0:
             fail(f"timing {tree} failed ({proc.returncode})")
         line = [ln for ln in proc.stdout.splitlines()
-                if ln.startswith("DECODE ")][-1]
-        rows.append(json.loads(line[len("DECODE "):]))
+                if ln.startswith(tag)][-1]
+        rows.append(json.loads(line[len(tag):]))
+    return rows
+
+
+def profile_boot(trees) -> None:
+    """``boot_one`` for each tree in turn; a summary table at the end."""
+    rows = run_trees(trees, "--boot-tree", "BOOT ")
+    print("kernel | set | " + " | ".join(r["tree"] for r in rows)
+          + "  (graph ms a call)")
+    for kernel in ("pb", "seg"):
+        print(f"{kernel} | bit-exact vs plain | "
+              + " | ".join(str(r[f"{kernel}_exact"]) for r in rows))
+        for label in rows[0][kernel]:
+            print(f"{kernel} | {label} | " + " | ".join(
+                f"{r[kernel][label]:.5f}" for r in rows))
+
+
+def profile_decode(trees) -> None:
+    """``decode_one`` for each tree in turn; a summary table at the end."""
+    rows = run_trees(trees, "--decode-tree", "DECODE ")
     print("tree | kind | kernel ms | library ms | bound ms | kernel/bound | "
           "bf16 ulps vs plain f32 (> 1: wrong)")
     for r in rows:
@@ -193,6 +262,10 @@ def main() -> None:
                     help="time the decode-attention kernel of each checkout "
                          "(default: this one)")
     ap.add_argument("--decode-tree", help=argparse.SUPPRESS)
+    ap.add_argument("--boot", nargs="*", metavar="TREE",
+                    help="time the two bootstrap kernels of each checkout "
+                         "(default: this one)")
+    ap.add_argument("--boot-tree", help=argparse.SUPPRESS)
     ap.add_argument("trace", nargs="?", help="write the Chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -200,9 +273,15 @@ def main() -> None:
     if args.decode_tree:
         decode_one(args.decode_tree)
         return
+    if args.boot_tree:
+        boot_one(args.boot_tree)
+        return
     print(nvidia_smi("name,power.limit"))
     if args.decode is not None:
         profile_decode(args.decode or [str(ROOT)])
+        return
+    if args.boot is not None:
+        profile_boot(args.boot or [str(ROOT)])
         return
     if args.lm:
         profile_lm(args.trace)
@@ -221,7 +300,13 @@ def main() -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         wall = serve_once(data, reqs)
-    events = device_summary(prof, wall, "serve")[0]
+    events, cuda, dev_us, _ = device_summary(prof, wall, "serve")
+    for name, tag in (("Poisson bootstrap", "pb_"),
+                      ("segment bootstrap", "seg_boot")):
+        k_us = sum(e.self_device_time_total for e in cuda if tag in e.key)
+        k_n = sum(e.count for e in cuda if tag in e.key)
+        print(f"  {name}: {k_n} device kernels, {k_us / 1e3:.3f} ms = "
+              f"{k_us / max(dev_us, 1e-9):.4f} of device time")
     print(events.table(sort_by="self_device_time_total", row_limit=12))
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
     if args.trace:

@@ -3,8 +3,9 @@
 Each kernel source has a plain C entry point, so it is compiled on its own
 into a shared library under ``build/kernels/`` of the checkout and bound
 through ``ctypes`` (pointers from ``data_ptr()``, PyTorch's current stream).
-The library's name carries a hash of the source and the flags: an edited
-source is rebuilt, a stale library is never loaded.  Nothing is built when
+The library's name carries a hash of the source, the headers of ``csrc/``
+it may include and the flags: an edited source or header is rebuilt, a
+stale library is never loaded.  Nothing is built when
 a module is imported.
 """
 from __future__ import annotations
@@ -57,6 +58,8 @@ class Library:
     def path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes()
                                 + " ".join(NVCC_FLAGS).encode())
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.name.encode() + header.read_bytes())
         return BUILD_DIR / f"lib{self.source.stem}_{digest.hexdigest()[:16]}.so"
 
     def build(self, verbose: bool = False) -> Path:
@@ -68,8 +71,9 @@ class Library:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-               "-o", tmp, str(self.source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}",
+               *(("-Xptxas", "-v") if verbose else ()), "-o", tmp,
+               str(self.source)]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:

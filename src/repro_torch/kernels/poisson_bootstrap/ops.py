@@ -7,7 +7,9 @@ CPU tensor it runs the plain version (:mod:`.ref`), because no card is
 there.  It never falls back.
 
 The kernel is compiled with ``nvcc`` at first use into ``build/kernels/`` of
-the checkout and bound through ``ctypes`` (:mod:`..nvcc`).
+the checkout and bound through ``ctypes`` (:mod:`..nvcc`).  A call is one
+kernel launch; its scratch is kept between calls (:mod:`..bootstrap_core`),
+so calls on one device run in stream order.
 """
 from __future__ import annotations
 
@@ -16,15 +18,18 @@ from typing import Optional
 
 import torch
 
+from .. import bootstrap_core as core
 from .. import nvcc
 from . import ref
 
 _MAX_GRID_YZ = 65535
+TILE_WARPS = 8      # replicate warps a block at most (B = 300: two of five)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.pb_launch.argtypes = [P, LL, P, LL, P, P, P, P, I, I, I, P]
+    lib.pb_launch.argtypes = [P, LL, P, LL, P, P, I, I, LL, LL, P, P, P, P,
+                              I, I, I, I, I, P]
     lib.pb_launch.restype = I
 
 
@@ -48,6 +53,29 @@ def _rows(t: torch.Tensor, name: str, G: int, n: int):
     return v, (v.stride(0) if G > 1 else n)
 
 
+def _gate(lane_active: Optional[torch.Tensor], lead: tuple, G: int, dev):
+    """``(tensor, kind, inner, s_outer, s_inner)``: the kernel reads group
+    g's flag at ``(g // inner) * s_outer + (g % inner) * s_inner`` as bool
+    (kind 1) or int32 (kind 2) -- a broadcast (expanded) gate is read in
+    place, without a conversion; other dtypes are converted to int32.  No
+    gate is kind 0."""
+    if lane_active is None:
+        return None, 0, 1, 0, 0
+    if tuple(lane_active.shape) != lead or lane_active.device != dev:
+        raise ValueError(f"lane_active must be {lead} on {dev}")
+    a = lane_active
+    if a.dtype not in (torch.bool, torch.int32):
+        a = a.to(torch.int32)
+    if a.dim() > 2:
+        a = a.reshape(G)
+    kind = 1 if a.dtype == torch.bool else 2
+    if a.dim() == 0:
+        return a, kind, 1, 0, 0
+    if a.dim() == 1:
+        return a, kind, G, 0, a.stride(0)
+    return a, kind, a.shape[1], a.stride(0), a.stride(1)
+
+
 def _launch(x, mask, seeds, B, lane_active):
     if x.shape != mask.shape:
         raise ValueError(f"x {tuple(x.shape)} and mask {tuple(mask.shape)} differ")
@@ -65,12 +93,7 @@ def _launch(x, mask, seeds, B, lane_active):
             f"{tuple(seeds.shape)}")
     if not 0 < B <= (1 << 24) or G > _MAX_GRID_YZ:
         raise ValueError(f"B={B} or {G} groups out of the kernel's range")
-    if lane_active is None:
-        act = torch.ones((G,), dtype=torch.int32, device=dev)
-    else:
-        if tuple(lane_active.shape) != lead or lane_active.device != dev:
-            raise ValueError(f"lane_active must be {lead} on {dev}")
-        act = lane_active.reshape(G).to(torch.int32).contiguous()
+    act, kind, inner, s0, s1 = _gate(lane_active, lead, G, dev)
     out = torch.empty((G, B, ref.NUM_MOMENTS), dtype=torch.float32,
                       device=dev)
     if G == 0 or n == 0:
@@ -78,15 +101,23 @@ def _launch(x, mask, seeds, B, lane_active):
     xv, x_row = _rows(x, "x", G, n)
     mv, m_row = _rows(mask, "mask", G, n)
     sv = seeds.reshape(G).contiguous()
-    n_chunks = -(-n // ref.CHUNK)
-    partial = torch.empty((G, n_chunks, ref.NUM_MOMENTS, B),
-                          dtype=torch.float32, device=dev)
+    n_chunks = core.cdiv(n, ref.CHUNK)
+    warps, tiles = core.tile_shape(B, G * n_chunks, core.sm_count(dev),
+                                   TILE_WARPS)
+    units = G * n_chunks * tiles
+    part = core.scratch(dev, "pb_part", units * ref.NUM_MOMENTS * warps
+                        * core.WARP, torch.float32)
+    flag = core.scratch(dev, "pb_flag", units, torch.int32)
+    count = core.scratch(dev, "pb_count", G * tiles, torch.int32, zero=True)
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pb_launch(xv.data_ptr(), x_row, mv.data_ptr(), m_row,
-                           sv.data_ptr(), act.data_ptr(), partial.data_ptr(),
-                           out.data_ptr(), G, n, B, stream)
+                           sv.data_ptr(),
+                           None if act is None else act.data_ptr(), kind,
+                           inner, s0, s1, part.data_ptr(), flag.data_ptr(),
+                           count.data_ptr(), out.data_ptr(), G, n, B, warps,
+                           tiles, stream)
     if rc != 0:
         raise RuntimeError(f"poisson_bootstrap launch failed: CUDA error {rc}")
     counter.launches += 1
@@ -103,7 +134,8 @@ def bootstrap_moments_masked(x: torch.Tensor, mask: torch.Tensor,
     with j the ABSOLUTE slot, so slicing the sample to a wider bucket with
     zero mask beyond the watermark changes nothing.  ``lane_active`` gates
     whole groups: inactive groups do no work and report zeros (callers pass
-    it only when they discard those groups' outputs).  ``x``/``mask`` may be
+    it only when they discard those groups' outputs); on the card a bool or
+    int32 gate, expanded or not, is read in place.  ``x``/``mask`` may be
     strided slices whose leading dims collapse to one row stride (the
     width-bucketed slice of the carried sample buffer).
     """

@@ -61,6 +61,35 @@ def poisson1_from_uniform(u: torch.Tensor) -> torch.Tensor:
     return w
 
 
+# The ladder on the hash's top 24 bits v: u = v * 2**-24 >= c exactly when
+# v >= K = ceil(c * 2**24), c the f32 threshold.
+POISSON1_K = tuple(int(np.ceil(np.float64(c) * 2.0 ** 24))
+                   for c in POISSON1_CDF_F32)
+
+
+def _g(v):
+    """The float read from bits ``0x4B000000 | v`` (0 <= v < 2**24): 2**23 +
+    v below 2**23, 2 v above; strictly increasing, every value exact."""
+    return np.where(v < 2 ** 23, 2 ** 23 + v, 2 * v)
+
+
+# g(K - 1): v >= K exactly when g(v) - g(K - 1) >= 1, else it is <= 0.
+POISSON1_G = tuple(float(_g(k - 1)) for k in POISSON1_K)
+
+
+def poisson1_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """The kernels' Poisson(1) draw from uint32 bits (int64 tensor): the sum
+    of the saturated f32 differences ``clamp(g(v) - g(K - 1), 0, 1)`` over
+    the ten thresholds, v the top 24 bits -- no int->float convert on the
+    card.  Equal to ``poisson1_from_uniform(uniform01(bits))``."""
+    v = bits >> 8
+    f = torch.where(v < 2 ** 23, v + 2 ** 23, 2 * v).to(torch.float32)
+    w = torch.zeros(bits.shape, dtype=torch.float32, device=bits.device)
+    for g in POISSON1_G:
+        w = w + (f - g).clamp(0.0, 1.0)
+    return w
+
+
 def poisson1_weights_at(seed, row, col) -> torch.Tensor:
     """Weight matrix entry (row, col) = Poisson(1) draw."""
     return poisson1_from_uniform(uniform01(hash3(seed, row, col)))

@@ -219,3 +219,61 @@ def test_cuda_kernel_matches_plain_version():
     assert torch.equal(wide, got)
     with pytest.raises(ValueError):
         tops.bootstrap_moments_masked(xt, mt, st.to(torch.int32), 300)
+
+
+def _eager_and_replays(fn):
+    """Two eager calls, then two replays of a CUDA graph that captured one
+    call: all four equal bit for bit (the replays find the arrival counters
+    the calls left at zero).  Returns the eager result."""
+    first = fn()
+    assert torch.equal(fn(), first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    once = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(once, first) and torch.equal(out, once)
+    return first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 31, 300])
+@pytest.mark.parametrize("gate", ["none", "bool", "int32"])
+def test_cuda_kernel_repeats_and_replays(B, gate):
+    """On the card: one launch a call, equal to the plain version bit for
+    bit at B = 1, 31 and 300 with stacked windows (most chunks masked out)
+    and a partial last chunk; two calls and two graph replays equal; a gate
+    (bool, int32, expanded over the groups) reads zeros where it is off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(B)
+    q, m, n = 3, 4, 4000
+    dev = torch.device("cuda")
+    x = torch.from_numpy((rng.standard_normal((q, m, n)) * 2 + 5)
+                         .astype(np.float32)).to(dev)
+    lo = rng.integers(0, 3, (q, m)) * 1000
+    pos = np.arange(n)
+    mask = torch.from_numpy(((pos >= lo[..., None])
+                             & (pos < lo[..., None] + 1000))
+                            .astype(np.float32)).to(dev)
+    seeds = torch.from_numpy(rng.integers(0, 2**32, (q, m), dtype=np.uint64)
+                             .astype(np.int64)).to(dev)
+    lane = torch.tensor([True, False, True], device=dev)
+    act = {"none": None, "bool": lane[:, None].expand(q, m),
+           "int32": lane.to(torch.int32)[:, None].expand(q, m)}[gate]
+    n0 = tops.counter.launches
+    got = _eager_and_replays(lambda: tops.bootstrap_moments_masked(
+        x, mask, seeds, B, lane_active=act))
+    assert tops.counter.launches > n0
+    assert torch.equal(got, tref.bootstrap_moments_masked_ref(
+        x, mask, seeds, B, lane_active=act))
+    if act is not None:
+        assert not got[1].any() and got[0].any()

@@ -85,6 +85,40 @@ def test_poisson_thresholds_compare_as_f32():
             np.asarray(jprng.poisson1_from_uniform(jnp.asarray(u))))
 
 
+def _ladder_edges():
+    """Hashes whose top 24 bits lie at every threshold K - 1, K, K + 1,
+    with the low byte 0 and 255, plus the ends of the range."""
+    v = np.asarray([k + d for k in tprng.POISSON1_K for d in (-1, 0, 1)]
+                   + [0, 1, 2 ** 23 - 1, 2 ** 23, 2 ** 24 - 1], np.int64)
+    return np.concatenate([v << 8, (v << 8) + 255])
+
+
+@pytest.mark.parametrize("case", ["thresholds", "random", "jax"])
+def test_kernel_ladder_equals_uniform_ladder(case):
+    """The kernels' draw (``poisson1_from_bits``: saturated f32 differences
+    on the top 24 bits, no int->float convert) equals the reference's
+    ``poisson1_from_uniform(uniform01(h))`` at every threshold +-1 and on
+    random hashes, and ``K = ceil(c * 2**24)`` for each f32 threshold c."""
+    for k, c in zip(tprng.POISSON1_K, tprng.POISSON1_CDF_F32):
+        assert (k - 1) * 2.0 ** -24 < c <= k * 2.0 ** -24
+    if case == "thresholds":
+        h = torch.from_numpy(_ladder_edges())
+    elif case == "random":
+        h = torch.from_numpy(np.random.default_rng(3).integers(
+            0, 2 ** 32, 2_000_000, dtype=np.uint64).astype(np.int64))
+    else:
+        s, r, c = _grid()
+        h = tprng.hash3(_t(s), _t(r), _t(c))
+    got = tprng.poisson1_from_bits(h)
+    assert torch.equal(got, tprng.poisson1_from_uniform(tprng.uniform01(h)))
+    if case == "jax":
+        want = jprng.poisson1_from_uniform(jprng.uniform01(
+            jnp.asarray(h.numpy().astype(np.uint32))))
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    if case == "thresholds":         # each count 0..10 is reached
+        assert set(got.tolist()) == set(float(i) for i in range(11))
+
+
 @pytest.mark.parametrize("seed", [0, 1, 7, 0x5A17, 2**31 - 1, -1, -12345])
 def test_prng_key_matches_jax(seed):
     assert np.array_equal(tkeys.prng_key(seed),

@@ -218,6 +218,115 @@ def test_unsorted_stream_equals_sorted_call_bit_exact():
                                            seeds[gid].astype(np.uint32)), q, B)
 
 
+def _plan_case(case):
+    """(lane_off, slot, n_slots) of a sorted packed stream."""
+    rng = np.random.default_rng(len(case))
+    if case == "stacked":            # the grouped serve's init probes
+        lanes = [np.arange(3000, 4000)] * 9
+    elif case == "empty_lanes":
+        lanes = [np.arange(5, 700), np.arange(0), np.arange(256, 513),
+                 np.arange(0)]
+    elif case == "one_element":
+        lanes = [np.asarray([777]), np.arange(100, 140)]
+    elif case == "chunk_edge":
+        lanes = [np.arange(250, 262), np.arange(511, 769)]
+    elif case == "sparse":
+        lanes = [np.sort(rng.choice(20000, n, replace=False))
+                 for n in (1, 40, 300, 2000)]
+    elif case == "repeated":         # last - first == count - 1, not contiguous
+        lanes = [np.asarray([0, 0, 2]), np.asarray([254, 255, 255, 256, 258]),
+                 np.repeat(np.arange(300, 400), 3)]
+    elif case == "q1":
+        lanes = [np.arange(1000, 1700)]
+    else:                            # more lanes than a block plans itself
+        lanes = [np.sort(rng.choice(4096, rng.integers(0, 6), replace=False))
+                 for _ in range(ops.PLAN_LANES + 88)]
+    off = np.concatenate([[0], np.cumsum([len(v) for v in lanes])])
+    slot = np.concatenate(lanes).astype(np.int32) if off[-1] else \
+        np.zeros(0, np.int32)
+    return off, slot, int(slot.max()) + 1 if slot.size else 1
+
+
+_PLAN_CASES = ["stacked", "empty_lanes", "one_element", "chunk_edge",
+               "sparse", "repeated", "q1", "many_lanes"]
+
+
+@pytest.mark.parametrize("case", _PLAN_CASES)
+def test_seg_plan_covers_each_element_once(case):
+    """Every element of every lane lies in exactly one item, the item of
+    its own chunk; a lane's items are consecutive, in ascending chunk order
+    from its first slot's chunk to its last's; no item of a contiguous lane
+    is empty."""
+    off, slot, n_slots = _plan_case(case)
+    base, items = ops.seg_plan(off, slot, n_slots)
+    q = len(off) - 1
+    assert len(base) == q + 1 and base[0] == 0 and base[-1] == len(items)
+    for g in range(q):
+        a, e = off[g], off[g + 1]
+        mine = items[base[g]:base[g + 1]]
+        assert all(it[0] == g for it in mine)
+        if a == e:
+            assert not mine
+            continue
+        chunks = [it[1] for it in mine]
+        assert chunks == list(range(slot[a] >> 8, (slot[e - 1] >> 8) + 1))
+        cover = np.concatenate([np.arange(lo, hi) for _, _, lo, hi in mine])
+        assert np.array_equal(cover, np.arange(a, e))
+        for _, c, lo, hi in mine:
+            assert np.all(slot[lo:hi] >> 8 == c)
+        if np.array_equal(slot[a:e], np.arange(slot[a], slot[a] + e - a)):
+            assert all(hi > lo for _, _, lo, hi in mine)
+
+
+@pytest.mark.parametrize("case", _PLAN_CASES)
+def test_seg_grid_depends_on_host_values_only(case):
+    """The grid is a function of (L, q, n_slots, B, SMs): the same for any
+    stream with those values; its tiles cover B; and at the grouped serve's
+    shape it puts at least one unit of work on every SM."""
+    off, slot, n_slots = _plan_case(case)
+    L, q = int(off[-1]), len(off) - 1
+    for B in (1, 31, 300):
+        blocks, warps, tiles = ops.seg_grid(L, q, n_slots, B, 132)
+        assert (blocks, warps, tiles) == ops.seg_grid(L, q, n_slots, B, 132)
+        assert 1 <= warps <= 16 and (warps - 1) * tiles * 32 < B
+        assert warps * tiles * 32 >= B
+        assert 1 <= blocks <= 132 * max(1, 32 // warps)
+    if case == "stacked":
+        blocks, warps, tiles = ops.seg_grid(L, q, n_slots, 300, 132)
+        assert len(ops.seg_plan(off, slot, n_slots)[1]) * tiles >= 132
+
+
+@pytest.mark.parametrize("case", ["stacked", "sparse", "repeated",
+                                  "empty_lanes"])
+def test_kernel_arithmetic_on_the_plan_equals_plain_bit_exact(case):
+    """The kernel's arithmetic, emulated on the CPU: per item of
+    ``seg_plan``, draws from ``prng.poisson1_from_bits`` of the staged keys
+    added one element at a time in stream order (masked elements add exact
+    zeros), then each lane's items in order -- equal to the plain version
+    in every bit."""
+    off, slot, n_slots = _plan_case(case)
+    rng = np.random.default_rng(5)
+    L, q, B = int(off[-1]), len(off) - 1, 24
+    x = torch.from_numpy(rng.standard_normal(L).astype(np.float32))
+    mask = torch.from_numpy((rng.uniform(size=L) > 0.2).astype(np.float32))
+    seed = torch.from_numpy(rng.integers(0, 2**32, L, dtype=np.uint64)
+                            .astype(np.int64))
+    sl = torch.from_numpy(slot.astype(np.int64))
+    feats = ref.boot_features(x, mask)
+    b = torch.arange(B, dtype=torch.int64)
+    base, items = ops.seg_plan(off, slot, n_slots)
+    out = torch.zeros((q, B, 3))
+    for g, c, lo, hi in items:
+        acc = torch.zeros((B, 3))
+        for j in range(lo, hi):
+            w = prng.poisson1_from_bits(prng.hash3(seed[j], sl[j], b))
+            acc = acc + w[:, None] * feats[j]
+        out[g] = out[g] + acc
+    want = ref.segment_bootstrap_sorted_ref(
+        x, mask, sl, seed, torch.from_numpy(off), B, n_slots)
+    assert torch.equal(out, want)
+
+
 def test_cpu_tensors_take_the_plain_versions():
     gid, x, mask = _agg_case(300, 3, seed=0)
     a0, b0 = ops.agg_counter.launches, ops.boot_counter.launches
@@ -254,3 +363,81 @@ def test_cuda_kernels_match_plain_versions():
     assert ops.boot_counter.launches == b0 + 1
     assert torch.equal(got, ref.segment_bootstrap_sorted_ref(*args))
     assert not got[1].any()
+
+
+def _eager_and_replays(fn):
+    """Two eager calls, then two replays of a CUDA graph that captured one
+    call: all four equal bit for bit (the replays find the arrival counters
+    the calls left at zero).  Returns the eager result."""
+    first = fn()
+    assert torch.equal(fn(), first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    once = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(once, first) and torch.equal(out, once)
+    return first
+
+
+def _mixed_stream(q, B, seed):
+    """A sorted packed stream of q lanes: stacked contiguous windows, sparse
+    and repeated slots, empty lanes and a masked-out lane (lane 1)."""
+    rng = np.random.default_rng(seed)
+    lanes = []
+    for g in range(q):
+        kind = g % 6
+        if kind == 0:
+            k = rng.integers(0, 7)
+            lanes.append(np.arange(1000 * k, 1000 * k + 1000))
+        elif kind == 1:
+            lanes.append(np.arange(300, 300 + rng.integers(1, 600)))
+        elif kind == 2:
+            lanes.append(np.sort(rng.choice(8192, rng.integers(1, 50),
+                                            replace=False)))
+        elif kind == 3:
+            lanes.append(np.repeat(np.arange(250, 260), 2))
+        elif kind == 4:
+            lanes.append(np.arange(0))
+        else:
+            lanes.append(np.arange(250, 250 + rng.integers(1, 20)))
+    off = np.concatenate([[0], np.cumsum([len(v) for v in lanes])])
+    slot = np.concatenate(lanes).astype(np.int32)
+    L = len(slot)
+    x = (rng.standard_normal(L) * 3 + 2).astype(np.float32)
+    mask = (rng.uniform(size=L) > 0.1).astype(np.float32)
+    mask[off[1]:off[2]] = 0.0
+    seeds = rng.integers(0, 2**32, q, dtype=np.uint64).astype(np.int64)
+    gid = np.repeat(np.arange(q), np.diff(off))
+    dev = torch.device("cuda")
+    return (torch.from_numpy(x).to(dev), torch.from_numpy(mask).to(dev),
+            torch.from_numpy(slot).to(dev),
+            torch.from_numpy(seeds[gid]).to(dev),
+            torch.from_numpy(off).to(dev), B, int(slot.max()) + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 31, 300])
+@pytest.mark.parametrize("q", [12, 5000])
+def test_cuda_segment_bootstrap_repeats_and_replays(B, q):
+    """On the card: one launch a call, equal to the plain version bit for
+    bit over contiguous, sparse, repeated-slot, empty and masked-out lanes
+    (q = 5000 plans in a first kernel), at B = 1, 31 and 300; two calls and
+    two graph replays equal; the masked-out and empty lanes read zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args = _mixed_stream(q, B, seed=q + B)
+    b0 = ops.boot_counter.launches
+    got = _eager_and_replays(lambda: ops.segment_bootstrap_sorted(*args))
+    assert ops.boot_counter.launches > b0
+    assert torch.equal(got, ref.segment_bootstrap_sorted_ref(*args))
+    assert not got[1].any() and not got[4::6].any()
+    assert got[0].any()
