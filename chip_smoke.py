@@ -708,6 +708,8 @@ def phase_segment_agg(data, gid_host: np.ndarray):
               and float(got["max"][g]) == live.max(), f"min/max of group {g}")
     k_ms = cuda_ms(lambda: ops.segment_aggregate(gid32, x, mask, m),
                    reps=10, rounds=5)
+    g_ms = graph_ms(lambda: ops.segment_aggregate(gid32, x, mask, m),
+                    reps=10, rounds=5)
     p_ms = cuda_ms(lambda: ref.segment_aggregate_ref(gid32, x, mask, m),
                    reps=1, rounds=3)
     feats = ref.aggregate_features(x, mask)
@@ -724,12 +726,12 @@ def phase_segment_agg(data, gid_host: np.ndarray):
 
     l_ms = cuda_ms(library, reps=5, rounds=3)
     bound_ms = 12 * n / HBM_BYTES_PER_S * 1e3
-    print(f"  n={n} m={m}: kernel {k_ms:.4f} ms  plain {p_ms:.3f} ms  "
-          f"library {l_ms:.4f} ms  bound {bound_ms:.4f} ms (bytes)  "
-          f"bit-exact={exact_plain}; sums vs numpy float64 rtol 1e-4, "
-          f"min/max exact")
-    return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound_ms,
-                max_abs_err=max_err)
+    print(f"  n={n} m={m}: kernel {k_ms:.4f} ms (graph {g_ms:.4f} ms)  plain "
+          f"{p_ms:.3f} ms  library {l_ms:.4f} ms  bound {bound_ms:.4f} ms "
+          f"(bytes)  bit-exact={exact_plain}; sums vs numpy float64 rtol "
+          f"1e-4, min/max exact")
+    return dict(ms=k_ms, graph_ms=g_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=bound_ms, max_abs_err=max_err)
 
 
 # ---------------------------------------------------------------------------
@@ -1564,6 +1566,340 @@ def phase_lm_serve():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the host route on the card against the CPU
+# ---------------------------------------------------------------------------
+
+HOST_CFG = dict(delta=0.05, B=150, n_min=400, n_max=800, l=6, seed=0,
+                max_iters=40)
+HOST_EPS = {"avg": 0.05, "sum": 5000.0, "var": 0.1, "std": 0.05,
+            "median": 0.05, "min": 0.5}
+HOST_METRICS = ("l2", "linf", "l1", "lp3", "diff", "order")
+
+
+def _host_run(data, func, metric, use_kernel):
+    """One host-route run (``run_l2miss`` or its extension) at the CPU
+    tests' configuration."""
+    from repro_torch.core import extensions as X
+    from repro_torch.core.l2miss import MissConfig, run_l2miss
+
+    cfg = MissConfig(epsilon=HOST_EPS[func], use_kernel=use_kernel,
+                     **HOST_CFG)
+    run = {"l2": run_l2miss, "linf": X.run_maxmiss, "diff": X.run_diffmiss,
+           "order": X.run_ordermiss,
+           "l1": lambda d, f, c: X.run_lpmiss(d, f, c, p=1),
+           "lp3": lambda d, f, c: X.run_lpmiss(d, f, c, p=3)}[metric]
+    return run(data, func, cfg)
+
+
+def _same_trace(a, b, what: str, cancels: bool) -> None:
+    """Integers exact; theta rtol 1e-5 and error rtol 1e-4 (1e-4 and 2e-3
+    for var/std), the CPU tests' tolerances."""
+    for f in ("iterations", "status", "total_sampled"):
+        check(getattr(a, f) == getattr(b, f),
+              f"{what}: {f} {getattr(a, f)} vs {getattr(b, f)}")
+    check(np.array_equal(a.n, b.n) and np.array_equal(a.profile_n,
+                                                      b.profile_n),
+          f"{what}: n {a.n} vs {b.n}")
+    rt, re = (1e-4, 2e-3) if cancels else (1e-5, 1e-4)
+    check(np.allclose(np.asarray(a.theta, np.float64),
+                      np.asarray(b.theta, np.float64), rtol=rt, atol=0),
+          f"{what}: theta {a.theta.ravel()} vs {b.theta.ravel()}")
+    check(abs(a.error - b.error) <= re * abs(b.error),
+          f"{what}: error {a.error} vs {b.error}")
+
+
+_CPU_TABLE = {}
+
+
+def _host_run_cpu(func, metric, entry):
+    """``_host_run`` on the CPU table, in a worker process of one thread;
+    returns the trace and its seconds."""
+    from repro_torch.data import make_grouped
+
+    torch.set_num_threads(1)
+    if "data" not in _CPU_TABLE:
+        _CPU_TABLE["data"] = make_grouped(["normal", "exp"], 150_000, seed=1,
+                                          biases=[5.0, 3.0], device="cpu")
+    t = time.perf_counter()
+    tr = _host_run(_CPU_TABLE["data"], func, metric, entry)
+    return tr, time.perf_counter() - t
+
+
+def phase_host_vs_cpu():
+    """``run_l2miss`` and every extension with the moments entry on the card
+    (the CUDA kernel) and on the CPU (its plain version), median and min on
+    the generic route; the entry itself card == cpu bit for bit; and
+    ``AQPEngine.exact`` (the segment-aggregate kernel) against numpy
+    float64.  The CPU runs go to worker processes (one thread each), since
+    the plain bootstrap's weight hashing is their cost."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.aqp import AQPEngine, Query
+    from repro_torch.core import sampling
+    from repro_torch.data import make_grouped
+    from repro_torch.kernels.poisson_bootstrap import ops as pb_ops
+
+    args = (["normal", "exp"], 150_000)
+    kw = dict(seed=1, biases=[5.0, 3.0])
+    dc, dh = make_grouped(*args, **kw, device="cuda"), \
+        make_grouped(*args, **kw, device="cpu")
+    # OrderMiss first: on this table var and std have equal group values,
+    # so their order bound is ~0 and those runs scan every row (minutes on
+    # the CPU, under a second on the card).
+    runs = [(f, m, True) for m in HOST_METRICS[::-1]
+            for f in ("avg", "sum", "var", "std")]
+    runs += [("median", "l2", False), ("min", "l2", False)]
+    t0 = time.perf_counter()
+    launches = pb_ops.counter.launches
+    workers = max(1, min(8, (os.cpu_count() or 2) - 1))
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        cpu = [ex.submit(_host_run_cpu, *r) for r in runs]
+        card, card_s = [], []
+        for r in runs:
+            t = time.perf_counter()
+            card.append(_host_run(dc, *r))
+            card_s.append(time.perf_counter() - t)
+        t_card = time.perf_counter() - t0
+        cpu, cpu_s = zip(*[f.result() for f in cpu])
+    for (func, metric, _), a, b in zip(runs, card, cpu):
+        _same_trace(a, b, f"host {func}/{metric}", func in ("var", "std"))
+    print(f"  seconds a run, card: {' '.join(f'{x:.2f}' for x in card_s)}"
+          f" ({t_card:.1f} s in all); CPU worker: "
+          f"{' '.join(f'{x:.1f}' for x in cpu_s)}")
+    check(pb_ops.counter.launches > launches,
+          "the moments entry never launched the kernel on the card")
+    print(f"  {len(runs)} host runs (avg/sum/var/std x "
+          f"{'/'.join(HOST_METRICS)} through the moments entry, median and "
+          f"min generic): card == cpu integers, theta/error within the CPU "
+          f"tests' rtol; {pb_ops.counter.launches - launches} kernel "
+          f"launches; {time.perf_counter() - t0:.1f} s ({workers} CPU "
+          f"workers)")
+    n_vec = np.asarray([700, 1500])
+    sh, mh = sampling.stratified_sample(sampling.root_key(2), dh.values,
+                                        dh.offsets, n_vec, 2048)
+    key = sampling.root_key(3)
+    for func in ("avg", "var", "sum"):
+        scale = torch.as_tensor(np.asarray(
+            dh.scale if func == "sum" else np.ones(2), np.float32))
+        ec, tc = pb_ops.estimate_error_moments(func, sh.cuda(), mh.cuda(),
+                                               scale.cuda(), key, 0.05, B=B)
+        eh, th = pb_ops.estimate_error_moments(func, sh, mh, scale, key,
+                                               0.05, B=B)
+        check(float(ec) == float(eh) and torch.equal(tc.cpu(), th),
+              f"estimate_error_moments {func}: card != cpu")
+    print("  estimate_error_moments card == cpu bit for bit (avg, var, sum)")
+    eng = AQPEngine(dc)
+    host = dc.values[:, 0].cpu().numpy()
+    for func in ("avg", "sum", "var", "std"):
+        got = eng.exact(Query(func=func, epsilon=1.0))[:, 0]
+        want = _exact(host, dc.offsets, func)
+        check(np.allclose(got, want, rtol=1e-5 if func in ("avg", "sum")
+                          else 1e-4, atol=0),
+              f"AQPEngine.exact {func}: {got} vs {want}")
+    print("  AQPEngine.exact (segment-aggregate kernel) vs numpy float64: "
+          "avg/sum rtol 1e-5, var/std rtol 1e-4")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the host serve at real size
+# ---------------------------------------------------------------------------
+
+PRED_HI = (">", ("col", 0), 20000.0)
+PRED_LO = ("<", ("col", 0), 5000.0)
+
+
+def _exact_host(host: np.ndarray, offsets: np.ndarray, func: str,
+                pred=None) -> np.ndarray:
+    """numpy float64 exact answers a group (a predicate folds into a 0/1
+    measure, as the engine folds it)."""
+    out = []
+    for g in range(len(offsets) - 1):
+        x = host[offsets[g]:offsets[g + 1]].astype(np.float64)
+        if pred is not None:
+            x = ((x > pred[2]) if pred[0] == ">" else (x < pred[2])).astype(
+                np.float64)
+        if func in ("median", "maxq"):
+            q = 0.5 if func == "median" else 0.99
+            k = int(np.ceil(q * len(x))) - 1      # first cum. count >= q n
+            out.append(np.partition(x, k)[k])
+        elif func == "count":
+            out.append(x.sum())
+        else:
+            out.append(_exact(x, np.asarray([0, len(x)]),
+                              "avg" if func == "proportion" else func)[0])
+    return np.asarray(out)
+
+
+def host_requests(data):
+    """Phase 14's 12 requests ``(label, Query kwargs, metric, exact)``:
+    epsilon a fraction of the L2 norm of the exact answers (as phase 6
+    sizes it), or per group for GROUP BY."""
+    host = data.values[:, 0].cpu().numpy()
+    off = data.offsets
+    ex = {f: _exact_host(host, off, f) for f in
+          ("avg", "sum", "var", "std", "median", "maxq")}
+    cnt = _exact_host(host, off, "count", PRED_HI)
+    prop = _exact_host(host, off, "proportion", PRED_LO)
+    gprop = _exact_host(host, off, "proportion", PRED_HI)
+    nrm = {f: float(np.linalg.norm(v)) for f, v in ex.items()}
+    return [
+        ("avg linf 1%", dict(func="avg", epsilon=0.01 * nrm["avg"],
+                             metric="linf"), "linf", ex["avg"]),
+        ("sum l1 2%", dict(func="sum", epsilon=0.02 * nrm["sum"],
+                           metric="l1"), "l1", ex["sum"]),
+        ("var lp3 2%", dict(func="var", epsilon=0.02 * nrm["var"],
+                            metric="lp", lp=3.0), "lp3", ex["var"]),
+        ("std diff 1.5%", dict(func="std", epsilon=0.015 * nrm["std"],
+                               metric="diff"), "diff", ex["std"]),
+        ("avg order", dict(func="avg", metric="order"), "order", ex["avg"]),
+        ("avg rel 0.01", dict(func="avg", epsilon_rel=0.01), "l2",
+         ex["avg"]),
+        ("count >20000 1%", dict(func="count",
+                                 epsilon=0.01 * float(np.linalg.norm(cnt)),
+                                 predicate=PRED_HI), "l2", cnt),
+        ("proportion <5000", dict(func="proportion", epsilon=0.005,
+                                  predicate=PRED_LO), "l2", prop),
+        ("median 1%", dict(func="median", epsilon=0.01 * nrm["median"]),
+         "l2", ex["median"]),
+        ("maxq 1%", dict(func="maxq", epsilon=0.01 * nrm["maxq"]), "l2",
+         ex["maxq"]),
+        ("GROUP BY avg >20000", dict(func="avg", epsilon=0.005,
+                                     predicate=PRED_HI, group_by=True),
+         "group", gprop),
+        ("GROUP BY sum rel 0.02", dict(func="sum", epsilon_rel=0.02,
+                                       group_by=True), "group", ex["sum"]),
+    ]
+
+
+def _metric(name: str, theta, exact) -> float:
+    from repro_torch.core.extensions import metric_value
+
+    d = np.ravel(np.asarray(theta, np.float64)) - np.ravel(exact)
+    if name == "lp3":
+        return float(np.sum(np.abs(d) ** 3) ** (1.0 / 3.0))
+    if name == "group":
+        return float(np.abs(d).max())
+    return metric_value(name, np.ravel(theta), np.ravel(exact))
+
+
+def phase_host_serve(data):
+    """12 host-route requests through ``AQPSession`` (auto planner, B = 300)
+    on lineitem SF10 GROUP BY SHIPINSTRUCT, the engine's exact answers of
+    the moment requests through the segment-aggregate kernel, then one
+    ``AQPService`` batch (fused avg, host median, predicate count) twice.
+    Returns every kernel's launches in that run and row 3's timings."""
+    from repro_torch.aqp.query import Query, Request
+    from repro_torch.kernels.segment_agg import ops as seg_ops
+    from repro_torch.serve import AQPService, AQPSession, Route
+
+    reqs = host_requests(data)
+    sess = AQPSession(data, **SERVE)
+    traces = {}
+    execute = sess.engine.execute
+
+    def recording(q):
+        tr = execute(q)
+        traces[id(q)] = tr
+        return tr
+
+    sess.engine.execute = recording
+    queries = [Query(**kw) for _, kw, _, _ in reqs]
+    moment, moment_exact = zip(*[
+        (q, r[3]) for q, r in zip(queries, reqs)
+        if q.func in ("avg", "sum", "var", "std", "count", "proportion")])
+    reset_counts()
+    t0 = time.perf_counter()
+    for q in queries:
+        sess.submit(Request(query=q))
+    res = sess.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    exacts = [sess.engine.exact(q) for q in moment]
+    exact_wall = (time.perf_counter() - t1) / len(moment)
+    svc = AQPService(data, **SERVE)
+    batch = [Query(func="avg", epsilon=reqs[0][1]["epsilon"]),
+             Query(func="median", epsilon=reqs[8][1]["epsilon"]),
+             Query(func="count", epsilon=reqs[6][1]["epsilon"],
+                   predicate=PRED_HI)]
+    new_rows = []
+    for _ in range(2):
+        before = svc.rows_touched
+        out = svc.answer(batch)
+        check(all(r.success for r in out),
+              f"a service batch request failed: "
+              f"{[(q.func, r.success, r.error) for q, r in zip(batch, out)]}")
+        new_rows.append(svc.rows_touched - before)
+    torch.cuda.synchronize()
+    total_wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(len(res) == len(reqs), f"{len(res)} of {len(reqs)} answered")
+    within = 0
+    for r, q, (label, kw, metric, exact) in zip(res, queries, reqs):
+        tr = traces[id(q)]
+        check(r.route is Route.HOST, f"{label}: route {r.route}")
+        if metric == "order":
+            eps = tr.info["order_bound_eps"]
+        elif q.epsilon is None:
+            eps = q.epsilon_rel * sess.engine._pilot_scale(q)
+        else:
+            eps = q.epsilon
+        if q.group_by:
+            ok = bool(r.success) and bool((r.group_error <= eps).all())
+            iters = int(np.asarray(tr.iterations.cpu()).max())
+        else:
+            ok = bool(r.success) and r.error <= eps
+            iters = tr.iterations
+        check(ok, f"{label}: success={r.success} error={r.error:.6g} "
+                  f"eps={eps:.6g}")
+        dev = _metric(metric, r.theta, exact)
+        hit = dev == 0.0 if metric == "order" else dev <= eps
+        within += hit
+        print(f"  {label:22s} eps={eps:14.6g} error={r.error:14.6g} "
+              f"{metric} vs exact={dev:14.6g} within={hit} n="
+              f"{np.asarray(r.n).tolist()} iterations={iters} "
+              f"latency={r.latency_s * 1e3:9.2f} ms")
+    check(within >= 9, f"only {within} of {len(reqs)} answers within "
+                       f"epsilon of the exact answer")
+    for q, got, exact in zip(moment, exacts, moment_exact):
+        check(np.allclose(got[:, 0], exact, rtol=1e-4, atol=0),
+              f"AQPEngine.exact {q.func}: {got[:, 0]} vs {exact}")
+    check(new_rows[1] < new_rows[0],
+          f"the second service batch touched {new_rows[1]} new rows, the "
+          f"first {new_rows[0]}")
+    check(counts["poisson_bootstrap"] > 0 and counts["segment_aggregate"] > 0,
+          f"a kernel never launched on the host path: {counts}")
+    st = sess.stats()
+    lat = np.asarray([r.latency_s for r in res]) * 1e3
+    print(f"  host serve: wall {wall:.3f} s for {len(reqs)} requests, latency "
+          f"p50 {np.percentile(lat, 50):.2f} ms p99 {np.percentile(lat, 99):.2f}"
+          f" ms; rows touched {st['rows_touched']} (store {st['store_rows']}, "
+          f"fused {st['fused_rows']}); {within}/{len(reqs)} within epsilon")
+    print(f"  AQPEngine.exact: {len(moment)} calls, {exact_wall * 1e3:.2f} ms "
+          f"a call (host clock, one segment-aggregate launch each), vs numpy "
+          f"float64 rtol 1e-4")
+    print(f"  service batch (fused avg, host median, predicate count) twice:"
+          f" new rows {new_rows[0]} then {new_rows[1]}; phase wall "
+          f"{total_wall:.3f} s; launches {counts}")
+    x = data.values[:, 0]
+    gid = sess.engine._group_ids()
+    ones = torch.ones_like(x)
+    m = data.num_groups
+    agg_ms = cuda_ms(lambda: seg_ops.segment_aggregate(gid, x, ones, m),
+                     reps=10, rounds=5)
+    agg_graph = graph_ms(lambda: seg_ops.segment_aggregate(gid, x, ones, m),
+                         reps=10, rounds=5)
+    print(f"  segment aggregate inside exact (n={x.shape[0]}, m={m}): "
+          f"{agg_ms:.4f} ms eager, {agg_graph:.4f} ms from a graph, bound "
+          f"{12 * x.shape[0] / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+    return counts, dict(exact_ms=agg_ms, exact_graph_ms=agg_graph,
+                        exact_wall_ms=exact_wall * 1e3)
+
+
 def _lineitem(group_by: str):
     from repro_torch.data import make_lineitem
 
@@ -1645,7 +1981,7 @@ def main() -> None:
                                                seg_pp, clock_mhz * 1e6)
     s = seg_measure(L_main, plain=True)
     seg_err = max(row["max_abs_err"] for row in [s, *seg_rows.values()])
-    del data, tax, tax_gid, pb_calls, seg_calls
+    del tax, tax_gid, pb_calls, seg_calls
     torch.cuda.empty_cache()
     # -- phase 9 --
     print("phase 9: decode-attention kernel vs plain on the card")
@@ -1661,11 +1997,20 @@ def main() -> None:
     print(f"phase 12: LM serve, {LM_ARCH} bf16 at full width")
     lm_counts = phase_lm_serve()
     launches = add_counts(launches, lm_counts)
-    print(f"  launches on the main paths (phases 6 + 7 + 12): {launches}")
+    # -- phase 13 --
+    print("phase 13: host route card vs cpu at the CPU tests' size")
+    phase_host_vs_cpu()
+    # -- phase 14 --
+    print("phase 14: host serve, lineitem SF10 GROUP BY SHIPINSTRUCT")
+    host_counts, host_agg = phase_host_serve(data)
+    launches = add_counts(launches, host_counts)
+    print(f"  launches on the main paths (phases 6 + 7 + 12 + 14): "
+          f"{launches}")
     print(f"  result rows: Poisson bootstrap at the solo serve's most used "
           f"width w={w_main}; segment bootstrap at L={L_main}; aggregate over "
-          f"the whole table (no serve-path caller: 0 launches); decode "
-          f"attention at the LM serve's shape; total "
+          f"the whole table GROUP BY TAX with a random mask (phase 4; its "
+          f"launches are AQPEngine.exact's in phase 14); decode attention at "
+          f"the LM serve's shape; total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "poisson_bootstrap", "route": "cuda",
@@ -1676,7 +2021,8 @@ def main() -> None:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None, "bound_30ops_ms": r["bound_30ops_ms"],
         "ops_per_pair": pb_pp, "stacked_w8192_graph_ms":
-            pb_rows["stacked w=8192"]["graph_ms"], "serve_replay": pb_serve},
+            pb_rows["stacked w=8192"]["graph_ms"], "serve_replay": pb_serve,
+        "host_serve_launches": host_counts["poisson_bootstrap"]},
         {
         "name": "segment_bootstrap", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
@@ -1694,9 +2040,14 @@ def main() -> None:
         "replaces": "src/repro/kernels/segment_agg/kernel.py:37",
         "launches": launches["segment_aggregate"],
         "max_abs_err": agg["max_abs_err"],
-        "ms": agg["ms"], "plain_ms": agg["plain_ms"],
+        "ms": agg["ms"], "graph_ms": agg["graph_ms"],
+        "plain_ms": agg["plain_ms"],
         "bound_ms": agg["bound_ms"], "bound_by": "bytes",
-        "library_ms": agg["library_ms"]}, {
+        "library_ms": agg["library_ms"],
+        "host_serve_launches": host_counts["segment_aggregate"],
+        "exact_ms": host_agg["exact_ms"],
+        "exact_graph_ms": host_agg["exact_graph_ms"],
+        "exact_call_wall_ms": host_agg["exact_wall_ms"]}, {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:33",

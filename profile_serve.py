@@ -11,6 +11,10 @@ ops.  The phases (TPC-H lineitem SF10 resident on the card, a forced-POOL
   SHIPINSTRUCT;
 * ``--grouped``: the grouped serve, 8 GROUP BY requests as lane blocks and
   4 solo requests in one pool, GROUP BY TAX;
+* ``--host``: the host serve of ``chip_smoke.py`` phase 14, its 12
+  requests on the HOST route (auto planner) and the engine's exact answers
+  of the moment requests, GROUP BY SHIPINSTRUCT; it also prints the
+  segment-aggregate kernel's share of device time;
 * ``--lm``: the LM serve of ``chip_smoke.py`` phase 12 (Qwen2-1.5B bf16 at
   full width, 16 requests through a ``ContinuousBatcher`` of 8 slots), then
   four lone decode steps of the 8-slot pool for the kernels per decode
@@ -29,9 +33,9 @@ ops.  The phases (TPC-H lineitem SF10 resident on the card, a forced-POOL
 
 The solo and grouped profiles print each bootstrap kernel's share of the
 device time.  Run from the root of a checkout on a machine with a CUDA
-card: ``python3 profile_serve.py [--grouped | --lm | --decode [TREE ...] |
---boot [TREE ...]] [TRACE.json]``; with a path, the Chrome trace is written
-there.
+card: ``python3 profile_serve.py [--grouped | --host | --lm | --decode
+[TREE ...] | --boot [TREE ...]] [TRACE.json]``; with a path, the Chrome
+trace is written there.
 """
 import argparse
 import json
@@ -47,8 +51,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from chip_smoke import (LM_ARCH, LM_S_MAX, LM_SLOTS, N_CAP,  # noqa: E402
-                        N_MAX, SERVE, fail, grouped_requests, lm_requests,
-                        nvidia_smi, run_lm_serve, serve_requests)
+                        N_MAX, SERVE, fail, grouped_requests, host_requests,
+                        lm_requests, nvidia_smi, run_lm_serve, serve_requests)
 
 
 def serve_once(data, reqs) -> float:
@@ -69,6 +73,31 @@ def serve_once(data, reqs) -> float:
     print(f"  wall {wall * 1e3:.1f} ms, pool ticks {st['pool']['ticks']}, "
           f"dispatches {st['fused_dispatches']}, block ticks "
           f"{st['pool']['block_ticks']}")
+    return wall
+
+
+def host_once(data, reqs) -> float:
+    """Phase 14's requests through a fresh session on the HOST route, then
+    the engine's exact answers of the moment requests."""
+    from repro_torch.aqp.query import Query, Request
+    from repro_torch.serve import AQPSession
+
+    sess = AQPSession(data, **SERVE)
+    queries = [Query(**kw) for _, kw, _, _ in reqs]
+    t0 = time.perf_counter()
+    for q in queries:
+        sess.submit(Request(query=q))
+    res = sess.drain()
+    for q in queries:
+        if q.func not in ("median", "maxq"):
+            sess.engine.exact(q)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(res) != len(reqs) or not all(r.success for r in res):
+        fail("a profiled request failed")
+    st = sess.stats()
+    print(f"  wall {wall * 1e3:.1f} ms, rows touched {st['rows_touched']} "
+          f"(store {st['store_rows']}, fused {st['fused_rows']})")
     return wall
 
 
@@ -256,6 +285,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--grouped", action="store_true",
                     help="profile the grouped serve (GROUP BY TAX)")
+    ap.add_argument("--host", action="store_true",
+                    help="profile the host serve (phase 14's requests)")
     ap.add_argument("--lm", action="store_true",
                     help="profile the LM serve (Qwen2-1.5B bf16, 8 slots)")
     ap.add_argument("--decode", nargs="*", metavar="TREE",
@@ -290,19 +321,23 @@ def main() -> None:
 
     data, _ = make_lineitem(scale_factor=10, group_by=(
         "tax" if args.grouped else "shipinstruct"), device="cuda")
-    if args.grouped:
+    once = host_once if args.host else serve_once
+    if args.host:
+        reqs = host_requests(data)
+    elif args.grouped:
         reqs = grouped_requests(data)[0]
     else:
         reqs = [r + (False,) for r in serve_requests(data)[0]]
     print("warm-up run")
-    serve_once(data, reqs)
+    once(data, reqs)
     print("profiled run")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
-        wall = serve_once(data, reqs)
+        wall = once(data, reqs)
     events, cuda, dev_us, _ = device_summary(prof, wall, "serve")
     for name, tag in (("Poisson bootstrap", "pb_"),
-                      ("segment bootstrap", "seg_boot")):
+                      ("segment bootstrap", "seg_boot"),
+                      ("segment aggregate", "seg_agg")):
         k_us = sum(e.self_device_time_total for e in cuda if tag in e.key)
         k_n = sum(e.count for e in cuda if tag in e.key)
         print(f"  {name}: {k_n} device kernels, {k_us / 1e3:.3f} ms = "

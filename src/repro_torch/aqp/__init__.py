@@ -1,3 +1,4 @@
 from .query import Query, Request
+from .engine import AQPEngine
 
-__all__ = ["Query", "Request"]
+__all__ = ["AQPEngine", "Query", "Request"]

@@ -3,18 +3,164 @@
     SELECT X, f(Y) FROM D GROUP BY X [WHERE P]
     ERROR WITHIN eps CONFIDENCE 1-delta [METRIC m]
 
-The fields and validation of the reference's ``Query`` and ``Request``.  The
-predicate AST and the cache signature come with the warm-cache and host
-slices; a predicate is carried as given and such queries route to the host
-engine, which the port does not have yet.
+``predicate`` turns a COUNT query into COUNT-with-predicate by mapping the
+measure column to an indicator before estimation (paper SS2.1);
+``epsilon_rel`` expresses the bound relative to the result's magnitude,
+resolved by the engine against a pilot estimate.
+
+A predicate is either an opaque callable over the ``(N, c)`` values tensor
+(returning a bool ``(N,)`` tensor) or a structured AST of nested tuples --
+``("col", j)`` / ``("lit", x)`` leaves under comparison and boolean nodes
+(see :func:`canonicalize_predicate`).  :func:`compile_predicate` turns the
+AST into torch comparisons on the values' own device, so a predicate over a
+table resident on the card never copies the column to the host.  The cache
+signature comes with the warm-cache slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Any, Optional
+from typing import Callable, Optional, Tuple, Union
+
+import numpy as np
+import torch
 
 METRICS = ("l2", "linf", "l1", "lp", "order", "diff")
+
+# -- structured predicates ---------------------------------------------------
+# Grammar (nested tuples; a bare int/float is shorthand for ("lit", x)):
+#   expr := ("col", j) | ("lit", x)
+#         | (cmp, expr, expr)          cmp in {"<", "<=", ">", ">=", "==", "!="}
+#         | ("and"|"or", expr, ...)    n-ary, n >= 1
+#         | ("not", expr)
+_CMP_OPS = ("<", "<=", ">", ">=", "==", "!=")
+# Orientation normal form: a > b == b < a, so only "<"/"<=" survive
+# canonicalization and the operand order carries the direction.
+_FLIP = {">": "<", ">=": "<="}
+# Unordered comparisons: operand order is semantically free, so it is
+# sorted away.
+_SYMMETRIC = ("==", "!=")
+_BOOL_OPS = ("and", "or")
+
+PredicateAST = Tuple
+Predicate = Union[Callable, PredicateAST]
+
+
+def canonicalize_predicate(pred) -> PredicateAST:
+    """Reduce a predicate AST to its canonical form (raises on malformed).
+
+    Normalizations (each removes one source of signature instability):
+      * numeric literals coerce to float (``("lit", 5)`` == ``("lit", 5.0)``),
+      * ``>`` / ``>=`` flip into ``<`` / ``<=`` with swapped operands,
+      * ``==`` / ``!=`` operands sort (operand order is semantically free),
+      * ``and`` / ``or`` flatten nested same-op children, dedupe, and sort;
+        single-child nodes collapse to the child,
+      * ``not not x`` collapses to ``x``.
+    The result is a hashable nested tuple -- the predicate's signature.
+    """
+    if isinstance(pred, bool):
+        raise ValueError(f"bare bool {pred!r} is not a predicate expression")
+    if isinstance(pred, (int, float, np.integer, np.floating)):
+        return ("lit", float(pred))
+    if not isinstance(pred, tuple) or not pred or not isinstance(pred[0], str):
+        raise ValueError(f"malformed predicate node: {pred!r}")
+    op = pred[0]
+    if op == "lit":
+        if len(pred) != 2 or not isinstance(
+                pred[1], (int, float, np.integer, np.floating)) or isinstance(
+                pred[1], bool):
+            raise ValueError(f"malformed lit node: {pred!r}")
+        return ("lit", float(pred[1]))
+    if op == "col":
+        if len(pred) != 2 or not isinstance(
+                pred[1], (int, np.integer)) or isinstance(pred[1], bool):
+            raise ValueError(f"malformed col node: {pred!r}")
+        if pred[1] < 0:
+            raise ValueError(f"col index must be >= 0: {pred!r}")
+        return ("col", int(pred[1]))
+    if op == "not":
+        if len(pred) != 2:
+            raise ValueError(f"'not' takes one operand: {pred!r}")
+        inner = canonicalize_predicate(pred[1])
+        if inner[0] in ("lit", "col"):
+            raise ValueError(f"'not' needs a boolean operand: {pred!r}")
+        if inner[0] == "not":
+            return inner[1]
+        return ("not", inner)
+    if op in _CMP_OPS:
+        if len(pred) != 3:
+            raise ValueError(f"comparison takes two operands: {pred!r}")
+        a, b = (canonicalize_predicate(x) for x in pred[1:])
+        for side in (a, b):
+            if side[0] not in ("lit", "col"):
+                raise ValueError(
+                    f"comparison operands must be col/lit: {pred!r}")
+        if op in _FLIP:
+            op, a, b = _FLIP[op], b, a
+        elif op in _SYMMETRIC and repr(b) < repr(a):
+            a, b = b, a
+        return (op, a, b)
+    if op in _BOOL_OPS:
+        if len(pred) < 2:
+            raise ValueError(f"{op!r} takes at least one operand: {pred!r}")
+        terms = []
+        for t in pred[1:]:
+            c = canonicalize_predicate(t)
+            if c[0] in ("lit", "col"):
+                raise ValueError(f"{op!r} needs boolean operands: {pred!r}")
+            # Flatten nested same-op nodes: and(and(a, b), c) == and(a, b, c).
+            terms.extend(c[1:] if c[0] == op else (c,))
+        uniq = sorted(set(terms), key=repr)
+        if len(uniq) == 1:
+            return uniq[0]
+        return (op,) + tuple(uniq)
+    raise ValueError(f"unknown predicate op {op!r} in {pred!r}")
+
+
+def predicate_signature(pred) -> Optional[PredicateAST]:
+    """Stable signature of a predicate: ``()`` for none, the canonical AST
+    for a structured predicate, None for an opaque callable (uncacheable)."""
+    if pred is None:
+        return ()
+    if isinstance(pred, tuple):
+        return canonicalize_predicate(pred)
+    return None
+
+
+_CMP = {"<": torch.lt, "<=": torch.le, "==": torch.eq, "!=": torch.ne}
+
+
+def compile_predicate(ast: PredicateAST) -> Callable:
+    """Compile a (canonical or raw) predicate AST to a row filter ``f(values
+    (N, c)) -> bool (N,)`` of torch ops on the values' device.  Comparisons
+    run in the column's dtype (a literal is rounded to it, as numpy's weak
+    scalars are), so the indicator equals the reference's."""
+    ast = canonicalize_predicate(ast)
+
+    def ev(node, vals):
+        op = node[0]
+        if op == "lit":
+            # A 0-d tensor of the column's dtype: broadcasts, no (N,) copy.
+            return torch.tensor(node[1], dtype=vals.dtype, device=vals.device)
+        if op == "col":
+            return vals[:, node[1]]
+        if op == "not":
+            return torch.logical_not(ev(node[1], vals))
+        if op in _CMP_OPS:
+            return _CMP[op](ev(node[1], vals), ev(node[2], vals))
+        fold = torch.logical_and if op == "and" else torch.logical_or
+        out = ev(node[1], vals)
+        for t in node[2:]:
+            out = fold(out, ev(t, vals))
+        return out
+
+    def run(vals: torch.Tensor) -> torch.Tensor:
+        if vals.dim() == 1:
+            vals = vals[:, None]
+        return ev(ast, vals).expand(vals.shape[0])
+
+    return run
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,13 +170,15 @@ class Query:
     epsilon_rel: Optional[float] = None    # relative bound (vs pilot |theta|)
     delta: float = 0.05
     metric: str = "l2"
-    predicate: Optional[Any] = None        # row predicate: callable | AST
+    predicate: Optional[Predicate] = None  # row predicate: callable | AST
     lp: Optional[float] = None             # the p of metric="lp" (p >= 1)
     group_by: bool = False                 # one answer PER GROUP
 
     def __post_init__(self):
         if self.metric not in METRICS:
             raise ValueError(f"metric {self.metric!r} not in {METRICS}")
+        if isinstance(self.predicate, tuple):
+            canonicalize_predicate(self.predicate)   # validate eagerly
         if self.metric == "lp":
             if self.lp is None or self.lp < 1:
                 raise ValueError(

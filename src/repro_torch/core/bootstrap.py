@@ -1,22 +1,34 @@
-"""Bootstrap error estimation (paper SS4.2): the moments path of the fused
-loop's ESTIMATE.
+"""Bootstrap error estimation (paper SS4.2).
 
-Every moment estimator (avg/proportion/var/std/sum/count) finishes from the
-same replicate moment sums ``[sum w, sum w x, sum w x^2]`` under the counter
-PRNG Poisson weights, so one pass of the bootstrap kernel serves a lane of
-any of them, and the ESTIMATE is: moment sums -> dead-replicate guard ->
-finish -> per-group error -> joint metric -> per-lane (1 - delta) quantile.
+Two ESTIMATEs live here:
+
+* the generic one of the host route (:func:`estimate_error`): every group
+  is resampled with its own key -- ``poisson`` weights (``mask *
+  Poisson(1)`` from ``uniform(key, (B, n))``, the reference's draws),
+  ``multinomial`` counts, or the CLT ``normal`` replicates of NormalMiss --
+  and any estimator applies its weighted function to all B weight rows at
+  once; the moment family takes a ``(B, n) @ (n, 3)`` product instead.
+  Each group materializes its ``(B, n_cap)`` weights (79 MB of f32 at B =
+  300, n_cap = 65 536) one group at a time;
+* the moments path of the fused loop: every moment estimator finishes from
+  the same replicate moment sums ``[sum w, sum w x, sum w x^2]`` under the
+  counter-PRNG Poisson weights, so one pass of the bootstrap kernel serves
+  a lane of any of them: moment sums -> dead-replicate guard -> finish ->
+  per-group error -> joint metric -> per-lane (1 - delta) quantile.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..kernels import prng
 from ..kernels.poisson_bootstrap import ops as pb_ops
 from ..kernels.poisson_bootstrap import ref as pb_ref
 from ..kernels.segment_agg import ops as seg_ops
 from ..kernels.segment_agg import ref as seg_ref
+from . import keys as keylib
 from .estimators import Estimator, finish_by_family
 from .reduce import tree_sum
 
@@ -48,6 +60,141 @@ def quantile_linear(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     hi_i = high.clamp(0, n - 1).to(torch.int64)[:, None]
     return (torch.gather(srt, -1, lo_i)[:, 0] * lw
             + torch.gather(srt, -1, hi_i)[:, 0] * hw)
+
+
+def poisson_weights(key, B: int, n: int, device) -> torch.Tensor:
+    """(B, n) iid Poisson(1) resample counts: the inverse-CDF ladder on
+    ``uniform(key, (B, n))``."""
+    return prng.poisson1_from_uniform(keylib.uniform(key, (B, n),
+                                                     device=device))
+
+
+def multinomial_weights(key, B: int, mask: torch.Tensor) -> torch.Tensor:
+    """(B, n) exact multinomial resample counts over the valid rows: each
+    of the n_valid draws is an inverse-CDF search of ``uniform(key, (B,
+    n))`` over the cumulative mask; padding draws are dropped."""
+    n = mask.shape[0]
+    w = mask.to(torch.float32)
+    cdf = torch.cumsum(w, 0) / torch.clamp(torch.sum(w), min=1e-9)
+    u = keylib.uniform(key, (B, n), device=mask.device)
+    idx = torch.clamp(torch.searchsorted(cdf, u, right=True), 0, n - 1)
+    n_valid = torch.sum(mask)
+    keep = (torch.arange(n, device=mask.device)[None, :] < n_valid).expand(
+        B, n).to(torch.float32)
+    counts = torch.zeros((B, n), dtype=torch.float32, device=mask.device)
+    counts.scatter_add_(1, idx, keep)
+    return counts * w[None, :]
+
+
+def _weights(x: torch.Tensor, mask: torch.Tensor, key, B: int,
+             backend: str) -> torch.Tensor:
+    if backend == "poisson":
+        w = poisson_weights(key, B, x.shape[0], x.device) * mask[None, :]
+        # An all-zero draw on a tiny sample falls back to the mask (the
+        # identity replicate).
+        dead = torch.sum(w, 1, keepdim=True) <= 0
+        return torch.where(dead, mask[None, :].to(w.dtype), w)
+    if backend == "multinomial":
+        return multinomial_weights(key, B, mask)
+    raise ValueError(f"unknown bootstrap backend {backend!r}")
+
+
+# Estimators whose CLT standard error NormalMiss computes in closed form.
+_NORMAL_OK = ("avg", "proportion", "sum", "count", "var", "std")
+
+
+def normal_replicates(est: Estimator, x: torch.Tensor, mask: torch.Tensor,
+                      key, B: int) -> torch.Tensor:
+    """NormalMiss backend (paper SS6.2): CLT Gaussian replicates
+    ``theta* ~ N(theta_hat, avar / n)`` -- no resampling, B cheap draws."""
+    if est.name not in _NORMAL_OK:
+        raise ValueError(f"normal backend unsupported for {est.name}")
+    v = (x[:, 0] if x.dim() == 2 else x).to(torch.float32)
+    w = mask.to(torch.float32)
+    n = torch.clamp(torch.sum(w), min=1.0)
+    mean = torch.sum(w * v) / n
+    d2 = (v - mean) * (v - mean)
+    var = torch.sum(w * d2) / n
+    if est.name in ("var", "std"):
+        mu4 = torch.sum(w * (d2 * d2)) / n
+        avar = torch.clamp(mu4 - var * var, min=1e-12)
+        if est.name == "var":
+            theta = var
+        else:
+            theta = torch.sqrt(torch.clamp(var, min=1e-12))
+            avar = avar / (4 * var)
+    else:
+        theta, avar = mean, var
+    se = torch.sqrt(avar / n)
+    z = keylib.normal(key, (B, 1), device=x.device)
+    return theta + se * z
+
+
+def replicates(est: Estimator, x: torch.Tensor, mask: torch.Tensor, key,
+               B: int, backend: str = "poisson") -> torch.Tensor:
+    """(B, p) bootstrap replicates of f on one group's sample.  Moment
+    estimators take one (B, n) @ (n, 3) product over [1, x, x^2]."""
+    if backend == "normal":
+        return normal_replicates(est, x, mask, key, B)
+    w = _weights(x, mask, key, B, backend)
+    if est.moments_finish is not None:
+        v = (x[:, 0] if x.dim() == 2 else x).to(torch.float32)
+        feats = torch.stack([torch.ones_like(v), v, v * v], dim=1)
+        return est.moments_finish(w @ feats)
+    return est.apply(est.prepare(x), w)
+
+
+def _group_replicates(est, sample, mask, key, B, backend):
+    """(theta_hat (m, p), reps (m, B, p)), group g under ``split(key,
+    m)[g]``."""
+    keys = keylib.split(key, sample.shape[0])
+    thetas, reps = [], []
+    for xg, mg, kg in zip(sample, mask, keys):
+        thetas.append(est.apply(est.prepare(xg), mg.to(torch.float32)))
+        reps.append(replicates(est, xg, mg, kg, B, backend))
+    return torch.stack(thetas), torch.stack(reps)
+
+
+def one_minus(delta) -> float:
+    """``1 - delta`` in f32, as the reference's traced ESTIMATE forms it."""
+    return float(np.float32(1.0) - np.float32(delta))
+
+
+def _quantile(a: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.quantile(a, q)`` (linear) of a 1-D tensor."""
+    return quantile_linear(a[None, :], torch.full(
+        (1,), q, dtype=torch.float32, device=a.device))[0]
+
+
+def estimate_error(est: Estimator, sample: torch.Tensor, mask: torch.Tensor,
+                   scale: torch.Tensor, key, delta: float, B: int = 500,
+                   backend: str = "poisson", metric: str = "l2"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The host route's generic ESTIMATE: ``(e, theta_hat (m, p))`` for the
+    joint metric across the m groups of ``sample (m, n_cap, c)``.
+
+    ``e`` is the (1 - delta) quantile of the joint metric of the per-group
+    errors, each group resampled independently; a multi-output estimator
+    (a regression) contributes the L2 norm of its coefficient error.
+    """
+    theta_hat, reps = _group_replicates(est, sample, mask, key, B, backend)
+    dev = reps - theta_hat[:, None, :]                         # (m, B, p)
+    per_group_err = torch.sqrt(torch.sum(dev * dev, -1)) * scale[:, None]
+    joint = _joint_metric(per_group_err, metric, axis=0)       # (B,)
+    e = _quantile(joint, one_minus(delta))
+    return e, theta_hat * scale[:, None]
+
+
+def per_group_errors(est: Estimator, sample: torch.Tensor,
+                     mask: torch.Tensor, scale: torch.Tensor, key,
+                     delta: float, B: int = 500,
+                     backend: str = "poisson") -> torch.Tensor:
+    """(m,) per-group (1 - delta)-quantile errors (BLK-style baselines)."""
+    theta_hat, reps = _group_replicates(est, sample, mask, key, B, backend)
+    dev = reps - theta_hat[:, None, :]
+    err = torch.sqrt(torch.sum(dev * dev, -1))                 # (m, B)
+    q = float(np.float32(1.0 - delta))
+    return torch.stack([_quantile(eg, q) for eg in err]) * scale
 
 
 def lane_moment_sums(v: torch.Tensor, mf: torch.Tensor, seeds: torch.Tensor,

@@ -10,7 +10,7 @@ difference in the solve into a different sample size.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -110,24 +110,31 @@ def diagnose(beta: torch.Tensor, tau: float
     return beta_out, status
 
 
-def predict_optimal_n(beta: torch.Tensor, log_eps: torch.Tensor
+def predict_optimal_n(beta: torch.Tensor, log_eps: torch.Tensor,
+                      cost_weights: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
-    """Closed-form min sum(n) s.t. H(n; beta) <= log eps (Eq. 13):
-    n_i = beta_i * exp((beta0 - sum_j beta_j log beta_j - log eps) / sum_j
-    beta_j).  Assumes positive slopes (guaranteed post-diagnose unless
-    FAILURE)."""
+    """Closed-form min c'n s.t. H(n; beta) <= log eps.
+
+    Uniform cost (Eq. 13): n_i = beta_i * exp((beta0 - sum_j beta_j log
+    beta_j - log eps) / sum_j beta_j).  Linear cost ``c`` (paper SS8):
+    n_i = lambda beta_i / c_i with log lambda = (beta0 - sum_j beta_j
+    log(beta_j / c_j) - log eps) / sum_j beta_j.  Assumes positive slopes
+    (guaranteed post-diagnose unless FAILURE)."""
     b0 = beta[..., 0]
     b = torch.clamp(beta[..., 1:], min=1e-9)
     s = tree_sum(b, -1)
-    log_lambda = (b0 - tree_sum(b * torch.log(b), -1) - log_eps) / s
-    return b * torch.exp(log_lambda)[..., None]
+    ratio = b if cost_weights is None else b / torch.clamp(cost_weights,
+                                                           min=1e-12)
+    log_lambda = (b0 - tree_sum(b * torch.log(ratio), -1) - log_eps) / s
+    return ratio * torch.exp(log_lambda)[..., None]
 
 
 def fit_and_predict(profile_n: torch.Tensor, profile_loge: torch.Tensor,
-                    row_valid: torch.Tensor, log_eps: torch.Tensor, tau: float
+                    row_valid: torch.Tensor, log_eps: torch.Tensor,
+                    tau: float, cost_weights: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, ErrorModelFit]:
     """Fused PREDICT subroutine: fit -> diagnose -> closed-form optimum."""
     beta, r2 = fit_wls(profile_n, profile_loge, row_valid)
     beta_cal, status = diagnose(beta, tau)
-    n_hat = predict_optimal_n(beta_cal, log_eps)
+    n_hat = predict_optimal_n(beta_cal, log_eps, cost_weights)
     return n_hat, ErrorModelFit(beta_cal, r2, status)

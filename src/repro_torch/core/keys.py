@@ -1,16 +1,31 @@
-"""Host-side key derivation: Threefry-2x32 ``PRNGKey``/``fold_in``/``split``/
-``bits`` in numpy.
+"""Threefry-2x32 key derivation and draws: ``PRNGKey``/``fold_in``/``split``/
+``bits`` and the ``uniform``/``randint``/``normal`` draws of ``jax.random``.
 
-The reference derives every lane seed and every slot->row binding from keys
-made with ``jax.random`` (threefry with ``jax_threefry_partitionable``, the
-default since jax 0.5).  The port has no JAX, so it reproduces that key
-algebra bit for bit here.  Keys are ``(2,)`` uint32 numpy arrays; batches of
-keys are ``(k, 2)``.  They are a handful of host integers per request, so
-none of this runs on the card.
+The reference derives every lane seed, every slot->row binding and the host
+route's bootstrap weights from keys made with ``jax.random`` (threefry with
+``jax_threefry_partitionable``, the default since jax 0.5).  The port has no
+JAX, so it reproduces that key algebra and those draws here.  Keys are
+``(2,)`` uint32 numpy arrays; batches of keys are ``(k, 2)``.
+
+Entry ``i`` (row-major) of a draw of shape ``s`` hashes the counter pair
+``(i >> 32, i & 0xFFFFFFFF)``.  Key derivation and small draws run in numpy
+on the host.  Bulk draws (the ``(B, n)`` bootstrap uniforms, the ``(m,
+n_cap)`` stratified-sample uniforms) pass a ``device`` and run as torch ops
+there, on int64 tensors holding uint32 patterns (PyTorch has no logical
+right shift for uint32 on the CPU).
+
+``uniform`` and ``randint`` equal ``jax.random``'s bit for bit.  ``normal``
+goes through XLA's f32 ``erf_inv`` polynomial; ``log1p`` and the order of
+its f32 operations may round differently, so it is held to the reference
+within a stated tolerance (``tests/test_torch_host_keys.py``).
 """
 from __future__ import annotations
 
+import math
+from typing import Sequence, Tuple, Union
+
 import numpy as np
+import torch
 
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -68,7 +83,134 @@ def split(key, num: int = 2) -> np.ndarray:
 def bits(key, num: int | None = None):
     """``jax.random.bits(key, shape, uint32)`` for shape ``()`` (returns an
     int) or ``(num,)`` (returns a uint32 array)."""
-    lo = np.arange(1 if num is None else num, dtype=np.uint32)
-    b0, b1 = threefry2x32(as_key(key), np.zeros_like(lo), lo)
-    out = b0 ^ b1
+    out = random_bits(key, 1 if num is None else num)
     return int(out[0]) if num is None else out
+
+
+# ---------------------------------------------------------------------------
+# draws of a shape: ``jax.random.bits`` / ``uniform`` / ``randint`` / ``normal``
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+Shape = Union[int, Sequence[int]]
+
+
+def _shape(shape: Shape) -> Tuple[int, ...]:
+    return (int(shape),) if isinstance(shape, (int, np.integer)) else tuple(
+        int(d) for d in shape)
+
+
+def _threefry_t(key: np.ndarray, x0: torch.Tensor,
+                x1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`threefry2x32` on int64 tensors holding uint32 patterns."""
+    k0, k1 = int(key[0]), int(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _MASK32
+    x1 = (x1 + ks[1]) & _MASK32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = (((x1 << r) & _MASK32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ((ks[(i + 2) % 3] + i + 1) & _MASK32)) & _MASK32
+    return x0, x1
+
+
+def random_bits(key, shape: Shape, device=None):
+    """``jax.random.bits(key, shape, uint32)``: a uint32 numpy array, or with
+    ``device`` an int64 tensor of uint32 patterns on that device."""
+    shape = _shape(shape)
+    key = as_key(key)
+    size = math.prod(shape)
+    if device is None:
+        i = np.arange(size, dtype=np.uint64)
+        b0, b1 = threefry2x32(key, (i >> np.uint64(32)).astype(np.uint32),
+                              (i & np.uint64(_MASK32)).astype(np.uint32))
+        return (b0 ^ b1).reshape(shape)
+    i = torch.arange(size, dtype=torch.int64, device=device)
+    b0, b1 = _threefry_t(key, i >> 32, i & _MASK32)
+    return (b0 ^ b1).reshape(shape)
+
+
+def _unit_floats(bits):
+    """f32 in [0, 1) from uint32 bits: mantissa ``bits >> 9`` under the
+    exponent of 1.0, minus 1 (jax's construction, exact)."""
+    if not isinstance(bits, torch.Tensor):
+        bits = np.asarray(bits)
+        f = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32)
+        return f - np.float32(1.0)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def uniform(key, shape: Shape = (), minval: float = 0.0, maxval: float = 1.0,
+            device=None):
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``:
+    ``max(minval, floats * (maxval - minval) + minval)`` in f32."""
+    f = _unit_floats(random_bits(key, shape, device))
+    lo, hi = np.float32(minval), np.float32(maxval)
+    span = np.float32(hi - lo)
+    if not isinstance(f, torch.Tensor):
+        return np.maximum(lo, f * span + lo)
+    return torch.clamp(f * float(span) + float(lo), min=float(lo))
+
+
+def randint(key, shape: Shape, minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32) on the host:
+    two words of bits from ``split(key)``, reduced modulo the span in uint32
+    arithmetic with wrap-around, as jax's ``_randint`` does."""
+    lo = int(np.clip(minval, -2 ** 31, 2 ** 31 - 1))
+    hi_raw = int(maxval)
+    hi = int(np.clip(hi_raw, -2 ** 31, 2 ** 31 - 1))
+    k1, k2 = split(key, 2)
+    higher = random_bits(k1, shape).astype(np.uint64)
+    lower = random_bits(k2, shape).astype(np.uint64)
+    span = (hi - lo) & _MASK32
+    if hi <= lo:
+        span = 1
+    elif hi_raw > 2 ** 31 - 1:
+        span = (span + 1) & _MASK32
+    span = np.uint64(span)
+    if span == 0:           # 2**32: XLA's x % 0 is x, so the low word
+        off = lower
+    else:
+        mult = np.uint64((1 << 16) % int(span))
+        mult = (mult * mult) & np.uint64(_MASK32)
+        mult = mult % span
+        off = ((higher % span) * mult) & np.uint64(_MASK32)
+        off = ((off + lower % span) & np.uint64(_MASK32)) % span
+    out = (np.int64(lo) + off.astype(np.int64)) & np.int64(_MASK32)
+    return out.astype(np.uint32).view(np.int32).reshape(_shape(shape))
+
+
+# XLA's f32 erf_inv (Giles' single-precision polynomial): w = -log1p(-x^2),
+# degree-9 Horner in w - 2.5 below 5 and in sqrt(w) - 3 above.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """f32 inverse error function by XLA's polynomial (+-inf at +-1)."""
+    w = -torch.log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).to(torch.float32)
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, a, b).to(torch.float32) + p * w
+    out = p * x
+    return torch.where(x.abs() == 1.0, x * float(np.finfo(np.float32).max),
+                       out)
+
+
+def normal(key, shape: Shape, device=None):
+    """``jax.random.normal(key, shape, float32)``: ``sqrt(2) *
+    erf_inv(uniform(key, shape, -1 + ulp, 1))``.  A tensor on ``device``
+    (the CPU when None)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0, device=device if device is not None
+                else "cpu")
+    return float(np.float32(np.sqrt(2.0))) * erf_inv(u)

@@ -1,15 +1,24 @@
-"""Sampling substrate of the fused loop: the grouped dataset and the
-counter-PRNG slot->row binding.
+"""Sampling substrate: the grouped dataset, the counter-PRNG slot->row
+binding of the fused loop, stratified sampling, the two-point init design
+and the incremental ``SampleStore`` of the host route.
 
 The dataset lives sorted by group with an offset table (the dense inverted
-index of paper SS4.1), resident on the card; a sample of group i is a run of
-slots whose rows :func:`counter_slot_table` binds once per sample key, so
-samples are nested across iterations and shared across queries.
+index of paper SS4.1), resident on the card.  In the fused loop a sample of
+group i is a run of slots whose rows :func:`counter_slot_table` binds once
+per sample key, so samples are nested across iterations and shared across
+queries.
+
+On the host route, :class:`SampleStore` makes sampling incremental: each
+group holds a lazily materialized uniform random permutation of its extent
+(numpy's generator, the reference's draws), and "a sample of size n" is the
+first n entries of it.  Growing n gathers only the new rows, on the device,
+into a device-resident buffer; the same prefixes serve every query of a
+store.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -140,3 +149,368 @@ def bucket_cap(n: int, *, base: int = 256) -> int:
     while cap < n:
         cap *= 2
     return cap
+
+
+# ---------------------------------------------------------------------------
+# PRNG root, stratified sampling and the two-point init design
+# ---------------------------------------------------------------------------
+
+def root_key(seed: int) -> np.ndarray:
+    """The constructor of a fresh key stream root: ``PRNGKey(seed)``."""
+    return keylib.prng_key(seed)
+
+
+def stratified_sample(key, values: torch.Tensor, offsets, n_vec,
+                      n_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Draw ``n_vec[i]`` uniform rows (with replacement) from each group's
+    extent: ``(sample (m, n_cap, c), mask (m, n_cap))`` on the values'
+    device, row ``start_i + floor(u * size_i)`` for the reference's
+    ``uniform(key, (m, n_cap))``."""
+    dev = values.device
+    off = torch.as_tensor(np.asarray(offsets, np.int32), device=dev)
+    m = off.shape[0] - 1
+    starts, sizes = off[:-1], off[1:] - off[:-1]
+    u = keylib.uniform(key, (m, n_cap), device=dev)
+    idx = starts[:, None] + torch.minimum(
+        (u * sizes[:, None]).to(torch.int32), sizes[:, None] - 1)
+    sample = values[idx.to(torch.int64)]
+    n = torch.as_tensor(np.asarray(n_vec, np.int64), device=dev)
+    mask = (torch.arange(n_cap, device=dev)[None, :] < n[:, None]).to(
+        torch.float32)
+    return sample, mask
+
+
+def stratified_sample_host(rng: np.random.Generator, data: GroupedData,
+                           n_vec: np.ndarray, n_cap: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Host-index variant (numpy RNG) of :func:`stratified_sample`; the
+    gather runs on the data's device."""
+    m = data.num_groups
+    idx = np.zeros((m, n_cap), dtype=np.int64)
+    mask = np.zeros((m, n_cap), dtype=np.float32)
+    sizes = data.sizes
+    for i in range(m):
+        k = int(min(n_vec[i], n_cap))
+        idx[i, :k] = data.offsets[i] + rng.integers(0, sizes[i], size=k)
+        mask[i, :k] = 1.0
+    dev = data.device
+    return (data.values[torch.as_tensor(idx, device=dev)],
+            torch.as_tensor(mask, device=dev))
+
+
+def two_point_init_sizes(key, m: int, l: int, n_min: int,
+                         n_max: int) -> np.ndarray:
+    """Initial ``(l, m)`` sample-size matrix from the Bhatia-Davis optimal
+    design (paper Eq. 15/16): a fraction n_max/(n_min + n_max) of the probes
+    at n_min, the rest at n_max, both at least once, each column shuffled by
+    numpy seeded from the key's last word (the reference's draws)."""
+    l_min = int(round(l * n_max / (n_min + n_max)))
+    l_min = min(max(l_min, 1), l - 1)
+    col = np.concatenate([
+        np.full((l_min,), n_min, np.int64),
+        np.full((l - l_min,), n_max, np.int64),
+    ])
+    sizes = np.tile(col[:, None], (1, m))
+    rng = np.random.default_rng(keylib.as_key(key)[-1])
+    for j in range(m):
+        rng.shuffle(sizes[:, j])
+    return sizes
+
+
+# ---------------------------------------------------------------------------
+# SampleStore: incremental permuted-prefix sampling
+# ---------------------------------------------------------------------------
+
+class _PrefixPermutation:
+    """Lazily materialized uniform random permutation of ``[0, size)``.
+
+    Incremental Fisher-Yates with a sparse swap map: materializing positions
+    ``[t, upto)`` costs O(upto - t) time and O(upto) memory whatever
+    ``size`` is, in ``page``-sized chunks.  It touches no data rows.
+    """
+
+    __slots__ = ("size", "page", "_rng", "_perm", "_len", "_swaps")
+
+    def __init__(self, size: int, rng: np.random.Generator, *,
+                 page: int = 512):
+        self.size = int(size)
+        self.page = int(page)
+        self._rng = rng
+        self._perm = np.empty((0,), np.int64)
+        self._len = 0
+        self._swaps: Dict[int, int] = {}
+
+    def prefix(self, n: int) -> np.ndarray:
+        """First ``n`` entries of the permutation (local offsets)."""
+        n = min(int(n), self.size)
+        if n > self._len:
+            upto = min(-(-n // self.page) * self.page, self.size)
+            if upto > len(self._perm):
+                cap = max(2 * len(self._perm), upto)
+                new = np.empty((min(cap, self.size),), np.int64)
+                new[: self._len] = self._perm[: self._len]
+                self._perm = new
+            sw = self._swaps
+            # r = j + floor(u * (size - j)) is uniform on [j, size).
+            u = self._rng.random(upto - self._len)
+            for j in range(self._len, upto):
+                r = j + int(u[j - self._len] * (self.size - j))
+                vj = sw.get(j, j)
+                vr = sw.get(r, r)
+                self._perm[j] = vr
+                sw[r] = vj
+            self._len = upto
+        return self._perm[:n]
+
+
+class SampleStoreBinding:
+    """One value-column binding of a :class:`SampleStore`.
+
+    The store owns the per-group permutations (which rows); a binding owns a
+    device-resident buffer of gathered rows of one values tensor (their
+    contents).  Predicate queries bind their indicator column to the same
+    permutations, so every binding sees the same nested prefixes.
+    """
+
+    def __init__(self, store: "SampleStore", values: torch.Tensor):
+        self.store = store
+        self.values = torch.as_tensor(values, device=store.device)
+        if self.values.dim() == 1:
+            self.values = self.values[:, None]
+        self._buf: Optional[torch.Tensor] = None    # (m, capacity, c)
+        self._gathered = np.zeros((store.num_groups,), np.int64)
+        self._epoch = store.epoch
+        self.rows_touched = 0                       # cumulative gathered rows
+
+    def _sync_epoch(self) -> None:
+        if self._epoch != self.store.epoch:
+            # Permutations were refreshed or reshuffled under us.
+            self._buf = None
+            self._gathered[:] = 0
+            self._epoch = self.store.epoch
+
+    def _ensure_capacity(self, cap: int) -> None:
+        c = self.values.shape[1]
+        m = self.store.num_groups
+        if self._buf is None:
+            self._buf = torch.zeros((m, cap, c), dtype=self.values.dtype,
+                                    device=self.values.device)
+        elif self._buf.shape[1] < cap:
+            buf = torch.zeros((m, cap, c), dtype=self._buf.dtype,
+                              device=self._buf.device)
+            buf[:, :self._buf.shape[1]] = self._buf
+            self._buf = buf
+
+    def _window(self, n_vec, base) -> Tuple[np.ndarray, np.ndarray]:
+        """Clamp a (base, n) permutation window to the group extents.
+
+        ``base=None`` is the prefix ``[0, n)``; a base reads slots ``[base,
+        base + n)`` (MISS's stacked init windows).  A window overrunning a
+        group's extent is shifted back, so the sample never shrinks.
+        """
+        sizes = self.store.sizes
+        n = np.minimum(np.asarray(n_vec, np.int64), sizes)
+        if base is None:
+            b = np.zeros_like(n)
+        else:
+            b = np.minimum(np.asarray(base, np.int64),
+                           np.maximum(sizes - n, 0))
+        return b, n
+
+    def sample_cost(self, n_vec: np.ndarray, base=None) -> int:
+        """Rows a ``sample(n_vec, base)`` call would gather."""
+        self._sync_epoch()
+        b, n = self._window(n_vec, base)
+        return int(np.maximum(b + n - self._gathered, 0).sum())
+
+    def sample(self, n_vec: np.ndarray,
+               base=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Permuted-prefix sample of ``n_vec[i]`` rows a group:
+        ``(sample (m, n_cap, c), mask (m, n_cap))`` with ``n_cap`` the
+        power-of-two bucket of the requested max size.  Only rows not yet
+        resident are gathered (one device gather); with ``base``, row i holds
+        slots ``[base[i], base[i] + n[i])`` left-aligned."""
+        self._sync_epoch()
+        store = self.store
+        dev = self.values.device
+        b, n = self._window(n_vec, base)
+        need = b + n
+        store.reserve(int(need.max(initial=1)))
+        out_cap = bucket_cap(int(n.max(initial=1)))
+        self._ensure_capacity(bucket_cap(int(need.max(initial=1))))
+        grow = np.flatnonzero(need > self._gathered)
+        if grow.size:
+            g_pos: List[np.ndarray] = []
+            s_pos: List[np.ndarray] = []
+            idx: List[np.ndarray] = []
+            for i in grow:
+                lo, hi = int(self._gathered[i]), int(need[i])
+                loc = store.perm(i).prefix(hi)[lo:hi]
+                idx.append(store.offsets[i] + loc)
+                s_pos.append(np.arange(lo, hi, dtype=np.int64))
+                g_pos.append(np.full((hi - lo,), i, np.int64))
+            flat_idx = np.concatenate(idx)
+            pos = torch.as_tensor(
+                np.stack([np.concatenate(g_pos), np.concatenate(s_pos),
+                          flat_idx]), device=dev)
+            self._buf[pos[0], pos[1]] = self.values[pos[2]]
+            self._gathered[grow] = need[grow]
+            self.rows_touched += int(flat_idx.shape[0])
+            store._note_rows(int(flat_idx.shape[0]))
+        n_dev = torch.as_tensor(n, device=dev)
+        mask = (torch.arange(out_cap, device=dev)[None, :]
+                < n_dev[:, None]).to(torch.float32)
+        if base is None or not b.any():
+            return self._buf[:, :out_cap], mask
+        # Left-align the windows: column j of row i reads slot b[i] + j.
+        slots = (torch.as_tensor(b, device=dev)[:, None]
+                 + torch.arange(out_cap, device=dev)[None, :])
+        slots = torch.clamp(slots, max=self._buf.shape[1] - 1)
+        window = torch.gather(
+            self._buf, 1, slots[:, :, None].expand(-1, -1,
+                                                   self._buf.shape[2]))
+        return window, mask
+
+    def sample_host(self, n_vec: np.ndarray,
+                    base=None) -> Tuple[np.ndarray, np.ndarray]:
+        """The same windows gathered with numpy (the parity reference of
+        :meth:`sample`)."""
+        store = self.store
+        b, n = self._window(n_vec, base)
+        store.reserve(int((b + n).max(initial=1)))
+        out_cap = bucket_cap(int(n.max(initial=1)))
+        vals = self.values.cpu().numpy()
+        m = store.num_groups
+        out = np.zeros((m, out_cap, vals.shape[1]), vals.dtype)
+        mask = np.zeros((m, out_cap), np.float32)
+        for i in range(m):
+            lo, k = int(b[i]), int(n[i])
+            loc = store.perm(i).prefix(lo + k)[lo:lo + k]
+            out[i, :k] = vals[store.offsets[i] + loc]
+            mask[i, :k] = 1.0
+        return out, mask
+
+    def prefix_indices(self, n_vec: np.ndarray,
+                       base=None) -> Tuple[np.ndarray, np.ndarray]:
+        """Global row indices of the current windows (idx (m, cap), mask)."""
+        store = self.store
+        b, n = self._window(n_vec, base)
+        store.reserve(int((b + n).max(initial=1)))
+        out_cap = bucket_cap(int(n.max(initial=1)))
+        idx = np.zeros((store.num_groups, out_cap), np.int64)
+        mask = np.zeros((store.num_groups, out_cap), np.float32)
+        for i in range(store.num_groups):
+            lo, k = int(b[i]), int(n[i])
+            idx[i, :k] = store.offsets[i] + store.perm(i).prefix(
+                lo + k)[lo:lo + k]
+            mask[i, :k] = 1.0
+        return idx, mask
+
+
+class SampleStore:
+    """Device-resident incremental sample store over one :class:`GroupedData`.
+
+    * ``sample(n)`` is the first ``n`` entries of a per-group uniform random
+      permutation: samples are nested within an epoch (without
+      replacement, so ``sample(|group|)`` is the whole extent);
+    * growing ``n -> n + delta`` gathers exactly ``delta`` new rows;
+      ``rows_touched`` counts them and ``sample_cost`` predicts them;
+    * ``refresh()`` invalidates after a data update, ``reshuffle()`` redraws
+      the permutations over the same data;
+    * ``bind(values)`` attaches a derived column to the same permutations.
+    """
+
+    def __init__(self, data: GroupedData, *, seed: int = 0, page: int = 512):
+        self.data = data
+        self.seed = int(seed)
+        self.page = int(page)
+        self.epoch = 0
+        self.rows_touched = 0       # over all bindings
+        self._capacity = 0
+        self._perms: List[Optional[_PrefixPermutation]] = []
+        self._reset_perms()
+        self._primary = self.bind(data.values)
+
+    def _reset_perms(self) -> None:
+        root = np.random.default_rng((self.seed, self.epoch))
+        self._seeds = root.integers(0, 2**63 - 1, size=self.num_groups)
+        self._perms = [None] * self.num_groups
+
+    def perm(self, i: int) -> _PrefixPermutation:
+        p = self._perms[i]
+        if p is None:
+            p = _PrefixPermutation(
+                int(self.sizes[i]),
+                np.random.default_rng(int(self._seeds[i])), page=self.page)
+            self._perms[i] = p
+        return p
+
+    def _note_rows(self, k: int) -> None:
+        self.rows_touched += k
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def num_groups(self) -> int:
+        return self.data.num_groups
+
+    @property
+    def sizes(self) -> np.ndarray:
+        return self.data.sizes
+
+    @property
+    def offsets(self) -> np.ndarray:
+        return self.data.offsets
+
+    @property
+    def capacity(self) -> int:
+        """Current padded sample capacity (a power-of-two bucket)."""
+        return self._capacity
+
+    def reserve(self, n: int) -> int:
+        """Grow the capacity bucket to cover ``n``; returns the capacity."""
+        cap = bucket_cap(max(int(n), 1))
+        if cap > self._capacity:
+            self._capacity = cap
+        return self._capacity
+
+    def sample(self, n_vec: np.ndarray,
+               base=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._primary.sample(n_vec, base)
+
+    def sample_host(self, n_vec: np.ndarray,
+                    base=None) -> Tuple[np.ndarray, np.ndarray]:
+        return self._primary.sample_host(n_vec, base)
+
+    def sample_cost(self, n_vec: np.ndarray, base=None) -> int:
+        return self._primary.sample_cost(n_vec, base)
+
+    def prefix_indices(self, n_vec: np.ndarray, base=None):
+        return self._primary.prefix_indices(n_vec, base)
+
+    def bind(self, values: torch.Tensor) -> SampleStoreBinding:
+        """Attach a derived values column to this store's permutations
+        (untracked; invalidated lazily through the epoch counter)."""
+        return SampleStoreBinding(self, values)
+
+    def refresh(self, data: Optional[GroupedData] = None) -> None:
+        """Invalidate after a data update (or rebind to ``data``): new
+        permutations, every binding's buffer dropped; ``rows_touched``
+        keeps counting."""
+        if data is not None:
+            self.data = data
+            v = data.values
+            self._primary.values = v if v.dim() == 2 else v[:, None]
+            self._primary._gathered = np.zeros((self.num_groups,), np.int64)
+        self.epoch += 1
+        self._reset_perms()
+
+    def reshuffle(self, seed: Optional[int] = None) -> None:
+        """Redraw the permutations over the same data, so a long-lived
+        store does not answer repeats from the same prefixes forever."""
+        if seed is not None:
+            self.seed = int(seed)
+        self.epoch += 1
+        self._reset_perms()

@@ -1,10 +1,18 @@
-"""Wrapper of the Hopper Poisson-bootstrap kernel (``csrc/poisson_bootstrap.cu``).
+"""Wrappers of the Hopper Poisson-bootstrap kernel (``csrc/poisson_bootstrap.cu``).
 
-``bootstrap_moments_masked`` is the fused loop's ESTIMATE entry: ``(..., B,
-5)`` replicate moment sums of masked groups, with per-group counter seeds and
-optional gating.  On a CUDA tensor it launches the kernel (or raises); on a
-CPU tensor it runs the plain version (:mod:`.ref`), because no card is
-there.  It never falls back.
+* ``bootstrap_moments_masked`` -- the fused loop's ESTIMATE entry: ``(...,
+  B, 5)`` replicate moment sums of masked groups, with per-group counter
+  seeds and optional gating;
+* ``bootstrap_moments`` -- the same for one group (G = 1): ``(B, 5)``;
+* ``estimate_error_moments`` -- the host route's ESTIMATE for the moment
+  estimators (the reference's moments entry): per-group seeds from
+  ``randint(key, (m,), 0, 2**31 - 1)``, one kernel launch over the m
+  groups, the dead-replicate guard, the finish and the (1 - delta)
+  quantile of the joint metric.
+
+On a CUDA tensor each launches the kernel (or raises); on a CPU tensor it
+runs the plain version (:mod:`.ref`), because no card is there.  None falls
+back.
 
 The kernel is compiled with ``nvcc`` at first use into ``build/kernels/`` of
 the checkout and bound through ``ctypes`` (:mod:`..nvcc`).  A call is one
@@ -16,6 +24,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import bootstrap_core as core
@@ -145,3 +154,50 @@ def bootstrap_moments_masked(x: torch.Tensor, mask: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     return _launch(x, mask, seeds, B, lane_active)
+
+
+def bootstrap_moments(x: torch.Tensor, mask: torch.Tensor, seed: int,
+                      B: int) -> torch.Tensor:
+    """(B, 5) replicate moment sums of one masked group under the uint32
+    counter seed ``seed``."""
+    seeds = torch.full((1,), int(seed) & 0xFFFFFFFF, dtype=torch.int64,
+                       device=x.device)
+    return bootstrap_moments_masked(x[None], mask[None], seeds, B)[0]
+
+
+def estimate_error_moments(est_name: str, sample: torch.Tensor,
+                           mask: torch.Tensor, scale: torch.Tensor, key,
+                           delta: float, B: int = 500, metric: str = "l2",
+                           active: Optional[torch.Tensor] = None):
+    """Kernel-backed ESTIMATE with ``core.bootstrap.estimate_error``'s
+    contract, ``(e, theta_hat (m, 1))``, for a moment estimator on ``sample
+    (m, n_cap, c)`` / ``mask (m, n_cap)``.
+
+    ``active (m,)`` gates groups in the kernel: an inactive group does no
+    work and contributes zero error (its theta falls back to the plain
+    sample through the dead-replicate guard); pass it only when the caller
+    discards those groups' contributions.
+    """
+    from ...core import keys as keylib
+    from ...core.bootstrap import finish_lanes_moments
+    from ...core.estimators import get as get_estimator
+    from ...core.reduce import tree_sum
+
+    est = get_estimator(est_name)
+    if est.moments_finish is None:
+        raise ValueError(f"{est_name} is not a moment estimator")
+    dev = sample.device
+    m = sample.shape[0]
+    seeds = torch.as_tensor(
+        keylib.randint(key, (m,), 0, 2 ** 31 - 1).astype(np.int64),
+        device=dev)
+    v = sample[..., 0].to(torch.float32).contiguous()
+    mf = mask.to(torch.float32)
+    M = bootstrap_moments_masked(v, mf, seeds, B, lane_active=active)
+    feats = torch.stack([mf, mf * v, mf * v * v], dim=-1)      # (m, n, 3)
+    M_plain = tree_sum(feats, 1)                          # (m, 3)
+    deltas = torch.full((1,), float(delta), dtype=torch.float32, device=dev)
+    e, theta = finish_lanes_moments(
+        M[None, ..., :3], M_plain[None], scale[None].to(torch.float32),
+        deltas, est=est, metric=metric)
+    return e[0], theta[0]

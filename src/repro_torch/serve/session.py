@@ -10,14 +10,19 @@
 
 Routes served here: POOL (continuous lanes, and GROUP BY requests as
 grouped lane blocks of the same pool), BATCHED (one closed-loop dispatch per
-func group) and LOOP (one dispatch per query).  HOST and WARM requests
-belong to later slices and raise ``NotImplementedError``.
+func group), LOOP (one dispatch per query) and HOST: the host engine
+(:class:`~repro_torch.aqp.engine.AQPEngine`) for everything the fused
+program cannot run -- linf/l1/lp/diff/order metrics, relative bounds,
+predicates, quantiles, min/max, regressions, and GROUP BY clauses a pool
+block cannot serve.  WARM requests belong to a later slice.
 
-One ``sample_key`` per epoch pins the fused slot->row binding; the epoch
-rotates after ``reshuffle_every`` completions, and a rotation with pool
-tickets in flight is deferred to the pool's next idle point.  The port has
-no host engine or ``SampleStore`` yet, so ``rows_touched`` counts the fused
-rows only (every lane's filled watermark, at harvest).
+Sample reuse: one resident ``SampleStore`` per dataset, shared by the host
+engine and every HOST request, and one ``sample_key`` per epoch pinning the
+fused slot->row binding.  The epoch rotates after ``reshuffle_every``
+completions (the store's permutations are redrawn with it), and a rotation
+with pool tickets in flight is deferred to the pool's next idle point.
+``rows_touched`` counts the store's gathered rows plus every fused lane's
+filled watermark (at harvest).
 """
 from __future__ import annotations
 
@@ -28,11 +33,12 @@ from typing import Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from ..aqp.engine import AQPEngine
 from ..aqp.query import Query, Request
 from ..core import estimators
 from ..core import keys as keylib
 from ..core.fused import fused_l2miss_batch
-from ..core.sampling import GroupedData
+from ..core.sampling import GroupedData, SampleStore
 from ..kernels import resolve_use_kernel
 from .lane_pool import GroupPoolResponse, LanePool
 from .planner import Planner, Route, fusable
@@ -105,6 +111,10 @@ class AQPSession:
             raise _later("SLO scheduling (item 12)")
         del max_degrade
         self.data = data
+        self.store = SampleStore(data, seed=seed)
+        self.engine = AQPEngine(data, B=B, n_min=n_min, n_max=n_max,
+                                seed=seed, store=self.store,
+                                use_kernel=use_kernel)
         self.B, self.n_min, self.n_max = B, n_min, n_max
         self.max_iters, self.n_cap = max_iters, n_cap
         self.seed = seed
@@ -132,9 +142,10 @@ class AQPSession:
     # -- public surface -----------------------------------------------------
     @property
     def rows_touched(self) -> int:
-        """Cumulative rows sampled by fused lanes (filled watermarks),
-        counted at harvest."""
-        return self._fused_rows
+        """Cumulative rows sampled on every route: the store's gathers (host
+        engine) plus every fused lane's filled watermark, counted at
+        harvest."""
+        return self.store.rows_touched + self._fused_rows
 
     @property
     def in_flight(self) -> int:
@@ -193,6 +204,19 @@ class AQPSession:
             guard += 1
         return [self._results.pop(rid) for rid in sorted(self._results)]
 
+    def refresh(self, data: Optional[GroupedData] = None) -> None:
+        """Invalidate resident samples after a data update (idle only)."""
+        if self._inflight:
+            raise RuntimeError(
+                "cannot refresh() with requests in flight; drain() first")
+        if data is not None:
+            self.data = data
+            self.engine.data = data
+            self._m = data.num_groups
+        self.engine.refresh(self.data)
+        self._pool = None               # resident prefixes follow the data
+        self._rotate_epoch()
+
     def stats(self) -> Dict[str, object]:
         out = {
             "submitted": self.submitted,
@@ -200,6 +224,8 @@ class AQPSession:
             "in_flight": self.in_flight,
             "fused_dispatches": self.fused_dispatches,
             "rows_touched": self.rows_touched,
+            "store_rows": self.store.rows_touched,
+            "fused_rows": self._fused_rows,
             "pool_rebuilds": self.pool_rebuilds,
             "sample_epoch": self._epoch_counter,
         }
@@ -239,6 +265,7 @@ class AQPSession:
         self.planner.observe_completion()
         self._queries_in_epoch += 1
         if self._queries_in_epoch >= self.reshuffle_every:
+            self.store.reshuffle()
             self._rotate_epoch()
 
     # -- pool management ----------------------------------------------------
@@ -297,14 +324,14 @@ class AQPSession:
                 e.request, pending_fusable=n_fus, pool_busy=pool_busy)
             groups.setdefault(route, []).append(e)
         try:
-            if Route.HOST in groups:
-                raise _later("the host route (item 10)")
             if Route.POOL in groups:
                 self._admit_pool(groups[Route.POOL])
             if Route.BATCHED in groups:
                 self._run_batched(groups[Route.BATCHED])
             if Route.LOOP in groups:
                 self._run_loop(groups[Route.LOOP])
+            for e in groups.get(Route.HOST, ()):
+                self._run_host(e)
         except BaseException:
             # Re-queue entries neither completed nor handed to the pool, so
             # the next pump retries them (a failing request keeps raising to
@@ -426,3 +453,32 @@ class AQPSession:
                 res = self._dispatch_fused(func, [e.request.query], [key])
                 self._finish_fused([e], res, Route.LOOP,
                                    lambda: time.perf_counter() - t0)
+
+    def _run_host(self, entry: _InFlight) -> None:
+        """The host engine: metrics, bounds, predicates and functions the
+        fused program cannot run; grouped clauses a pool block cannot serve
+        (predicates, relative bounds)."""
+        t0 = time.perf_counter()
+        if entry.request.query.group_by:
+            return self._run_host_grouped(entry, t0)
+        tr = self.engine.execute(entry.request.query)
+        self._complete(
+            entry, theta=tr.theta, error=tr.error, success=tr.success,
+            n=tr.n, wall_time_s=time.perf_counter() - t0, queue_wait_s=0.0,
+            route=Route.HOST, rows_sampled=0)
+
+    def _run_host_grouped(self, entry: _InFlight, t0: float) -> None:
+        """``AQPEngine.execute_grouped``: the shared-scan block program,
+        dispatched synchronously outside the pool."""
+        res = self.engine.execute(entry.request.query)
+        theta = res.theta.cpu().numpy()[:, 0]
+        gerr, gok = res.error.cpu().numpy(), res.success.cpu().numpy()
+        rows = int(res.rows_sampled.sum())
+        self._fused_rows += rows
+        self.fused_dispatches += 1
+        self._complete(
+            entry, theta=theta, error=float(gerr.max()),
+            success=bool(gok.all()), n=res.n.cpu().numpy(),
+            wall_time_s=time.perf_counter() - t0, queue_wait_s=0.0,
+            route=Route.HOST, rows_sampled=rows,
+            group_error=gerr, group_success=gok)

@@ -226,6 +226,9 @@ def test_block_step_checks_its_arguments():
                       adaptive=False, **SPEC)
     with pytest.raises(KeyError):
         tf.fused_step(v, [0, len(vals)], state, params, seg_cap=cap,
+                      est_name="no_such_estimator", **SPEC)
+    with pytest.raises(ValueError):     # registered, no moments fast path
+        tf.fused_step(v, [0, len(vals)], state, params, seg_cap=cap,
                       est_name="median", **SPEC)
     with pytest.raises(ValueError):
         tf.make_group_lane_params(offsets, np.ones(2), keys[:2],

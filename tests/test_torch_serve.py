@@ -189,8 +189,15 @@ def test_later_slices_raise(cont):
     with pytest.raises(ValueError):
         pool.submit(Query(func="median", epsilon=0.1))
     sess = AQPSession(td, **SESSION_KW)
+    # The host route runs what the pool cannot (a median here); a grouped
+    # clause outside per-group l2 raises in the engine, as the reference's
+    # does, and the failing request is re-queued, not lost.
     sess.submit(Request(query=Query(func="median", epsilon=0.1)))
-    with pytest.raises(NotImplementedError):
+    (med,) = sess.drain()
+    assert med.route is Route.HOST and med.success
+    sess.submit(Request(query=Query(func="avg", epsilon=0.1, metric="linf",
+                                    group_by=True)))
+    with pytest.raises(ValueError):
         sess.pump()
     assert sess.in_flight == 1        # re-queued, not lost
     with pytest.raises(TypeError):

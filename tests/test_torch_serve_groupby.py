@@ -226,11 +226,12 @@ def test_session_routes_grouped_requests(data):
 
 
 def test_session_grouped_host_shapes_wait_for_the_host_route(data):
-    """A grouped clause no block can serve routes HOST, a later slice: it
-    raises and stays in flight."""
+    """A grouped clause no block can serve routes HOST; the engine's grouped
+    path verifies per-group l2 only (as the reference's), so a linf clause
+    raises there and the request stays in flight."""
     ts = AQPSession(data[1], **SESSION_KW)
     ts.submit(Request(query=Query(func="avg", epsilon=EPS, metric="linf",
                                   group_by=True)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         ts.pump()
     assert ts.in_flight == 1
