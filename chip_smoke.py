@@ -91,13 +91,39 @@ non-zero and nothing falls back to the CPU:
    generator on the card, ``ContinuousBatcher(slots=8, s_max=2048)``
    answers 16 requests (prompts of 32-1024 random tokens, 32 new tokens
    each); every request completes with its 32 tokens, and the
-   decode-attention kernel launched 28 times per decode step; then the
-   result lines: a JSON object of kernel measurements, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+   decode-attention kernel launched 28 times per decode step;
+13. the host route on the card against the CPU at the CPU tests' size:
+   ``run_l2miss`` and every metric extension through the moments entry,
+   median and min through the generic bootstrap: integers exact, theta and
+   error within the CPU tests' rtol; the moments entry card == cpu bit for
+   bit; ``AQPEngine.exact`` against numpy float64;
+14. host serve at real size: 12 host-route requests (every metric,
+   relative bounds, predicates, quantiles, GROUP BY with a predicate) on
+   phase 6's table, ``AQPEngine.exact`` of the moment requests (the
+   segment-aggregate kernel), and an ``AQPService`` batch sent twice;
+15. warm and SLO lanes at the CPU tests' size: warm ``fused_l2miss`` runs
+   (right, stale and garbage-coefficient predictions) and a warm
+   ``fused_grouped`` block card == cpu (phase 5's tolerances); on the card,
+   a warm pool lane and block equal their solo warm runs, a degraded lane a
+   solo run at its delivered epsilon, and a migrated lane (the move
+   asserted) its solo run, bit for bit; one shed pilot card == cpu within
+   phase 13's tolerance;
+16. warm and overload serve at real size: (a) one warm-cache session sends
+   phase 6's 16 requests cold, again (each exact repeat bit-equal with 0
+   dispatches and 0 kernel launches), and at epsilon / 1.1 (the WARM
+   route); a second one on phase 7's table sends its 8 GROUP BY requests
+   cold and at epsilon / 1.1 (warm blocks); (b) one session with degrade,
+   fair queueing (tenants dash 3 : batch 1) and migration sends 8 priming
+   requests, then a burst of 32 with deadlines at 4x, 0.5x and 0.05x the
+   priming wave's median latency: every error within its delivered
+   epsilon, shed answers without an iteration, the 4x requests neither
+   shed nor degraded; then the result lines: a JSON object of kernel
+   measurements, then ``{"ok": true, "device": {...}}`` as the last line.
 
-Phases 6, 7 and 12 are the main paths: every kernel's launch count is set to
-0 just before each and read just after; the launches of the other phases
-(the comparisons with the plain versions) count nowhere.
+Phases 6, 7, 12, 14 and 16 are the main paths: every kernel's launch count
+is set to 0 just before each and read just after; the launches of the
+other phases (the comparisons with the plain versions) count nowhere, but
+phase 15's are printed and kept in the kernels line beside phase 16's.
 """
 import collections
 import dataclasses
@@ -1900,6 +1926,366 @@ def phase_host_serve(data):
                         exact_wall_ms=exact_wall * 1e3)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: warm and SLO lanes, the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _bits_equal(a, b) -> bool:
+    return (_np(a.theta).tobytes() == _np(b.theta).tobytes()
+            and _np(a.error).tobytes() == _np(b.error).tobytes())
+
+
+def _same_lane(r, solo, what: str) -> None:
+    """A pool response equal to a solo run on the same device, bit for
+    bit."""
+    check(np.array_equal(r.n, _np(solo.n))
+          and r.iterations == int(solo.iterations)
+          and _np(r.theta).tobytes() == _np(solo.theta).tobytes()
+          and np.float32(r.error).tobytes() == _np(solo.error).tobytes(),
+          f"{what}: pool lane != solo run on the card")
+
+
+def phase_warm_slo_vs_cpu():
+    """Warm solo lanes (right, stale and garbage-coefficient predictions)
+    and a warm grouped block card == CPU at the CPU tests' size (phase 5's
+    tolerances); on the card, a warm pool lane and block equal their solo
+    warm runs, a degraded lane a solo run at its delivered epsilon, a
+    migrated lane its solo run (the move asserted), bit for bit; one shed
+    pilot card == CPU within phase 13's tolerance.  Returns the launches of
+    the card's runs."""
+    from repro_torch.aqp.query import Query
+    from repro_torch.core import keys
+    from repro_torch.core.fused import fused_grouped, fused_l2miss
+    from repro_torch.data import make_grouped
+    from repro_torch.serve import LanePool
+
+    args = (["normal", "exp"], 60_000)
+    kw = dict(seed=1, biases=[5.0, 3.0])
+    dc, dh = make_grouped(*args, **kw, device="cuda"), \
+        make_grouped(*args, **kw, device="cpu")
+    ones = np.ones(2, np.float32)
+    skey, key = keys.prng_key(42), keys.prng_key(3)
+    spec = {**KW, "est_name": "avg"}
+    reset_counts()
+    cold = fused_l2miss(dc.values, dc.offsets, ones, key, 0.05, 0.05,
+                        sample_key=skey, **spec)
+    cases = [("right", _np(cold.n), _np(cold.beta)),
+             ("stale", np.full(2, KW["n_min"], np.int32), _np(cold.beta)),
+             ("garbage beta", np.full(2, 500, np.int32),
+              np.asarray([0.0, 0.05, 0.05], np.float32))]
+    bit = 0
+    for name, wn0, wb in cases:
+        res = [fused_l2miss(d.values, d.offsets, ones, key, 0.05, 0.05,
+                            sample_key=skey, warm_n0=wn0, warm_beta=wb,
+                            **spec) for d in (dc, dh)]
+        check(bool(res[0].success) and float(res[0].error) <= 0.05,
+              f"warm {name}: the contract failed on the card")
+        _same_answer(res[0], res[1], f"warm lane {name}")
+        bit += _bits_equal(*res)
+        print(f"  warm lane {name}: n={res[0].n.tolist()} iters="
+              f"{int(res[0].iterations)} (cold {int(cold.iterations)}) "
+              f"card == cpu")
+    # A warm lane beside a cold one in a pool == its solo warm run.
+    qkeys = keys.split(keys.prng_key(9), 2)
+    pool = LanePool(dc, lanes=2, tiers=1, seed=0, sample_key=skey, **KW)
+    wn0, wb = cases[0][1], cases[0][2]
+    qc = pool.submit(Query("avg", epsilon=0.05), key=qkeys[0])
+    qw = pool.submit(Query("avg", epsilon=0.05), key=qkeys[1], warm_n0=wn0,
+                     warm_beta=wb)
+    out = {r.qid: r for r in pool.drain()}
+    _same_lane(out[qw], fused_l2miss(dc.values, dc.offsets, ones, qkeys[1],
+                                     0.05, 0.05, sample_key=skey,
+                                     warm_n0=wn0, warm_beta=wb, **spec),
+               "warm lane")
+    _same_lane(out[qc], fused_l2miss(dc.values, dc.offsets, ones, qkeys[0],
+                                     0.05, 0.05, sample_key=skey, **spec),
+               "cold neighbour of a warm lane")
+    # A warm grouped block: card == cpu, and the pool's == fused_grouped.
+    G, gkey = 2, keys.prng_key(17)
+    gwn0 = np.asarray([2200, 1800])
+    gwb = np.asarray([[-1.5, 0.45], [-1.2, 0.5]], np.float32)
+    res = [fused_grouped(d.values, d.offsets, np.ones(G), gkey, 0.05, 0.05,
+                         sample_key=skey, warm_n0=gwn0, warm_beta=gwb,
+                         **spec) for d in (dc, dh)]
+    for f in ("n", "iterations", "success", "failed", "rows_sampled"):
+        check(np.array_equal(_np(getattr(res[0], f)),
+                             _np(getattr(res[1], f))),
+              f"warm block: {f} card != cpu")
+    check(np.allclose(_np(res[0].theta), _np(res[1].theta), rtol=1e-5,
+                      atol=0)
+          and np.allclose(_np(res[0].error), _np(res[1].error), rtol=1e-4,
+                          atol=0), "warm block: theta or error card != cpu")
+    bit += (_np(res[0].theta).tobytes() == _np(res[1].theta).tobytes()
+            and _np(res[0].error).tobytes() == _np(res[1].error).tobytes())
+    pool = LanePool(dc, lanes=2, seed=0, sample_key=skey, **KW)
+    pool.submit_group(Query("avg", epsilon=0.05, group_by=True), key=gkey,
+                      warm_n0=gwn0, warm_beta=gwb)
+    (blk,) = pool.drain()
+    check(blk.warm and np.array_equal(blk.n, _np(res[0].n))
+          and blk.error.tobytes() == _np(res[0].error).tobytes()
+          and blk.theta.tobytes() == _np(res[0].theta[:, 0]).tobytes(),
+          "warm pool block != warm fused_grouped on the card")
+    print(f"  warm block: n={res[0].n.tolist()} iters="
+          f"{res[0].iterations.tolist()} card == cpu; pool block == "
+          f"fused_grouped bit-exact on the card; {bit} of 4 warm runs "
+          f"bit-equal card vs cpu in theta and error")
+    # Degraded lane == solo at the delivered epsilon.
+    eps_req = 0.03
+    pool = LanePool(dc, lanes=2, tiers=1, degrade=True, seed=0,
+                    sample_key=keys.prng_key(11), **KW)
+    cm = pool._slo.cost
+    for w in cm.widths:
+        cm._tick_s[w] = 1e-5 if w <= 2048 else 1e3
+    cm._tick_s_any, cm._ticks = 1e-5, 4.0
+    cm._coef["avg"] = eps_req * float(np.sqrt(KW["n_cap"]))
+    qid = pool.submit(Query("avg", epsilon=eps_req), key=keys.prng_key(5),
+                      deadline_at=time.perf_counter() + 60.0)
+    r = next(o for o in pool.drain() if o.qid == qid)
+    check(r.degraded and r.success and r.error <= r.delivered_epsilon,
+          f"degrade: degraded={r.degraded} success={r.success}")
+    _same_lane(r, fused_l2miss(dc.values, dc.offsets, ones,
+                               keys.prng_key(5), r.delivered_epsilon, 0.05,
+                               sample_key=keys.prng_key(11), **spec),
+               "degraded lane")
+    print(f"  degraded lane: eps {eps_req} -> {r.delivered_epsilon:.5f}, "
+          f"== solo at the delivered epsilon bit-exact on the card")
+    # Migration: tests/test_torch_slo.py's scenario, the move asserted.
+    mkey = keys.prng_key(21)
+    mkeys = [keys.prng_key(31 + i) for i in range(5)]
+    pool = LanePool(dc, lanes=4, tiers=2, migrate=True, seed=0,
+                    sample_key=mkey, **KW)
+    qids = [pool.submit(Query("avg", epsilon=e), key=k)
+            for e, k in zip([0.03, 0.12, 0.05, 0.05, 0.05], mkeys)]
+    out = {o.qid: o for o in pool.drain()}
+    moved = out[qids[0]]
+    check(pool.migrations >= 1 and moved.migrations >= 1,
+          f"no migration happened ({pool.migrations})")
+    for q, e, k in ((qids[0], 0.03, mkeys[0]), (qids[4], 0.05, mkeys[4])):
+        _same_lane(out[q], fused_l2miss(dc.values, dc.offsets, ones, k, e,
+                                        0.05, sample_key=mkey, **spec),
+                   "migrated lane" if q == qids[0] else "its old tier-mate")
+    print(f"  migration: {pool.migrations} move(s), the straggler ended in "
+          f"tier {moved.tier}; == solo bit-exact on the card")
+    # One shed pilot, card vs cpu.
+    shed = []
+    for d in (dc, dh):
+        pool = LanePool(d, lanes=2, tiers=1, degrade=True, seed=0,
+                        sample_key=skey, **KW)
+        qid = pool.submit(Query("var", epsilon=0.01), key=key,
+                          deadline_at=-1.0)
+        shed.append(pool.results.pop(qid))
+    a, b = shed
+    check(a.shed and b.shed and np.array_equal(a.n, b.n)
+          and np.allclose(a.theta, b.theta, rtol=1e-4, atol=0)
+          and abs(a.error - b.error) <= 2e-3 * abs(b.error)
+          and a.error <= a.delivered_epsilon,
+          f"shed pilot card {a.error} {a.theta.ravel()} vs cpu {b.error} "
+          f"{b.theta.ravel()}")
+    print(f"  shed pilot (var, B={a.delivered_B}): error {a.error:.6g} card "
+          f"vs {b.error:.6g} cpu, within phase 13's rtol")
+    counts = read_counts()
+    check(counts["poisson_bootstrap"] > 0 and counts["segment_bootstrap"] > 0,
+          f"a bootstrap kernel never launched in phase 15: {counts}")
+    print(f"  launches on the card in phase 15: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 16: warm and overload serve at real size
+# ---------------------------------------------------------------------------
+
+def _record_iterations(sess) -> dict:
+    """Record every pool response's iterations (max over groups) by request
+    id as the session harvests it: ``SessionResponse`` carries none."""
+    seen = {}
+    harvest = sess._harvest_pool
+
+    def recording():
+        pool = sess._pool
+        if pool is not None:
+            for qid, r in pool.results.items():
+                rid = sess._pool_rids.get(qid)
+                if rid is not None:
+                    seen[rid] = int(np.max(r.iterations))
+        harvest()
+
+    sess._harvest_pool = recording
+    return seen
+
+
+def _wave(sess, reqs, label: str, exact, its: dict, grouped=False):
+    """Submit ``reqs`` ((func, epsilon) pairs) at once, drain, and print
+    the wave: latency, iterations a lane, rows, dispatches, launches of
+    rows 1 and 2, warm verify failures.  Returns the responses, the
+    launches, the dispatches and the answers within epsilon of numpy."""
+    from repro_torch.aqp.query import Query, Request
+
+    d0, rows0 = sess.fused_dispatches, sess.rows_touched
+    its.clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f, e in reqs:
+        sess.submit(Request(query=Query(func=f, epsilon=e,
+                                        group_by=grouped)))
+    res = sess.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(len(res) == len(reqs), f"{label}: {len(res)} of {len(reqs)}")
+    lat = np.asarray([r.latency_s for r in res]) * 1e3
+    within = 0
+    for r, (f, e) in zip(res, reqs):
+        err = r.group_error if grouped else np.asarray([r.error])
+        check(r.success and bool((err <= e).all()),
+              f"{label} {f} eps={e:.4g}: success={r.success} error={err}")
+        dev = (np.abs(np.asarray(r.theta, np.float64) - exact[f])
+               if grouped else
+               [float(np.linalg.norm(r.theta.ravel() - exact[f]))])
+        within += int((np.asarray(dev) <= e).sum())
+    routes = collections.Counter(r.route.value for r in res)
+    it = np.asarray(list(its.values()) or [0])
+    pools = sess.stats().get("pool", {})
+    print(f"  {label}: wall {wall:.3f} s, latency p50 "
+          f"{np.percentile(lat, 50):.2f} ms p99 {np.percentile(lat, 99):.2f} "
+          f"ms, routes {dict(routes)}, iterations a lane mean "
+          f"{it.mean():.2f} max {it.max()} ({len(its)} pooled), rows "
+          f"touched {sess.rows_touched - rows0}, dispatches "
+          f"{sess.fused_dispatches - d0}, launches: poisson "
+          f"{counts['poisson_bootstrap']} segment "
+          f"{counts['segment_bootstrap']}; warm_verify_failures "
+          f"{sess.warm_verify_failures}, warm lanes spliced "
+          f"{pools.get('warm_spliced', 0)}; {within} answers within epsilon "
+          f"of numpy")
+    return res, counts, sess.fused_dispatches - d0, within
+
+
+def phase_warm_serve(data, tax):
+    """(a) one warm-cache session on lineitem SF10 GROUP BY SHIPINSTRUCT:
+    phase 6's 16 requests cold, again (exact repeats: bit-equal, 0
+    dispatches, 0 launches), then at epsilon / 1.1 over the WARM route;
+    phase 7's 8 GROUP BY requests on the TAX table cold, then at epsilon /
+    1.1 as warm blocks.  Returns the phase's launches."""
+    from repro_torch.serve import AQPSession, Planner, Route
+
+    reqs, exact = serve_requests(data)
+    sess = AQPSession(data, warm_cache=True,
+                      planner=Planner(mode=Route.POOL, pool_lanes=8),
+                      **SERVE)
+    its = _record_iterations(sess)
+    total = {k: 0 for k in _counters()}
+    cold, c, _, within = _wave(sess, reqs, "cold wave (16)", exact, its)
+    total = add_counts(total, c)
+    check(within >= 13, f"cold wave: {within} of 16 within epsilon")
+    d_pool = sess._pool.dispatches
+    rep, c, d, _ = _wave(sess, reqs, "exact repeats (16)", exact, its)
+    total = add_counts(total, c)
+    check(d == 0 and sess._pool.dispatches == d_pool
+          and not any(c.values()),
+          f"exact repeats dispatched {d} times, launches {c}")
+    for a, b in zip(cold, rep):
+        check(b.route is Route.WARM and b.rows_sampled == 0
+              and a.theta.tobytes() == b.theta.tobytes()
+              and a.error == b.error and np.array_equal(a.n, b.n),
+              "an exact repeat is not the cold answer bit for bit")
+    near = [(f, e / 1.1) for f, e in reqs]
+    res, c, _, within = _wave(sess, near, "near repeats at eps/1.1 (16)",
+                              exact, its)
+    total = add_counts(total, c)
+    check(all(r.route is Route.WARM for r in res),
+          "a near repeat missed the WARM route")
+    check(within >= 13, f"near repeats: {within} of 16 within epsilon")
+    check(c["poisson_bootstrap"] > 0, "no warm lane launched the kernel")
+    greqs, gexact, _ = grouped_requests(tax)
+    grouped = [(f, e) for f, e, g in greqs if g]
+    gsess = AQPSession(tax, warm_cache=True,
+                       planner=Planner(mode=Route.POOL, pool_lanes=8),
+                       **SERVE)
+    gits = _record_iterations(gsess)
+    _, c, _, within = _wave(gsess, grouped, "GROUP BY cold (8)", gexact,
+                            gits, True)
+    total = add_counts(total, c)
+    check(within >= 62, f"GROUP BY cold: {within} of 72 within epsilon")
+    gnear = [(f, e / 1.1) for f, e in grouped]
+    res, c, _, within = _wave(gsess, gnear, "GROUP BY near repeats as warm "
+                              "blocks (8)", gexact, gits, True)
+    total = add_counts(total, c)
+    check(within >= 62, f"GROUP BY near: {within} of 72 within epsilon")
+    check(all(r.route is Route.WARM for r in res)
+          and c["segment_bootstrap"] > 0,
+          "a warm block missed the WARM route or the segment kernel")
+    st = sess.stats()
+    print(f"  cache: {st['warm_cache']['exact_hits']} exact hits, "
+          f"{st['warm_cache']['warm_hits']} warm hits, "
+          f"{st['warm_cache']['entries']} entries; warm_verify_failures "
+          f"{st['warm_verify_failures']} solo, "
+          f"{gsess.warm_verify_failures} grouped")
+    return total
+
+
+def phase_overload_serve(data):
+    """(b) one session with degrade, wfq and migrate on, tenants dash
+    (weight 3) and batch (1): 8 priming requests with no deadline, then a
+    burst of 32, 16 a tenant, with deadlines at 4x (12), 0.5x (12) and
+    0.05x (8) the priming wave's median latency.  Every answer's error <=
+    its delivered epsilon, shed answers took no iteration, the 4x requests
+    were neither shed nor degraded.  Returns the burst's launches."""
+    from repro_torch.aqp.query import Query, Request
+    from repro_torch.serve import AQPSession, Planner, Route
+
+    reqs, exact = serve_requests(data)
+    sess = AQPSession(
+        data, degrade=True, wfq=True, migrate=True,
+        tenant_weights={"dash": 3.0, "batch": 1.0},
+        planner=Planner(mode=Route.POOL, pool_lanes=8, slo_native=True),
+        **SERVE)
+    its = _record_iterations(sess)
+    prime, _, _, _ = _wave(sess, reqs[:8], "priming wave (8)", exact, its)
+    its.clear()
+    med = float(np.median([r.latency_s for r in prime]))
+    burst = []
+    for i in range(32):
+        f, e = reqs[i % 16]
+        mult = 4.0 if i < 12 else (0.5 if i < 24 else 0.05)
+        burst.append((f, e, mult, "dash" if i % 2 else "batch"))
+    reset_counts()
+    t0 = time.perf_counter()
+    tickets = [sess.submit(Request(query=Query(func=f, epsilon=e),
+                                   deadline_s=mult * med, tenant=t))
+               for f, e, mult, t in burst]
+    res = {r.rid: r for r in sess.drain()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(len(res) == 32, f"burst: {len(res)} of 32 answered")
+    within, admitted, met = 0, collections.Counter(), collections.Counter()
+    for tk, (f, e, mult, t) in zip(tickets, burst):
+        r = res[tk.rid]
+        check(r.error <= r.delivered_epsilon,
+              f"{f} x{mult}: error {r.error} > delivered "
+              f"{r.delivered_epsilon}")
+        check(not r.shed or its[tk.rid] == 0,
+              f"{f} x{mult}: a shed answer took {its[tk.rid]} iterations")
+        if mult == 4.0:
+            check(not r.shed and not r.degraded,
+                  f"{f} x4: shed={r.shed} degraded={r.degraded}")
+        within += float(np.linalg.norm(r.theta.ravel() - exact[f])) \
+            <= r.delivered_epsilon
+        admitted[t] += not r.shed
+        met[t] += bool(r.slo_met)
+    pool = sess._pool
+    print(f"  burst of 32 (deadlines 4x/0.5x/0.05x of {med * 1e3:.2f} ms): "
+          f"wall {wall:.3f} s, shed {pool.shed}, degraded {pool.degraded}, "
+          f"migrations {pool.migrations}; slo_met dash "
+          f"{met['dash']}/16 batch {met['batch']}/16; admitted to a lane "
+          f"dash {admitted['dash']} batch {admitted['batch']}; "
+          f"{within}/32 within their delivered epsilon of numpy; launches "
+          f"{counts}")
+    check(within >= 24, f"only {within} of 32 burst answers within their "
+                        f"delivered epsilon of the exact answer")
+    check(counts["poisson_bootstrap"] > 0, "the burst never launched row 1")
+    return counts
+
+
 def _lineitem(group_by: str):
     from repro_torch.data import make_lineitem
 
@@ -1981,7 +2367,7 @@ def main() -> None:
                                                seg_pp, clock_mhz * 1e6)
     s = seg_measure(L_main, plain=True)
     seg_err = max(row["max_abs_err"] for row in [s, *seg_rows.values()])
-    del tax, tax_gid, pb_calls, seg_calls
+    del tax_gid, pb_calls, seg_calls
     torch.cuda.empty_cache()
     # -- phase 9 --
     print("phase 9: decode-attention kernel vs plain on the card")
@@ -2004,7 +2390,18 @@ def main() -> None:
     print("phase 14: host serve, lineitem SF10 GROUP BY SHIPINSTRUCT")
     host_counts, host_agg = phase_host_serve(data)
     launches = add_counts(launches, host_counts)
-    print(f"  launches on the main paths (phases 6 + 7 + 12 + 14): "
+    # -- phase 15 --
+    print("phase 15: warm and SLO lanes, card vs cpu at the CPU tests' size")
+    warm_cpu_counts = phase_warm_slo_vs_cpu()
+    # -- phase 16 --
+    print("phase 16: warm and overload serve, lineitem SF10")
+    warm_counts = phase_warm_serve(data, tax)
+    over_counts = phase_overload_serve(data)
+    serve16 = add_counts(warm_counts, over_counts)
+    launches = add_counts(launches, serve16)
+    print(f"  launches in phase 16: warm {warm_counts}, overload "
+          f"{over_counts}")
+    print(f"  launches on the main paths (phases 6 + 7 + 12 + 14 + 16): "
           f"{launches}")
     print(f"  result rows: Poisson bootstrap at the solo serve's most used "
           f"width w={w_main}; segment bootstrap at L={L_main}; aggregate over "
@@ -2022,7 +2419,10 @@ def main() -> None:
         "library_ms": None, "bound_30ops_ms": r["bound_30ops_ms"],
         "ops_per_pair": pb_pp, "stacked_w8192_graph_ms":
             pb_rows["stacked w=8192"]["graph_ms"], "serve_replay": pb_serve,
-        "host_serve_launches": host_counts["poisson_bootstrap"]},
+        "host_serve_launches": host_counts["poisson_bootstrap"],
+        "warm_slo_launches": {
+            "phase15": warm_cpu_counts["poisson_bootstrap"],
+            "phase16": serve16["poisson_bootstrap"]}},
         {
         "name": "segment_bootstrap", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
@@ -2034,7 +2434,9 @@ def main() -> None:
         "bound_30ops_ms": s["bound_30ops_ms"], "ops_per_pair": seg_pp,
         "serve_streams_graph_ms": {k: v["graph_ms"]
                                    for k, v in seg_serve.items()},
-        "serve_replay": seg_replay}, {
+        "serve_replay": seg_replay, "warm_slo_launches": {
+            "phase15": warm_cpu_counts["segment_bootstrap"],
+            "phase16": serve16["segment_bootstrap"]}}, {
         "name": "segment_aggregate", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
         "replaces": "src/repro/kernels/segment_agg/kernel.py:37",

@@ -15,6 +15,10 @@ ops.  The phases (TPC-H lineitem SF10 resident on the card, a forced-POOL
   requests on the HOST route (auto planner) and the engine's exact answers
   of the moment requests, GROUP BY SHIPINSTRUCT; it also prints the
   segment-aggregate kernel's share of device time;
+* ``--warm``: ``chip_smoke.py`` phase 16(a)'s solo waves, GROUP BY
+  SHIPINSTRUCT: a warm-cache session answers the 16 requests cold
+  (outside the profile), then the profile covers their exact repeats and
+  their near repeats at epsilon / 1.1 on the WARM route;
 * ``--lm``: the LM serve of ``chip_smoke.py`` phase 12 (Qwen2-1.5B bf16 at
   full width, 16 requests through a ``ContinuousBatcher`` of 8 slots), then
   four lone decode steps of the 8-slot pool for the kernels per decode
@@ -33,11 +37,12 @@ ops.  The phases (TPC-H lineitem SF10 resident on the card, a forced-POOL
 
 The solo and grouped profiles print each bootstrap kernel's share of the
 device time.  Run from the root of a checkout on a machine with a CUDA
-card: ``python3 profile_serve.py [--grouped | --host | --lm | --decode
+card: ``python3 profile_serve.py [--grouped | --host | --warm | --lm | --decode
 [TREE ...] | --boot [TREE ...]] [TRACE.json]``; with a path, the Chrome
 trace is written there.
 """
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -98,6 +103,40 @@ def host_once(data, reqs) -> float:
     st = sess.stats()
     print(f"  wall {wall * 1e3:.1f} ms, rows touched {st['rows_touched']} "
           f"(store {st['store_rows']}, fused {st['fused_rows']})")
+    return wall
+
+
+def warm_once(data, reqs, measured) -> float:
+    """Phase 16(a)'s solo waves: the requests cold, then, inside
+    ``measured`` (a context manager), their exact repeats and their near
+    repeats at epsilon / 1.1; returns the measured waves' wall time."""
+    from repro_torch.aqp.query import Query, Request
+    from repro_torch.serve import AQPSession, Planner, Route
+
+    sess = AQPSession(data, warm_cache=True,
+                      planner=Planner(mode=Route.POOL, pool_lanes=8),
+                      **SERVE)
+    for f, e, _ in reqs:
+        sess.submit(Request(query=Query(func=f, epsilon=e)))
+    sess.drain()
+    d0 = sess.fused_dispatches
+    with measured:
+        t0 = time.perf_counter()
+        for div in (1.0, 1.1):
+            for f, e, _ in reqs:
+                sess.submit(Request(query=Query(func=f, epsilon=e / div)))
+        res = sess.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if len(res) != 2 * len(reqs) or not all(
+            r.success and r.route is Route.WARM for r in res):
+        fail("a profiled warm request failed or missed the WARM route")
+    st = sess.stats()
+    print(f"  wall {wall * 1e3:.1f} ms for {len(res)} warm requests, "
+          f"dispatches {sess.fused_dispatches - d0}, exact hits "
+          f"{st['warm_cache']['exact_hits']}, warm lanes spliced "
+          f"{st['pool']['warm_spliced']}, warm_verify_failures "
+          f"{st['warm_verify_failures']}")
     return wall
 
 
@@ -287,6 +326,8 @@ def main() -> None:
                     help="profile the grouped serve (GROUP BY TAX)")
     ap.add_argument("--host", action="store_true",
                     help="profile the host serve (phase 14's requests)")
+    ap.add_argument("--warm", action="store_true",
+                    help="profile the warm waves (phase 16(a)'s repeats)")
     ap.add_argument("--lm", action="store_true",
                     help="profile the LM serve (Qwen2-1.5B bf16, 8 slots)")
     ap.add_argument("--decode", nargs="*", metavar="TREE",
@@ -328,12 +369,17 @@ def main() -> None:
         reqs = grouped_requests(data)[0]
     else:
         reqs = [r + (False,) for r in serve_requests(data)[0]]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     print("warm-up run")
-    once(data, reqs)
-    print("profiled run")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        wall = once(data, reqs)
+    if args.warm:
+        warm_once(data, reqs, contextlib.nullcontext())
+        print("profiled run")
+        wall = warm_once(data, reqs, prof)
+    else:
+        once(data, reqs)
+        print("profiled run")
+        with prof:
+            wall = once(data, reqs)
     events, cuda, dev_us, _ = device_summary(prof, wall, "serve")
     for name, tag in (("Poisson bootstrap", "pb_"),
                       ("segment bootstrap", "seg_boot"),

@@ -13,13 +13,16 @@ A predicate is either an opaque callable over the ``(N, c)`` values tensor
 ``("col", j)`` / ``("lit", x)`` leaves under comparison and boolean nodes
 (see :func:`canonicalize_predicate`).  :func:`compile_predicate` turns the
 AST into torch comparisons on the values' own device, so a predicate over a
-table resident on the card never copies the column to the host.  The cache
-signature comes with the warm-cache slice.
+table resident on the card never copies the column to the host.  Two
+semantically identical ASTs canonicalize to one signature, which keys the
+serving layer's warm cache (:func:`cache_signature`); an opaque callable has
+no signature and never hits the cache.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -161,6 +164,55 @@ def compile_predicate(ast: PredicateAST) -> Callable:
 
     return run
 
+
+# -- cache signature ---------------------------------------------------------
+EPS_BUCKET_RATIO = 1.25
+
+
+def epsilon_bucket(eps: float, ratio: float = EPS_BUCKET_RATIO) -> int:
+    """Geometric bucket index of an error bound: eps in [r^k, r^(k+1)).
+
+    Near-repeats share a warm-cache entry through the bucket: the fitted
+    log-log coefficients are epsilon-independent, so any entry of the same
+    query shape is a usable prior; the bucket bounds how far a lookup
+    generalizes.  The 1e-9 nudge keeps values on a bucket edge (0.25 with
+    ratio 1.25) stable under float noise.
+    """
+    if not eps > 0:
+        raise ValueError(f"epsilon must be positive; got {eps!r}")
+    return int(math.floor(math.log(eps) / math.log(ratio) + 1e-9))
+
+
+def cache_signature(query: "Query", *, dataset_epoch: int = 0,
+                    num_groups: Optional[int] = None
+                    ) -> Optional[Tuple[Tuple, int]]:
+    """``(shape, epsilon_bucket)`` identity of a query for the warm cache.
+
+    ``shape`` is the epsilon-free part -- (dataset epoch, func, predicate
+    signature, delta, metric, lp, bound kind) -- so a lookup can fall back to
+    another bucket of the same shape.  None for an opaque callable
+    predicate (uncacheable).  A GROUP BY query carries ``("groupby", G)`` in
+    its shape, so its per-group entry never meets the solo entry of the same
+    clause; ``num_groups`` is required for it.
+    """
+    pred_sig = predicate_signature(query.predicate)
+    if pred_sig is None:
+        return None
+    if query.metric == "order":
+        eps, kind = 1.0, "order"
+    elif query.epsilon is not None:
+        eps, kind = float(query.epsilon), "abs"
+    else:
+        eps, kind = float(query.epsilon_rel), "rel"
+    shape = (int(dataset_epoch), query.func, pred_sig, float(query.delta),
+             query.metric, None if query.lp is None else float(query.lp),
+             kind)
+    if query.group_by:
+        if num_groups is None:
+            raise ValueError(
+                "grouped cache signatures need the dataset's num_groups")
+        shape = shape + (("groupby", int(num_groups)),)
+    return shape, epsilon_bucket(eps)
 
 
 @dataclasses.dataclass(frozen=True)

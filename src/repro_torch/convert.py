@@ -59,14 +59,11 @@ def lane_state_from_numpy(leaves: Mapping[str, np.ndarray],
 
 def lane_params_from_numpy(leaves: Mapping[str, np.ndarray],
                            device=None) -> LaneParams:
-    """A :class:`LaneParams` from the reference ``LaneParams``'s leaves.
-    Warm-started lanes are a later slice: a warm lane raises."""
-    if "warm" in leaves and np.any(np.asarray(leaves["warm"])):
-        raise NotImplementedError(
-            "warm-started lanes are not ported yet (ROADMAP Queue 1 item 11)")
+    """A :class:`LaneParams` from the reference ``LaneParams``'s leaves,
+    warm-start rows included."""
     a = _leaves(leaves, LaneParams._fields)
     dt = dict(est_fids=np.int32, boot_base=np.int64, slot_idx=np.int32,
-              group_sizes=np.int32)
+              warm=np.bool_, warm_n0=np.int32, group_sizes=np.int32)
     return LaneParams(**{
         f: torch.as_tensor(np.asarray(v, dt.get(f, np.float32)).copy(),
                            device=device)

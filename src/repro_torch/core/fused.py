@@ -27,9 +27,15 @@ A GROUP BY query runs as a grouped lane BLOCK (``fused_step(...,
 seg_cap=...)``, :func:`fused_grouped`): G lanes of m = 1, lane g bound to
 group g by its stratified slot table, each tick one packed gather over the
 active lanes' windows and one segment bootstrap pass
-(:func:`~.bootstrap.segment_moment_sums`) over the packed stream.  Only the
-single-device, ``backend="poisson"``, cold-start path is here; sharding and
-warm starts are later slices.
+(:func:`~.bootstrap.segment_moment_sums`) over the packed stream.
+
+A WARM lane (``LaneParams.warm``, from the serving layer's warm cache) skips
+the two-point init design: tick 0 jumps to the cached prediction
+``warm_n0`` and the normal TEST is its verification; a stale prediction
+extends through the cached coefficients until the lane has an ``l``-deep
+profile of its own.  Cold lanes carry all-False rows and run as before.
+Only the single-device, ``backend="poisson"`` path is here; sharding is a
+later slice.
 """
 from __future__ import annotations
 
@@ -93,13 +99,18 @@ class LaneState(NamedTuple):
 class LaneParams(NamedTuple):
     """Per-lane query parameters -- constant across ticks, spliceable per
     lane.  ``slot_idx`` is ``(m, n_cap)`` when all lanes share one sample key
-    or ``(q, m, n_cap)`` per lane."""
+    or ``(q, m, n_cap)`` per lane.  A lane with ``warm[i]`` set starts from
+    the cached prediction ``warm_n0[i]`` and coefficients ``warm_beta[i]``;
+    cold lanes carry False / zero rows."""
     scale: torch.Tensor        # (q, m) f32 per-group scale
     epsilons: torch.Tensor     # (q,) f32
     deltas: torch.Tensor       # (q,) f32
     est_fids: torch.Tensor     # (q,) int32 moment-family indices
     boot_base: torch.Tensor    # (q,) int64 uint32 bootstrap seed base
     slot_idx: torch.Tensor     # (m, n_cap) | (q, m, n_cap) int32
+    warm: torch.Tensor         # (q,) bool: lane starts from a prediction
+    warm_n0: torch.Tensor      # (q, m) int32 the tick-0 jump target
+    warm_beta: torch.Tensor    # (q, m + 1) f32 cached coefficients
     group_sizes: torch.Tensor  # (q, m) int32 rows available to each group
 
 
@@ -170,14 +181,35 @@ def _host(x, dtype) -> np.ndarray:
     return np.array(x, dtype)
 
 
+def resolve_warm_rows(q: int, m: int, warm=None, warm_n0=None,
+                      warm_beta=None, *, device) -> Tuple[torch.Tensor,
+                                                          torch.Tensor,
+                                                          torch.Tensor]:
+    """The warm-start leaves of :class:`LaneParams` on ``device``: ``warm``
+    None means all-True when a prediction is given, all-False otherwise;
+    missing rows are zeros, so cold and warm lanes share one layout."""
+    if warm is None:
+        warm = np.full((q,), warm_n0 is not None, bool)
+    wn0 = (np.zeros((q, m), np.int32) if warm_n0 is None
+           else _host(warm_n0, np.int32).reshape(q, m))
+    wb = (np.zeros((q, m + 1), np.float32) if warm_beta is None
+          else _host(warm_beta, np.float32).reshape(q, m + 1))
+    return (torch.as_tensor(_host(warm, np.bool_).reshape(q), device=device),
+            torch.as_tensor(wn0, device=device),
+            torch.as_tensor(wb, device=device))
+
+
 def make_lane_params(offsets, scale, keys, epsilons, deltas,
                      sample_keys=None, est_fids=None, *, n_cap: int,
+                     warm=None, warm_n0=None, warm_beta=None,
                      device=None) -> LaneParams:
     """Per-lane query parameters (slot tables + seed bases).
 
     ``keys (q, 2)`` are the lanes' bootstrap keys; ``sample_keys`` ``None``
     derives one slot->row binding per lane from ``keys``, a ``(2,)`` key
     shares ONE binding across lanes, ``(q, 2)`` pins one per lane.
+    ``warm``/``warm_n0 (q, m)``/``warm_beta (q, m+1)`` seed warm lanes
+    (:func:`resolve_warm_rows`); omitted, every lane is cold.
     """
     dev = torch.device(device) if device is not None else (
         sampling.default_device())
@@ -197,12 +229,14 @@ def make_lane_params(offsets, scale, keys, epsilons, deltas,
                            dtype=torch.int64, device=dev)
     if est_fids is None:
         est_fids = np.zeros((q,), np.int32)
+    w, wn0, wb = resolve_warm_rows(q, sizes.shape[0], warm, warm_n0,
+                                   warm_beta, device=dev)
     return LaneParams(
         scale=torch.as_tensor(_host(scale, np.float32), device=dev),
         epsilons=torch.as_tensor(_host(epsilons, np.float32), device=dev),
         deltas=torch.as_tensor(_host(deltas, np.float32), device=dev),
         est_fids=torch.as_tensor(_host(est_fids, np.int32), device=dev),
-        boot_base=boot, slot_idx=slot_idx,
+        boot_base=boot, slot_idx=slot_idx, warm=w, warm_n0=wn0, warm_beta=wb,
         group_sizes=torch.as_tensor(
             np.broadcast_to(sizes.astype(np.int32), (q, sizes.shape[0])).copy(),
             device=dev))
@@ -210,6 +244,7 @@ def make_lane_params(offsets, scale, keys, epsilons, deltas,
 
 def make_group_lane_params(offsets, scale, keys, epsilons, deltas,
                            sample_key, est_fids=None, *, n_cap: int,
+                           warm=None, warm_n0=None, warm_beta=None,
                            slot_idx: Optional[torch.Tensor] = None,
                            device=None) -> LaneParams:
     """Lane-BLOCK parameters of a grouped query: lane g <- group g.
@@ -218,9 +253,10 @@ def make_group_lane_params(offsets, scale, keys, epsilons, deltas,
     of group g (:func:`~.sampling.stratified_slot_tables`, the solo table of
     group g's slice under ``stratum_key(sample_key, g)`` in global rows) and
     its ``group_sizes`` row is that group's size.  ``scale (G,)``, ``keys
-    (G, 2)``, ``epsilons``/``deltas (G,)``; ``slot_idx`` passes the
-    ``(G, 1, n_cap)`` tables prebuilt (they depend only on the sample key,
-    the layout and ``n_cap``).
+    (G, 2)``, ``epsilons``/``deltas (G,)``; ``warm_n0 (G, 1)`` and
+    ``warm_beta (G, 2)`` seed warm lanes; ``slot_idx`` passes the ``(G, 1,
+    n_cap)`` tables prebuilt (they depend only on the sample key, the layout
+    and ``n_cap``).
     """
     dev = torch.device(device) if device is not None else (
         sampling.default_device())
@@ -240,6 +276,8 @@ def make_group_lane_params(offsets, scale, keys, epsilons, deltas,
                                                    device=dev)
     if est_fids is None:
         est_fids = np.zeros((q,), np.int32)
+    w, wn0, wb = resolve_warm_rows(q, 1, warm, warm_n0, warm_beta,
+                                   device=dev)
     return LaneParams(
         scale=torch.as_tensor(_host(scale, np.float32).reshape(q, 1),
                               device=dev),
@@ -248,7 +286,7 @@ def make_group_lane_params(offsets, scale, keys, epsilons, deltas,
         est_fids=torch.as_tensor(_host(est_fids, np.int32), device=dev),
         boot_base=torch.as_tensor([lane_boot_seed(k) for k in keys],
                                   dtype=torch.int64, device=dev),
-        slot_idx=slot_idx,
+        slot_idx=slot_idx, warm=w, warm_n0=wn0, warm_beta=wb,
         group_sizes=torch.as_tensor(sizes.astype(np.int32).reshape(q, 1),
                                     device=dev))
 
@@ -293,9 +331,15 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _fit_predict(s: LaneState, p: LaneParams, *, tau: float,
-                 growth_cap: float, max_iters: int):
+                 growth_cap: float, max_iters: int, l: int):
     """FIT + PREDICT for every lane: ``(n_pred (q, m), beta (q, m+1), r2
-    (q,), failed_fit (q,))``."""
+    (q,), failed_fit (q,))``.
+
+    Warm lanes override their first ``l`` ticks: tick 0 takes ``warm_n0``
+    as it is, later ticks extend through the cached coefficients' local
+    model (the cold loop's ratio ** (1 / slope) step), the fit's beta is
+    replaced by ``warm_beta`` and a fit failure is ignored.  From tick ``l``
+    the lane's own profile is full and the ordinary fit takes over."""
     log_eps = torch.log(p.epsilons)
     row_valid = (torch.arange(max_iters, device=s.k.device)[None, :]
                  < s.k[:, None]).to(torch.float32)
@@ -314,7 +358,19 @@ def _fit_predict(s: LaneState, p: LaneParams, *, tau: float,
     n_next = torch.minimum(n_next, cap)
     n_next = torch.maximum(n_next, s.n_cur + 1)
     failed = fit.status == error_model.DIAG_FAILURE
-    return n_next, fit.beta, fit.r2, failed
+    # Warm override (the growth guard still applies after tick 0).
+    use_warm = p.warm & (s.k < l)                              # (q,)
+    wslope = torch.clamp(tree_sum(p.warm_beta[:, 1:], -1), min=1e-3)
+    wlocal = _to_i32(torch.ceil(
+        n_cur_f * torch.pow(ratio, 1.0 / wslope)[:, None]))
+    wnext = torch.where((s.k == 0)[:, None], p.warm_n0,
+                        torch.minimum(torch.maximum(wlocal, s.n_cur + 1),
+                                      cap))
+    uw = use_warm[:, None]
+    return (torch.where(uw, wnext, n_next),
+            torch.where(uw, p.warm_beta, fit.beta),
+            torch.where(use_warm, torch.zeros_like(fit.r2), fit.r2),
+            failed & ~use_warm)
 
 
 def _bootstrap_seeds(p: LaneParams, k: torch.Tensor, m: int) -> torch.Tensor:
@@ -448,8 +504,9 @@ def _step_body(values: torch.Tensor, s: LaneState, p: LaneParams, *,
     phase = (s.k[:, None] + torch.arange(m, device=dev)[None, :]) % l
     n_init = torch.where(phase < l_min, n_min, n_max).to(torch.int32)
     n_pred, beta, r2, failed_fit = _fit_predict(
-        s, p, tau=tau, growth_cap=growth_cap, max_iters=max_iters)
-    init_phase = s.k < l                                       # (q,)
+        s, p, tau=tau, growth_cap=growth_cap, max_iters=max_iters, l=l)
+    # Warm lanes take the prediction branch from tick 0.
+    init_phase = (s.k < l) & ~p.warm                           # (q,)
     n_vec = torch.where(init_phase[:, None], n_init, n_pred)
     n_vec = torch.minimum(torch.clamp(n_vec, min=1),
                           torch.clamp(p.group_sizes, max=n_cap))
@@ -595,7 +652,8 @@ def lanes_result(state: LaneState) -> FusedResult:
 
 
 def fused_l2miss_lanes(values: torch.Tensor, offsets, scale, keys, epsilons,
-                       deltas, sample_keys=None, est_fids=None, *,
+                       deltas, sample_keys=None, est_fids=None, warm_n0=None,
+                       warm_beta=None, *,
                        est_name: Optional[str] = "avg", B: int = 500,
                        n_min: int = 100, n_max: int = 200, l: int = 10,
                        tau: float = 1e-3, max_iters: int = 32,
@@ -606,11 +664,17 @@ def fused_l2miss_lanes(values: torch.Tensor, offsets, scale, keys, epsilons,
                        gate_gather: bool = True) -> FusedResult:
     """q query lanes over one resident table, ticked until every lane is
     done, failed or out of ticks.  A lane's trajectory equals its solo run
-    with the same keys: the width bucket is compute width only."""
+    with the same keys: the width bucket is compute width only.
+    ``warm_n0 (q, m)``/``warm_beta (q, m+1)`` (both or neither) start every
+    lane from a cached prediction, as a pool's warm splice does."""
+    if (warm_n0 is None) != (warm_beta is None):
+        raise ValueError("warm_n0 and warm_beta come together")
     dev = values.device
     m = len(offsets) - 1
     params = make_lane_params(offsets, scale, keys, epsilons, deltas,
-                              sample_keys, est_fids, n_cap=n_cap, device=dev)
+                              sample_keys, est_fids, n_cap=n_cap,
+                              warm_n0=warm_n0, warm_beta=warm_beta,
+                              device=dev)
     p_dim = (get_estimator(est_name).out_dim(values.shape[1])
              if est_name is not None else 1)
     state = init_lane_state(keys, m, n_cap=n_cap, c_dim=values.shape[1],
@@ -628,18 +692,24 @@ def fused_l2miss_lanes(values: torch.Tensor, offsets, scale, keys, epsilons,
 
 
 def fused_l2miss(values: torch.Tensor, offsets, scale, key, epsilon, delta,
-                 sample_key=None, **static_kwargs) -> FusedResult:
-    """Single-query entry point: the q = 1 lane configuration."""
+                 sample_key=None, warm_n0=None, warm_beta=None,
+                 **static_kwargs) -> FusedResult:
+    """Single-query entry point: the q = 1 lane configuration (``warm_n0
+    (m,)``/``warm_beta (m+1,)`` start it warm)."""
     res = fused_l2miss_lanes(
         values, offsets, _host(scale, np.float32)[None],
         _host(key, np.uint32)[None],
         _host(epsilon, np.float32).reshape(1),
-        _host(delta, np.float32).reshape(1), sample_key, **static_kwargs)
+        _host(delta, np.float32).reshape(1), sample_key,
+        warm_n0=None if warm_n0 is None else _host(warm_n0, np.int32)[None],
+        warm_beta=None if warm_beta is None
+        else _host(warm_beta, np.float32)[None], **static_kwargs)
     return FusedResult(*(x[0] for x in res))
 
 
 def fused_grouped(values: torch.Tensor, offsets, scale, key, epsilon, delta,
-                  sample_key=None, est_fids=None, *,
+                  sample_key=None, est_fids=None, warm_n0=None,
+                  warm_beta=None, *,
                   est_name: Optional[str] = "avg", B: int = 500,
                   n_min: int = 100, n_max: int = 200, l: int = 10,
                   tau: float = 1e-3, max_iters: int = 32,
@@ -654,12 +724,16 @@ def fused_grouped(values: torch.Tensor, offsets, scale, key, epsilon, delta,
     each group converges, extends and parks on its own ``(epsilon, delta)``
     row (scalars or ``(G,)``).  The result equals G solo
     :func:`fused_l2miss` runs on the group slices with those keys and
-    ``stratum_key(sample_key, g)`` bindings, bit for bit.
+    ``stratum_key(sample_key, g)`` bindings, bit for bit.  ``warm_n0
+    (G,)``/``warm_beta (G, 2)`` (both or neither) start every lane warm, as
+    a pool's warm block does.
 
     Returns a :class:`FusedResult` with the GROUP axis leading and the m = 1
     axis squeezed: ``n (G,)``, ``error (G,)``, ``theta (G, p)``,
     ``success (G,)``, ``profile_n (G, max_iters)``.
     """
+    if (warm_n0 is None) != (warm_beta is None):
+        raise ValueError("warm_n0 and warm_beta come together")
     dev = values.device
     off = np.asarray(offsets, np.int64)
     G = off.shape[0] - 1
@@ -670,7 +744,7 @@ def fused_grouped(values: torch.Tensor, offsets, scale, key, epsilon, delta,
     params = make_group_lane_params(
         off, scale, keys, epsilons, deltas,
         key if sample_key is None else sample_key, est_fids, n_cap=n_cap,
-        device=dev)
+        warm_n0=warm_n0, warm_beta=warm_beta, device=dev)
     p_dim = (get_estimator(est_name).out_dim(values.shape[1])
              if est_name is not None else 1)
     state = init_lane_state(keys, 1, n_cap=n_cap, c_dim=values.shape[1],

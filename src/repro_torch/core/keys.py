@@ -193,14 +193,107 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                0.00943887047, 1.00167406, 2.83297682)
 
 
+# XLA's f32 log1p below |x| < sqrt(2) - 1: Cephes' rational form
+# x + (-0.5 x^2 + x^3 P(x) / Q(x)), numerator and denominator by Horner.
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969e0, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
+# XLA CPU's f32 log (Cephes' logf on the mantissa in [sqrt(1/2), sqrt(2))).
+_LOGF_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+           -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+           2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOGF_Q1, _LOGF_Q2 = -2.12194440e-4, 0.693359375
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 fused multiply-add, ``a * b + c`` rounded once (through float64:
+    the f32 product is exact there)."""
+    return torch.addcmul(torch.as_tensor(c, dtype=torch.float64),
+                         a.double(), torch.as_tensor(b, dtype=torch.float64)
+                         ).float()
+
+
+def _horner(coeffs, x: torch.Tensor) -> torch.Tensor:
+    """f32 Horner evaluation, each step one fused multiply-add: the product
+    of two f32 values is exact in float64, so one float64 add and the
+    rounding to f32 give the FMA's value."""
+    x64 = x.double()
+    p = torch.full_like(x64, float(np.float32(coeffs[0])))
+    for c in coeffs[1:]:
+        p.mul_(x64).add_(float(np.float32(c)))
+        p.copy_(p.float())
+    return p.float()
+
+
+def log_f32(a: torch.Tensor) -> torch.Tensor:
+    """f32 natural log as XLA compiles it for the CPU: Cephes' ``logf``
+    with its polynomial in three fused Horner strands.  Bit-equal to
+    ``jnp.log``, subnormals flushed to zero: 0 -> -inf, negatives -> NaN."""
+    a = _flush(a)
+    tiny = float(np.finfo(np.float32).tiny)
+    x = torch.clamp(a, min=tiny)
+    bits = x.view(torch.int32)
+    e = (((bits >> 23) - 0x7F).to(torch.float32) + 1.0)
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)  # [.5, 1)
+    low = m < float(np.float32(0.707106781186547524))
+    t = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    e = e - low.to(torch.float32)
+    x2 = t * t
+    x3 = x2 * t
+    p = [float(np.float32(c)) for c in _LOGF_P]
+    y = _fma(_fma(t, p[0], p[1]), t, p[2])
+    y1 = _fma(_fma(t, p[3], p[4]), t, p[5])
+    y2 = _fma(_fma(t, p[6], p[7]), t, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, float(np.float32(_LOGF_Q1)) * e)
+    t = (t - 0.5 * x2) + y
+    t = t + float(np.float32(_LOGF_Q2)) * e
+    t = torch.where(a == 0, torch.full_like(t, -float("inf")), t)
+    t = torch.where(a == float("inf"), a, t)
+    return torch.where(a < 0, torch.full_like(t, float("nan")), t)
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``log1p`` as XLA compiles it for the CPU: Cephes' rational form
+    below ``|x| < sqrt(2) - 1``, :func:`log_f32` of ``1 + x`` above.
+    Bit-equal to ``jnp.log1p`` on the CPU, which flushes subnormal
+    arguments to (signed) zero."""
+    x = _flush(x)
+    return torch.where(x.abs() < LOG1P_SMALL, _log1p_small(x),
+                       log_f32(x + 1.0))
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """Subnormals to zero, sign kept (XLA's CPU flush-to-zero)."""
+    return torch.where(x.abs() < float(np.finfo(np.float32).tiny), x * 0.0,
+                       x)
+
+
+LOG1P_SMALL = float(np.float32(0.41421356237309504880))   # sqrt(2) - 1
+
+
+def _log1p_small(x: torch.Tensor) -> torch.Tensor:
+    """The rational branch of :func:`log1p_f32` (``|x| < sqrt(2) - 1``)."""
+    xs = x * x
+    r = _horner(_LOG1P_P, x) / _horner(_LOG1P_Q, x)
+    return x + (-0.5 * xs + (x * xs) * r)
+
+
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
-    """f32 inverse error function by XLA's polynomial (+-inf at +-1)."""
-    w = -torch.log1p(-(x * x))
+    """f32 inverse error function by XLA's polynomial (+-inf at +-1), its
+    Horner steps fused as XLA's CPU code fuses them.  Bit-equal to
+    ``jax.scipy.special.erfinv`` where ``w < 5`` (|x| below ~0.9966); above
+    it up to 2 ulps apart in ~2 % of arguments (ROADMAP Queue 3 item 2)."""
+    w = -log1p_f32(-(x * x))
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
     p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).to(torch.float32)
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        p = torch.where(lt, a, b).to(torch.float32) + p * w
+        p = _fma(p, w, torch.where(lt, a, b).to(torch.float32))
     out = p * x
     return torch.where(x.abs() == 1.0, x * float(np.finfo(np.float32).max),
                        out)
@@ -208,8 +301,9 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
 
 def normal(key, shape: Shape, device=None):
     """``jax.random.normal(key, shape, float32)``: ``sqrt(2) *
-    erf_inv(uniform(key, shape, -1 + ulp, 1))``.  A tensor on ``device``
-    (the CPU when None)."""
+    erf_inv(uniform(key, shape, -1 + ulp, 1))``, bit for bit except in
+    the tails of :func:`erf_inv` (|normal| above ~4.1, at most 2 ulps).  A
+    tensor on ``device`` (the CPU when None)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0, device=device if device is not None
                 else "cpu")

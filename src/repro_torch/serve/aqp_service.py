@@ -69,7 +69,8 @@ class AQPService:
                  batch_fused: "bool | str" = "auto",
                  pool_lanes: Optional[int] = None,
                  pool_ticks_per_sync: Optional[int] = None,
-                 pool_tiers: "int | str" = "auto"):
+                 pool_tiers: "int | str" = "auto",
+                 warm_cache: bool = False):
         mode = _route_of(batch_fused)
         self.batch_fused = (batch_fused if isinstance(batch_fused, str)
                             else bool(batch_fused))
@@ -77,6 +78,7 @@ class AQPService:
             data, B=B, n_min=n_min, n_max=n_max, max_iters=max_iters,
             n_cap=n_cap, seed=seed, reshuffle_every=reshuffle_every,
             use_kernel=use_kernel, pool_tiers=pool_tiers,
+            warm_cache=warm_cache,
             planner=Planner(mode=mode, pool_lanes=pool_lanes,
                             pool_ticks_per_sync=pool_ticks_per_sync))
 

@@ -24,6 +24,27 @@ A GROUP BY query is admitted as a resident lane BLOCK (:meth:`submit_group`):
 one lane per group, ticked in the same scheduling round as the tiers with
 one shared-scan dispatch (``fused_step(..., seg_cap=...)``), retired whole
 when every group has finished.
+
+Warm start: ``submit``/``submit_group`` take a cached prediction
+(``warm_n0``/``warm_beta``) and splice the query as a WARM lane or block,
+whose tick 0 jumps to the prediction and verifies it.
+
+Overload scheduling (:mod:`.slo`), all off by default, with the pool above
+as the exact special case:
+
+* ``degrade`` -- a deadline-carrying ticket is planned at admission against
+  the cost model: admitted, admitted at a relaxed epsilon (a degraded lane
+  is a normal lane at the delivered bound), or SHED, answered at once from
+  an ``n_min`` pilot with its measured error bar and never laned.  A
+  deadline already blown at submit, or hopeless behind the queue, is shed
+  in :meth:`submit`;
+* ``wfq`` -- weighted fair queueing over ``Request.tenant``: the admission
+  order is priority, then the tenant's virtual finish time, then deadline,
+  then FIFO;
+* ``migrate`` -- a straggler that alone drives its tier's ESTIMATE bucket
+  is moved, mid-flight, into a tier already riding that bucket (or an
+  empty one): a full row copy of its state and parameters, so its answer
+  does not change.
 """
 from __future__ import annotations
 
@@ -36,15 +57,16 @@ import numpy as np
 import torch
 
 from ..aqp.query import Query
-from ..core import estimators
+from ..core import bootstrap, estimators
 from ..core import keys as keylib
-from ..core.fused import (LaneParams, LaneState, fused_step,
+from ..core.fused import (LaneParams, LaneState, bucket_ladder, fused_step,
                           grouped_seg_cap, init_lane_state, lane_boot_seed,
                           make_group_lane_params, make_lane_params,
                           resolve_ext_cap)
 from ..core.sampling import (GroupedData, counter_slot_table,
                              stratified_slot_tables)
 from ..kernels import resolve_use_kernel
+from .slo import PILOT_B_FLOOR, AdmissionController, FairQueue, predict_n0
 
 
 @dataclasses.dataclass
@@ -63,9 +85,20 @@ class PoolResponse:
     queue_wait_s: float     # submit -> splice
     ticks_in_lane: int      # loop ticks while resident
     lane: int               # global lane id (tier * tier_lanes + local)
-    tier: int               # width tier the query rode in
+    tier: int               # width tier the query rode in (-1: shed)
     spliced_tier_width: int  # tier's max active watermark at splice time
     beta: Optional[np.ndarray] = None   # (m+1,) final fitted coefficients
+    warm: bool = False      # lane started from a cached prediction
+    # The delivered contract: a degraded lane ran at ``delivered_epsilon >
+    # epsilon``; a shed answer is an n_min pilot whose delivered epsilon is
+    # its measured error.  Either way ``error <= delivered_epsilon``.
+    epsilon: Optional[float] = None            # requested bound
+    delivered_epsilon: Optional[float] = None  # bound actually satisfied
+    delivered_B: Optional[int] = None          # replicates actually run
+    degraded: bool = False   # epsilon relaxed at admission
+    shed: bool = False       # answered by pilot, never laned
+    migrations: int = 0      # cross-tier moves while resident
+    tenant: str = ""         # fair-queueing traffic class
 
 
 @dataclasses.dataclass
@@ -87,6 +120,7 @@ class GroupPoolResponse:
     queue_wait_s: float        # 0.0: blocks admit at submit
     ticks_in_block: int        # loop ticks while resident
     beta: Optional[np.ndarray] = None   # (G, 2) per-group coefficients
+    warm: bool = False         # block started from a cached prediction
     group_by: bool = True
 
 
@@ -99,6 +133,7 @@ class _Block:
     params: LaneParams
     submitted_s: float
     admitted_tick: int
+    warm: bool = False
 
 
 @dataclasses.dataclass
@@ -113,19 +148,31 @@ class _Ticket:
     submitted_s: float
     priority: int = 0                       # higher = admitted first
     deadline_at: Optional[float] = None     # absolute perf_counter deadline
+    warm_n0: Optional[np.ndarray] = None    # (m,) cached n* prediction
+    warm_beta: Optional[np.ndarray] = None  # (m+1,) cached coefficients
+    tenant: str = ""                        # fair-queueing traffic class
+    vft: float = 0.0                        # WFQ virtual finish time
+    delivered_epsilon: Optional[float] = None  # set when degraded
+    degraded: bool = False
+    migrations: int = 0                     # cross-tier moves while resident
     spliced_s: float = 0.0
     spliced_tick: int = 0
     spliced_width: int = 0
 
     @property
     def order(self):
-        """Admission order: priority class first, then earliest deadline,
-        then FIFO.  The reference's weighted-fair virtual finish time sits
-        between priority and deadline; without fair queueing it is 0 for
-        every ticket.  Order changes WHEN a query is spliced, never its
-        trajectory."""
+        """Admission order: priority class first, then the weighted-fair
+        virtual finish time (0.0 for every ticket without fair queueing),
+        then earliest deadline, then FIFO.  Order changes WHEN a query is
+        spliced, never its trajectory."""
         ddl = self.deadline_at if self.deadline_at is not None else np.inf
-        return (-self.priority, 0.0, ddl, self.qid)
+        return (-self.priority, self.vft, ddl, self.qid)
+
+    @property
+    def eps_run(self) -> float:
+        """The bound the lane runs at (degraded or requested)."""
+        return (self.delivered_epsilon if self.delivered_epsilon is not None
+                else self.epsilon)
 
 
 @dataclasses.dataclass
@@ -149,7 +196,9 @@ class _Tier:
 
 def _splice(state: LaneState, params: LaneParams, lanes: List[int],
             keys: np.ndarray, scale_rows: np.ndarray, eps: np.ndarray,
-            deltas: np.ndarray, fids: np.ndarray, *, n_min: int) -> None:
+            deltas: np.ndarray, fids: np.ndarray, warm: np.ndarray,
+            warm_n0: np.ndarray, warm_beta: np.ndarray, *,
+            n_min: int) -> None:
     """Reset ``lanes`` to tick 0 IN PLACE, swapping in their new queries --
     row for row what ``init_lane_state``/``make_lane_params`` build, so a
     refilled lane is indistinguishable from a lane of a fresh pool."""
@@ -176,6 +225,29 @@ def _splice(state: LaneState, params: LaneParams, lanes: List[int],
     put(params.est_fids, fids.astype(np.int32))
     put(params.boot_base,
         np.asarray([lane_boot_seed(k) for k in keys], np.int64))
+    put(params.warm, warm.astype(np.bool_))
+    put(params.warm_n0, warm_n0.astype(np.int32))
+    put(params.warm_beta, warm_beta.astype(np.float32))
+
+
+# The per-lane rows a cross-tier migration carries: every LaneState leaf
+# and the per-lane LaneParams rows _splice swaps.  ``slot_idx`` is shared by
+# every tier (one sample key), so the moved lane rebinds to the same table.
+_STATE_LEAVES = LaneState._fields
+_PARAM_LANE_LEAVES = ("scale", "epsilons", "deltas", "est_fids", "boot_base",
+                      "warm", "warm_n0", "warm_beta")
+
+
+def _migrate(src_st: LaneState, src_pr: LaneParams, dst_st: LaneState,
+             dst_pr: LaneParams, src_lane: int, dst_lane: int) -> None:
+    """Copy lane ``src_lane`` of one tier into ``dst_lane`` of another IN
+    PLACE, mid-flight (indexed copies on the device, no host read), and park
+    the source lane as done."""
+    for f in _STATE_LEAVES:
+        getattr(dst_st, f)[dst_lane] = getattr(src_st, f)[src_lane]
+    for f in _PARAM_LANE_LEAVES:
+        getattr(dst_pr, f)[dst_lane] = getattr(src_pr, f)[src_lane]
+    src_st.done[src_lane] = True
 
 
 def _later(item: str):
@@ -186,7 +258,9 @@ class LanePool:
     """A fixed pool of query lanes with width-aware admission and
     retire-and-refill.  ``ticks_per_sync`` trades host round-trips against
     refill granularity; ``tiers="auto"`` splits an even pool into two width
-    tiers.  Arguments of later slices (sharding, SLO scheduling) raise."""
+    tiers.  ``degrade``/``wfq``/``tenant_weights``/``migrate`` arm the
+    overload policies; sharding (``data_shards``, ``mesh``) is a later slice
+    and raises."""
 
     def __init__(self, data: GroupedData, *, lanes: int = 4, B: int = 300,
                  n_min: int = 1000, n_max: int = 2000, max_iters: int = 24,
@@ -201,9 +275,6 @@ class LanePool:
                  migrate: bool = False, max_degrade: float = 8.0):
         if data_shards != 1 or mesh is not None:
             raise _later("14 (sharded pool)")
-        if degrade or wfq or tenant_weights is not None or migrate:
-            raise _later("12 (SLO scheduling: degrade, wfq, migrate)")
-        del max_degrade
         self.data = data
         self.device = data.device
         self.lanes = int(lanes)
@@ -265,6 +336,18 @@ class LanePool:
         self._pending_sample_key: Optional[np.ndarray] = None
         self.sample_epochs = 0
         self._scale_rows: Dict[str, np.ndarray] = {}
+        self.warm_spliced = 0     # warm lanes and blocks admitted
+        # Overload policies, all off by default.  Migration needs two tiers.
+        self._slo = AdmissionController(
+            bucket_ladder(n_cap, n_max), num_groups=m, n_min=n_min,
+            max_degrade=max_degrade) if degrade else None
+        self._wfq = FairQueue(tenant_weights) if wfq else None
+        self.migrate_enabled = bool(migrate) and self.tiers >= 2
+        self.shed = 0             # requests answered by pilot, never laned
+        self.degraded = 0         # requests admitted at a relaxed epsilon
+        self.migrations = 0       # cross-tier lane moves
+        self._group_sizes_host = np.diff(self._offsets).astype(np.int64)
+        self._pilot_tab: Optional[torch.Tensor] = None   # per sample epoch
         # Hand-off buffer: harvest fills it, drain() pops it.
         self.results: Dict[int, PoolResponse] = {}
         self._next_qid = 0
@@ -303,12 +386,18 @@ class LanePool:
 
     def submit(self, query: Query, key=None, *, priority: int = 0,
                deadline_at: Optional[float] = None, warm_n0=None,
-               warm_beta=None) -> int:
+               warm_beta=None, tenant: str = "") -> int:
         """Enqueue one query; returns its qid (results keyed on it).
+
         ``priority``/``deadline_at`` (absolute ``time.perf_counter``) shape
-        admission order only."""
-        if warm_n0 is not None or warm_beta is not None:
-            raise _later("11 (warm cache)")
+        admission order; with ``wfq`` the tenant's virtual finish time sits
+        between them.  With ``degrade`` a deadline blown at submit, or
+        hopeless behind the queue, is shed HERE: its pilot answer is in
+        :attr:`results` when this returns.  ``warm_n0 (m,)``/``warm_beta
+        (m+1,)`` (both or neither) splice the query as a WARM lane.
+        """
+        if (warm_n0 is None) != (warm_beta is None):
+            raise ValueError("warm_n0 and warm_beta come together")
         if not self.supports(query):
             raise ValueError(
                 f"lane pool cannot serve func={query.func!r} "
@@ -325,12 +414,40 @@ class LanePool:
         qid = self._next_qid
         self._next_qid += 1
         self.submitted += 1
-        self._queue.append(_Ticket(
+        m = self.data.num_groups
+        if warm_n0 is not None:
+            # The step clips n to the group sizes and n_cap anyway; this
+            # keeps an oversized prediction inside int32.
+            warm_n0 = np.clip(np.asarray(warm_n0, np.int64).reshape((m,)),
+                              1, self._spec["n_cap"]).astype(np.int32)
+            warm_beta = np.asarray(warm_beta, np.float32).reshape((m + 1,))
+        vft = 0.0
+        if self._wfq is not None:
+            # The fair-queueing cost is the predicted watermark, the rows a
+            # lane holds; n_min while the cost model is unprimed.
+            wm = None
+            if self._slo is not None:
+                wm = self._slo.cost.predict_watermark(
+                    query.func, float(query.epsilon), warm_n0=warm_n0)
+            if wm is None:
+                wm = (int(np.max(warm_n0)) if warm_n0 is not None
+                      else self._spec["n_min"])
+            vft = self._wfq.stamp(tenant, float(wm))
+        tk = _Ticket(
             qid=qid, func=query.func, fid=self._family[query.func],
             epsilon=float(query.epsilon), delta=float(query.delta),
             key=keylib.as_key(key), scale_row=scale_row,
             submitted_s=time.perf_counter(), priority=int(priority),
-            deadline_at=deadline_at))
+            deadline_at=deadline_at, warm_n0=warm_n0, warm_beta=warm_beta,
+            tenant=str(tenant), vft=vft)
+        if self._slo is not None and deadline_at is not None and (
+                deadline_at <= tk.submitted_s or self._slo.hopeless(
+                    queue_ahead=len(self._queue), busy=self.busy_lanes,
+                    lanes=self.lanes, deadline_at=deadline_at,
+                    now=tk.submitted_s)):
+            self._shed(tk, tk.submitted_s)
+            return qid
+        self._queue.append(tk)
         self.peak_queue_depth = max(self.peak_queue_depth, len(self._queue))
         return qid
 
@@ -358,9 +475,10 @@ class LanePool:
         table stratum g of the pool's sample key.  The block is built here
         and ticks from the next round on; its :class:`GroupPoolResponse`
         lands in :attr:`results` once every group has converged, failed or
-        run out of iterations."""
-        if warm_n0 is not None or warm_beta is not None:
-            raise _later("11 (warm cache)")
+        run out of iterations.  ``warm_n0 (G,)``/``warm_beta (G, 2)`` (both
+        or neither) start every lane of the block warm."""
+        if (warm_n0 is None) != (warm_beta is None):
+            raise ValueError("warm_n0 and warm_beta come together")
         if not self.supports_grouped(query):
             raise ValueError(
                 f"lane pool cannot serve grouped func={query.func!r} "
@@ -378,11 +496,17 @@ class LanePool:
             self._scale_rows[query.func] = scale_row
         keys = np.stack([keylib.fold_in(key, g) for g in range(G)])
         n_cap = self._spec["n_cap"]
+        if warm_n0 is not None:
+            warm_n0 = np.clip(np.asarray(warm_n0, np.int64).reshape((G,)),
+                              1, n_cap).astype(np.int32).reshape(G, 1)
+            warm_beta = np.asarray(warm_beta, np.float32).reshape((G, 2))
+            self.warm_spliced += 1
         params = make_group_lane_params(
             self._offsets, scale_row, keys,
             np.full((G,), query.epsilon, np.float32),
             np.full((G,), query.delta, np.float32), self._sample_key,
             np.full((G,), self._family[query.func], np.int32), n_cap=n_cap,
+            warm_n0=warm_n0, warm_beta=warm_beta,
             slot_idx=self._grouped_tables(), device=self.device)
         state = init_lane_state(
             keys, 1, n_cap=n_cap, c_dim=self.data.values.shape[1], p_dim=1,
@@ -394,7 +518,8 @@ class LanePool:
         self.grouped_submitted += 1
         self._blocks[qid] = _Block(
             qid=qid, func=query.func, state=state, params=params,
-            submitted_s=time.perf_counter(), admitted_tick=self.ticks)
+            submitted_s=time.perf_counter(), admitted_tick=self.ticks,
+            warm=warm_n0 is not None)
         return qid
 
     # -- scheduling ---------------------------------------------------------
@@ -413,6 +538,13 @@ class LanePool:
         if not self._queue:
             return
         now = time.perf_counter()
+        if self._slo is not None:
+            # A queued ticket whose deadline passed while it waited is
+            # answered by pilot now instead of taking a lane.
+            for tk in [t for t in self._queue
+                       if t.deadline_at is not None and t.deadline_at <= now]:
+                self._queue.remove(tk)
+                self._shed(tk, now)
         rounds: Dict[int, list] = {}
         while self._queue:
             ti = self._place_tier()
@@ -420,6 +552,26 @@ class LanePool:
                 break
             tk = min(self._queue, key=lambda t: t.order)
             self._queue.remove(tk)
+            if self._slo is not None and tk.deadline_at is not None:
+                # Plan against the cost model: admit, relax epsilon along
+                # Eq. 13 to the largest rung that fits, or shed.
+                plan = self._slo.plan(
+                    func=tk.func, epsilon=tk.epsilon,
+                    deadline_at=tk.deadline_at, now=now,
+                    warm_n0=tk.warm_n0, warm_beta=tk.warm_beta)
+                if plan.action == "shed":
+                    self._shed(tk, now)
+                    continue
+                if plan.action == "degrade":
+                    tk.delivered_epsilon = plan.epsilon
+                    tk.degraded = True
+                    self.degraded += 1
+                    if tk.warm_n0 is not None:
+                        # Re-aim the warm jump at the relaxed bound.
+                        tk.warm_n0 = np.clip(
+                            predict_n0(tk.warm_beta, plan.epsilon,
+                                       n_min=self._spec["n_min"]),
+                            1, self._spec["n_cap"]).astype(np.int32)
             tier = self._tiers[ti]
             lane = next(i for i, t in enumerate(tier.occupant) if t is None)
             tk.spliced_s, tk.spliced_tick = now, self.ticks
@@ -427,16 +579,81 @@ class LanePool:
             tier.occupant[lane] = tk
             # The splice resets the watermark on the card; mirror it here.
             tier.filled_host[lane] = 0
+            if self._wfq is not None:
+                self._wfq.on_admit(tk.vft)
             rounds.setdefault(ti, []).append((lane, tk))
+        m = self.data.num_groups
         for ti, picks in rounds.items():
             tier = self._tiers[ti]
+            tks = [tk for _, tk in picks]
+            warm = np.asarray([tk.warm_n0 is not None for tk in tks])
+            self.warm_spliced += int(warm.sum())
             _splice(tier.state, tier.params, [lane for lane, _ in picks],
-                    np.stack([tk.key for _, tk in picks]),
-                    np.stack([tk.scale_row for _, tk in picks]),
-                    np.asarray([tk.epsilon for _, tk in picks]),
-                    np.asarray([tk.delta for _, tk in picks]),
-                    np.asarray([tk.fid for _, tk in picks]),
+                    np.stack([tk.key for tk in tks]),
+                    np.stack([tk.scale_row for tk in tks]),
+                    np.asarray([tk.eps_run for tk in tks]),
+                    np.asarray([tk.delta for tk in tks]),
+                    np.asarray([tk.fid for tk in tks]), warm,
+                    np.stack([np.zeros((m,), np.int32) if tk.warm_n0 is None
+                              else tk.warm_n0 for tk in tks]),
+                    np.stack([np.zeros((m + 1,), np.float32)
+                              if tk.warm_beta is None else tk.warm_beta
+                              for tk in tks]),
                     n_min=self._spec["n_min"])
+
+    # -- load shedding ------------------------------------------------------
+    def _pilot_table(self) -> torch.Tensor:
+        """The shed path's ``(m, n_pilot)`` slot tables under the current
+        sample key, built once per epoch."""
+        if self._pilot_tab is None:
+            self._pilot_tab = counter_slot_table(
+                self._sample_key, self._offsets[:-1],
+                self._group_sizes_host, self._pilot_n(), device=self.device)
+        return self._pilot_tab
+
+    def _pilot_n(self) -> int:
+        return int(min(self._spec["n_min"], self._spec["n_cap"]))
+
+    def _pilot_estimate(self, tk: _Ticket, B: int):
+        """One ``n_min``-wide stratified pilot ESTIMATE through the generic
+        bootstrap, gathered from the resident table on its device: ``(e,
+        theta (m, 1))`` as host values, one host read."""
+        tab = self._pilot_table()
+        n_pilot = tab.shape[1]
+        sample = self._values[tab.to(torch.int64)]             # (m, n, c)
+        sizes = torch.as_tensor(
+            np.minimum(self._group_sizes_host, n_pilot), device=self.device)
+        mask = (torch.arange(n_pilot, device=self.device)[None, :]
+                < sizes[:, None]).to(torch.float32)
+        e, theta = bootstrap.estimate_error(
+            estimators.get(tk.func), sample, mask,
+            torch.as_tensor(tk.scale_row, dtype=torch.float32,
+                            device=self.device),
+            tk.key, tk.delta, B=B, metric=self._spec["metric"])
+        host = torch.cat([e.reshape(1), theta.reshape(-1)]).cpu().numpy()
+        return float(host[0]), host[1:].reshape(theta.shape)
+
+    def _shed(self, tk: _Ticket, now: float) -> None:
+        """Answer ``tk`` at once from an n_min pilot: the response carries
+        the MEASURED pilot error as its delivered epsilon and the pilot's
+        reduced replicate count as its delivered B.  It never takes a
+        lane."""
+        pilot_B = max(PILOT_B_FLOOR, int(self._spec["B"]) // 4)
+        err, theta = self._pilot_estimate(tk, pilot_B)
+        n = np.minimum(self._group_sizes_host, self._pilot_n())
+        rows = int(n.sum())
+        self.results[tk.qid] = PoolResponse(
+            qid=tk.qid, func=tk.func, theta=theta, error=err,
+            success=bool(err <= tk.epsilon), failed=False, n=n,
+            iterations=0, rows_sampled=rows,
+            wall_time_s=time.perf_counter() - tk.submitted_s,
+            queue_wait_s=now - tk.submitted_s, ticks_in_lane=0, lane=-1,
+            tier=-1, spliced_tier_width=0, epsilon=tk.epsilon,
+            delivered_epsilon=max(tk.epsilon, err), delivered_B=pilot_B,
+            shed=True, tenant=tk.tenant)
+        self.shed += 1
+        self.retired += 1
+        self._retired_rows += rows
 
     def _harvest(self) -> int:
         """Retire finished lanes; returns the number retired this sync."""
@@ -477,7 +694,16 @@ class LanePool:
                     ticks_in_lane=self.ticks - t.spliced_tick,
                     lane=ti * self.tier_lanes + lane, tier=ti,
                     spliced_tier_width=t.spliced_width,
-                    beta=beta[lane].copy())
+                    beta=beta[lane].copy(), warm=t.warm_n0 is not None,
+                    epsilon=t.epsilon, delivered_epsilon=t.eps_run,
+                    delivered_B=int(self._spec["B"]), degraded=t.degraded,
+                    migrations=t.migrations, tenant=t.tenant)
+                if self._slo is not None:
+                    # Teach the cost model: the bound the lane ran at, how
+                    # wide it grew, how long it stayed resident.
+                    self._slo.cost.observe_retirement(
+                        t.func, t.eps_run, int(filled[lane].max()),
+                        self.ticks - t.spliced_tick)
                 tier.occupant[lane] = None
                 self.retired += 1
                 self._retired_rows += rows
@@ -515,7 +741,8 @@ class LanePool:
                 rows_sampled=rows, wall_time_s=now - blk.submitted_s,
                 queue_wait_s=0.0,
                 ticks_in_block=self.ticks - blk.admitted_tick,
-                beta=host[8 * G:].reshape(G, -1).astype(np.float32))
+                beta=host[8 * G:].reshape(G, -1).astype(np.float32),
+                warm=blk.warm)
             self.retired += 1
             self.grouped_retired += 1
             self._retired_rows += rows
@@ -524,17 +751,57 @@ class LanePool:
             del self._blocks[qid]
         return len(finished)
 
+    def _maybe_migrate(self) -> None:
+        """Cross-tier migration: when ONE straggler's watermark drives its
+        tier's ESTIMATE bucket above what its tier-mates need, move it into
+        a tier already riding that bucket (or an empty one).  A full row
+        copy (:func:`_migrate`), so its trajectory is the one it would have
+        had in place; at most one move a round."""
+        if not self.migrate_enabled:
+            return
+        for si, src in enumerate(self._tiers):
+            occ = [(int(src.filled_host[i].max()), i)
+                   for i, tk in enumerate(src.occupant) if tk is not None]
+            if len(occ) < 2:
+                continue
+            occ.sort(reverse=True)
+            (w1, lane1), (w2, _) = occ[0], occ[1]
+            if self.bucket_of(w1) <= self.bucket_of(w2):
+                continue   # the straggler does not drive the bucket alone
+            for di, dst in enumerate(self._tiers):
+                if di == si or dst.busy == self.tier_lanes:
+                    continue
+                if dst.busy and self.bucket_of(dst.width) \
+                        < self.bucket_of(w1):
+                    continue   # would widen the destination's bucket
+                dst_lane = next(i for i, t in enumerate(dst.occupant)
+                                if t is None)
+                _migrate(src.state, src.params, dst.state, dst.params,
+                         lane1, dst_lane)
+                tk = src.occupant[lane1]
+                src.occupant[lane1] = None
+                dst.occupant[dst_lane] = tk
+                dst.filled_host[dst_lane] = src.filled_host[lane1]
+                src.filled_host[lane1] = 0
+                tk.migrations += 1
+                self.migrations += 1
+                return
+
     def tick(self) -> int:
         """One scheduling round: refill, run ``ticks_per_sync`` ticks per
-        busy tier and per resident block (one dispatch each), harvest.
-        Returns busy lanes + blocks."""
+        busy tier and per resident block (one dispatch each), harvest, feed
+        the cost model, maybe migrate a straggler.  Returns busy lanes +
+        blocks."""
+        t0 = time.perf_counter()
         self._maybe_rotate()
         self._refill()
         ran = False
+        round_rung = 0
         for tier in self._tiers:
             busy = tier.busy
             if not busy:
                 continue
+            round_rung = max(round_rung, tier.width)
             tier.state = fused_step(
                 self._values, self._offsets, tier.state, tier.params,
                 num_ticks=self.ticks_per_sync, **self._spec)
@@ -555,6 +822,12 @@ class LanePool:
         self.ticks += self.ticks_per_sync
         self._harvest()
         self._harvest_blocks()
+        if self._slo is not None:
+            # The harvest's host read closed the round: the wall time covers
+            # dispatch and sync.
+            self._slo.cost.observe_round(
+                time.perf_counter() - t0, self.ticks_per_sync, round_rung)
+        self._maybe_migrate()
         return self.busy_lanes + self.busy_blocks
 
     def drain(self, max_ticks: int = 100_000) -> List[PoolResponse]:
@@ -600,9 +873,16 @@ class LanePool:
         for tier in self._tiers:
             tier.params = tier.params._replace(slot_idx=slot_idx)
         self._gtables = None
+        self._pilot_tab = None
         self.sample_epochs += 1
 
     # -- accounting ---------------------------------------------------------
+    def bucket_of(self, watermark: int) -> int:
+        """The ESTIMATE bucket width a lane with ``watermark`` filled rows
+        rides at -- what placement and migration minimize."""
+        widths = bucket_ladder(self._spec["n_cap"], self._spec["n_max"])
+        return next((w for w in widths if watermark <= w), widths[-1])
+
     def stats(self) -> Dict[str, float]:
         cap = max(self.ticks * self.lanes, 1)
         resident = sum(
@@ -631,4 +911,8 @@ class LanePool:
             "rows_per_tick": rows_gathered / max(self.ticks, 1),
             "sample_epochs": self.sample_epochs,
             "pending_rotation": self._pending_sample_key is not None,
+            "warm_spliced": self.warm_spliced,
+            "shed": self.shed,
+            "degraded": self.degraded,
+            "migrations": self.migrations,
         }

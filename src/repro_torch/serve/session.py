@@ -14,7 +14,20 @@ func group), LOOP (one dispatch per query) and HOST: the host engine
 (:class:`~repro_torch.aqp.engine.AQPEngine`) for everything the fused
 program cannot run -- linf/l1/lp/diff/order metrics, relative bounds,
 predicates, quantiles, min/max, regressions, and GROUP BY clauses a pool
-block cannot serve.  WARM requests belong to a later slice.
+block cannot serve.
+
+With ``warm_cache`` on, each request is looked up at submit
+(:class:`~.warm_cache.WarmCache`): a bit-identical repeat is answered from
+the cache at ``poll()`` with zero dispatches and zero kernel launches; a
+coefficient hit takes the WARM route, a pool lane (or GROUP BY block)
+started from the cached prediction.  Degraded and shed answers, failed runs
+and runs with a pinned key teach the cache nothing.
+
+``degrade``/``wfq``/``tenant_weights``/``migrate`` arm the pool's overload
+policies (:mod:`.slo`); with ``degrade`` the planner sends every
+deadline-carrying fusable request to the pool, where it can be degraded or
+shed.  Responses carry the delivered contract (``delivered_epsilon``,
+``delivered_B``, ``degraded``, ``shed``).
 
 Sample reuse: one resident ``SampleStore`` per dataset, shared by the host
 engine and every HOST request, and one ``sample_key`` per epoch pinning the
@@ -41,7 +54,8 @@ from ..core.fused import fused_l2miss_batch
 from ..core.sampling import GroupedData, SampleStore
 from ..kernels import resolve_use_kernel
 from .lane_pool import GroupPoolResponse, LanePool
-from .planner import Planner, Route, fusable
+from .planner import Planner, Route, fusable, grouped_fusable
+from .warm_cache import CachedAnswer, WarmCache, WarmEntry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +83,14 @@ class SessionResponse:
     deadline_s: Optional[float] = None
     slo_met: Optional[bool] = None      # None when no deadline was set
     epsilon: Optional[float] = None     # requested bound
+    # The delivered contract under overload: a degraded answer ran at
+    # ``delivered_epsilon > epsilon``, a shed one is an n_min pilot whose
+    # delivered epsilon is its measured error; ``error <= delivered_epsilon``
+    # either way, at the request's delta.
+    delivered_epsilon: Optional[float] = None  # bound actually satisfied
+    delivered_B: Optional[int] = None          # replicates actually run
+    degraded: bool = False
+    shed: bool = False
     # GROUP BY requests: ``theta``/``n`` hold one row per group,
     # ``error``/``success`` the summary (max over groups / the conjunction),
     # and the per-group quantiles and verdicts land here.
@@ -77,11 +99,25 @@ class SessionResponse:
     group_success: Optional[np.ndarray] = None   # (G,)
 
 
+def _request_eps(q: Query) -> float:
+    """The bound a cached answer is keyed on: the absolute epsilon, the
+    relative one, or 1.0 for the parameterless order metric (the bound's
+    kind is in the signature's shape, so the three never collide)."""
+    if q.metric == "order":
+        return 1.0
+    if q.epsilon is not None:
+        return float(q.epsilon)
+    return float(q.epsilon_rel)
+
+
 @dataclasses.dataclass
 class _InFlight:
     ticket: SessionTicket
     request: Request
     key: Optional[np.ndarray]           # explicit bootstrap key, if any
+    sig: Optional[tuple] = None         # cache signature (None: uncacheable)
+    warm_n0: Optional[np.ndarray] = None    # predicted n* of a warm hit
+    warm_beta: Optional[np.ndarray] = None  # its cached coefficients
 
 
 def _later(what: str):
@@ -100,16 +136,12 @@ class AQPSession:
                  planner: Optional[Planner] = None,
                  pool_tiers: "int | str" = "auto",
                  data_shards: int = 1, mesh=None,
-                 warm_cache=False, degrade: bool = False, wfq: bool = False,
+                 warm_cache: "bool | WarmCache" = False,
+                 degrade: bool = False, wfq: bool = False,
                  tenant_weights: Optional[Dict[str, float]] = None,
                  migrate: bool = False, max_degrade: float = 8.0):
-        if warm_cache:
-            raise _later("the warm cache (item 11)")
         if data_shards != 1 or mesh is not None:
             raise _later("the sharded pool (item 14)")
-        if degrade or wfq or tenant_weights is not None or migrate:
-            raise _later("SLO scheduling (item 12)")
-        del max_degrade
         self.data = data
         self.store = SampleStore(data, seed=seed)
         self.engine = AQPEngine(data, B=B, n_min=n_min, n_max=n_max,
@@ -119,7 +151,13 @@ class AQPSession:
         self.max_iters, self.n_cap = max_iters, n_cap
         self.seed = seed
         self.use_kernel = resolve_use_kernel(use_kernel, data.device)
-        self.planner = planner if planner is not None else Planner()
+        self.degrade = bool(degrade)
+        self.wfq = bool(wfq)
+        self.tenant_weights = tenant_weights
+        self.migrate = bool(migrate)
+        self.max_degrade = float(max_degrade)
+        self.planner = (planner if planner is not None
+                        else Planner(slo_native=self.degrade))
         self.pool_tiers = pool_tiers
         self.key = keylib.prng_key(seed)
         self._m = data.num_groups
@@ -133,6 +171,13 @@ class AQPSession:
         self._results: Dict[int, SessionResponse] = {}  # rid -> response
         self._pool: Optional[LanePool] = None
         self._pool_rids: Dict[int, int] = {}            # pool qid -> rid
+        # The warm cache is opt-in: it changes how a repeat is served.
+        if isinstance(warm_cache, WarmCache):
+            self.cache: Optional[WarmCache] = warm_cache
+        else:
+            self.cache = WarmCache() if warm_cache else None
+        self.warm_verify_failures = 0   # warm runs that needed > 1 iteration
+        self.cache_served = 0           # exact-answer replays
         self._fused_rows = 0
         self.fused_dispatches = 0
         self.submitted = 0
@@ -163,12 +208,72 @@ class AQPSession:
             raise ValueError(f"request id {request.rid} already submitted")
         ticket = SessionTicket(rid=request.rid,
                                submitted_s=time.perf_counter())
-        self._inflight[request.rid] = _InFlight(
-            ticket=ticket, request=request,
-            key=None if key is None else keylib.as_key(key))
+        entry = _InFlight(ticket=ticket, request=request,
+                          key=None if key is None else keylib.as_key(key))
+        self._inflight[request.rid] = entry
         self.submitted += 1
+        # A pinned key is a replay contract the cache must not alias.
+        if self.cache is not None and entry.key is None \
+                and self._cache_resolve(entry):
+            return ticket       # exact replay: answered, zero dispatches
         self._arrivals.append(request.rid)
         return ticket
+
+    def _cache_resolve(self, entry: _InFlight) -> bool:
+        """Submit-time lookup.  True when the request was answered outright
+        (a bit-identical repeat, replayed); otherwise a warm hit annotates
+        the entry with its predicted ``n0`` and coefficients."""
+        q = entry.request.query
+        entry.sig = self.cache.signature(
+            q, num_groups=self._m if q.group_by else None)
+        if entry.sig is None:
+            return False        # opaque callable predicate
+        kind, ce = self.cache.lookup(entry.sig, epsilon=_request_eps(q))
+        if kind == "exact":
+            a = ce.answer
+            self.cache_served += 1
+            # No rows were sampled: the replay does not count toward the
+            # reuse epoch.
+            self._complete(
+                entry, theta=a.theta.copy(), error=a.error,
+                success=a.success, n=a.n.copy(), wall_time_s=0.0,
+                queue_wait_s=0.0, route=Route.WARM, rows_sampled=0,
+                count_epoch=False,
+                group_error=None if a.group_error is None
+                else a.group_error.copy(),
+                group_success=None if a.group_success is None
+                else a.group_success.copy())
+            return True
+        if kind == "warm" and (fusable(entry.request)
+                               or grouped_fusable(entry.request)):
+            entry.warm_n0 = self.cache.predict_n0(
+                ce, epsilon=float(q.epsilon), n_min=self.n_min)
+            entry.warm_beta = np.asarray(ce.beta, np.float32).copy()
+        return False
+
+    def _cache_insert(self, entry: _InFlight, *, beta, n, theta, error,
+                      success: bool, failed: bool, iterations: int,
+                      group_error=None, group_success=None) -> None:
+        """Teach the cache one completed run.  Skipped for pinned-key runs
+        (no signature), failed or unsuccessful runs, and runs whose
+        signature predates the current epoch (a rotation fired while they
+        were in flight)."""
+        if (self.cache is None or entry.sig is None or failed
+                or not success or entry.sig[0][0] != self.cache.epoch):
+            return
+        n = np.asarray(n)
+        b = (np.zeros(n.shape[0] + 1, np.float32) if beta is None
+             else np.asarray(beta, np.float32).copy())
+        eps = _request_eps(entry.request.query)
+        self.cache.insert(entry.sig, WarmEntry(
+            beta=b, n_star=n.copy(), iterations=int(iterations), epsilon=eps,
+            answer=CachedAnswer(
+                theta=np.asarray(theta).copy(), error=float(error),
+                success=True, n=n.copy(), epsilon=eps,
+                group_error=None if group_error is None
+                else np.asarray(group_error).copy(),
+                group_success=None if group_success is None
+                else np.asarray(group_success).copy())))
 
     def poll(self, ticket: Union[SessionTicket, int]
              ) -> Optional[SessionResponse]:
@@ -229,6 +334,13 @@ class AQPSession:
             "pool_rebuilds": self.pool_rebuilds,
             "sample_epoch": self._epoch_counter,
         }
+        if self.cache is not None:
+            out["cache_hits"] = self.cache.hits
+            out["cache_misses"] = self.cache.misses
+            out["cache_evictions"] = self.cache.evictions
+            out["cache_served"] = self.cache_served
+            out["warm_verify_failures"] = self.warm_verify_failures
+            out["warm_cache"] = self.cache.stats()
         if self._pool is not None:
             out["pool"] = self._pool.stats()
         return out
@@ -239,6 +351,10 @@ class AQPSession:
         self._queries_in_epoch = 0
         self._sample_key = keylib.fold_in(self._sample_root,
                                           self._epoch_counter)
+        if self.cache is not None:
+            # Entries were learned under the old slot->row binding; the new
+            # epoch also keeps in-flight runs of the old one from inserting.
+            self.cache.rotate_epoch()
         if self._pool is not None:
             # Deferred: applied now if the pool is idle, else at its next
             # idle point -- never under a resident prefix.
@@ -247,7 +363,10 @@ class AQPSession:
     def _complete(self, entry: _InFlight, *, theta, error, success, n,
                   wall_time_s: float, queue_wait_s: float, route: Route,
                   rows_sampled: int, now: Optional[float] = None,
-                  group_error=None, group_success=None) -> None:
+                  count_epoch: bool = True, group_error=None,
+                  group_success=None, delivered_epsilon=None,
+                  delivered_B=None, degraded: bool = False,
+                  shed: bool = False) -> None:
         now = time.perf_counter() if now is None else now
         latency = now - entry.ticket.submitted_s
         ddl = entry.request.deadline_s
@@ -258,10 +377,14 @@ class AQPSession:
             rows_sampled=rows_sampled, deadline_s=ddl,
             slo_met=None if ddl is None else latency <= ddl,
             epsilon=entry.request.query.epsilon,
+            delivered_epsilon=delivered_epsilon, delivered_B=delivered_B,
+            degraded=degraded, shed=shed,
             group_by=bool(entry.request.query.group_by),
             group_error=group_error, group_success=group_success)
         del self._inflight[entry.request.rid]
         self.completed += 1
+        if not count_epoch:
+            return          # a cache replay sampled nothing
         self.planner.observe_completion()
         self._queries_in_epoch += 1
         if self._queries_in_epoch >= self.reshuffle_every:
@@ -275,7 +398,9 @@ class AQPSession:
             n_max=self.n_max, max_iters=self.max_iters, n_cap=self.n_cap,
             use_kernel=self.use_kernel, seed=self.seed,
             sample_key=self._sample_key, ticks_per_sync=ticks_per_sync,
-            tiers=self.pool_tiers)
+            tiers=self.pool_tiers, degrade=self.degrade, wfq=self.wfq,
+            tenant_weights=self.tenant_weights, migrate=self.migrate,
+            max_degrade=self.max_degrade)
         self.planner.built_pool(lanes)
         return pool
 
@@ -311,9 +436,11 @@ class AQPSession:
         pool = self._pool
         pool_busy = pool is not None and bool(
             pool.busy_lanes or pool.busy_blocks or pool.queue_depth)
+        # Warm hits are short-lived lanes: kept out of the planner's tuning
+        # windows, so a burst of repeats does not trigger pool rebuilds.
         n_fus = 0
         for e in wave:
-            if fusable(e.request):
+            if fusable(e.request) and e.warm_n0 is None:
                 n_fus += 1
                 self.planner.observe_request(e.request)
         self.planner.observe_backlog(
@@ -321,11 +448,14 @@ class AQPSession:
         groups: Dict[Route, List[_InFlight]] = {}
         for e in wave:
             route = self.planner.route(
-                e.request, pending_fusable=n_fus, pool_busy=pool_busy)
+                e.request, pending_fusable=n_fus, pool_busy=pool_busy,
+                warm=e.warm_n0 is not None)
             groups.setdefault(route, []).append(e)
         try:
-            if Route.POOL in groups:
-                self._admit_pool(groups[Route.POOL])
+            # WARM rides the pool: a warm lane or block.
+            pooled = groups.get(Route.POOL, []) + groups.get(Route.WARM, [])
+            if pooled:
+                self._admit_pool(pooled)
             if Route.BATCHED in groups:
                 self._run_batched(groups[Route.BATCHED])
             if Route.LOOP in groups:
@@ -364,12 +494,15 @@ class AQPSession:
             if req.query.group_by:
                 # A grouped request is admitted at once as a lane block: no
                 # ticket queue, no priority/deadline reorder.
-                qid = pool.submit_group(req.query, key=key)
+                qid = pool.submit_group(req.query, key=key,
+                                        warm_n0=e.warm_n0,
+                                        warm_beta=e.warm_beta)
             else:
                 deadline_at = (None if req.deadline_s is None
                                else e.ticket.submitted_s + req.deadline_s)
                 qid = pool.submit(req.query, key=key, priority=req.priority,
-                                  deadline_at=deadline_at)
+                                  deadline_at=deadline_at, warm_n0=e.warm_n0,
+                                  warm_beta=e.warm_beta, tenant=req.tenant)
             self._pool_rids[qid] = req.rid
 
     def _harvest_pool(self) -> None:
@@ -384,17 +517,38 @@ class AQPSession:
             if rid is None:
                 continue        # foreign ticket (pool shared out-of-band)
             entry = self._inflight[rid]
+            warm = entry.warm_n0 is not None
+            grouped = isinstance(r, GroupPoolResponse)
+            degraded = not grouped and r.degraded
+            shed = not grouped and r.shed
+            its = int(np.max(r.iterations)) if grouped else int(r.iterations)
+            if warm and not shed and its > 1:
+                # The prediction did not verify in one tick; the lane fell
+                # through to the extend loop (still correct).
+                self.warm_verify_failures += 1
+            err = float(np.max(r.error)) if grouped else float(r.error)
+            if not (degraded or shed):
+                # A degraded run met only the relaxed bound, a shed one only
+                # its pilot's: neither may answer the requested epsilon.
+                self._cache_insert(
+                    entry, beta=r.beta, n=r.n, theta=r.theta, error=err,
+                    success=bool(r.success), failed=bool(r.failed),
+                    iterations=its,
+                    group_error=r.error if grouped else None,
+                    group_success=r.group_success if grouped else None)
             wall = now - entry.ticket.submitted_s
             resident = r.wall_time_s - r.queue_wait_s
-            grouped = isinstance(r, GroupPoolResponse)
             self._complete(
-                entry, theta=r.theta,
-                error=float(np.max(r.error)) if grouped else float(r.error),
-                success=bool(r.success), n=r.n, wall_time_s=wall,
-                queue_wait_s=max(wall - resident, 0.0), route=Route.POOL,
+                entry, theta=r.theta, error=err, success=bool(r.success),
+                n=r.n, wall_time_s=wall,
+                queue_wait_s=max(wall - resident, 0.0),
+                route=Route.WARM if warm else Route.POOL,
                 rows_sampled=r.rows_sampled, now=now,
                 group_error=r.error if grouped else None,
-                group_success=r.group_success if grouped else None)
+                group_success=r.group_success if grouped else None,
+                delivered_epsilon=None if grouped else r.delivered_epsilon,
+                delivered_B=None if grouped else r.delivered_B,
+                degraded=degraded, shed=shed)
 
     # -- synchronous routes -------------------------------------------------
     def _dispatch_fused(self, func: str, queries: List[Query], keys):
@@ -425,8 +579,14 @@ class AQPSession:
         theta, err = res.theta.cpu().numpy(), res.error.cpu().numpy()
         succ, ns = res.success.cpu().numpy(), res.n.cpu().numpy()
         rows = res.rows_sampled.cpu().numpy()
+        betas, fails = res.beta.cpu().numpy(), res.failed.cpu().numpy()
+        its = res.iterations.cpu().numpy()
         for lane, e in enumerate(group):
             self._fused_rows += int(rows[lane])
+            self._cache_insert(
+                e, beta=betas[lane], n=ns[lane], theta=theta[lane],
+                error=float(err[lane]), success=bool(succ[lane]),
+                failed=bool(fails[lane]), iterations=int(its[lane]))
             self._complete(
                 e, theta=theta[lane], error=float(err[lane]),
                 success=bool(succ[lane]), n=ns[lane],
@@ -462,6 +622,11 @@ class AQPSession:
         if entry.request.query.group_by:
             return self._run_host_grouped(entry, t0)
         tr = self.engine.execute(entry.request.query)
+        beta = tr.info.get("beta") if isinstance(tr.info, dict) else None
+        self._cache_insert(
+            entry, beta=beta, n=tr.n, theta=tr.theta, error=tr.error,
+            success=bool(tr.success), failed=tr.status == "unrecoverable",
+            iterations=int(tr.iterations))
         self._complete(
             entry, theta=tr.theta, error=tr.error, success=tr.success,
             n=tr.n, wall_time_s=time.perf_counter() - t0, queue_wait_s=0.0,
@@ -476,9 +641,16 @@ class AQPSession:
         rows = int(res.rows_sampled.sum())
         self._fused_rows += rows
         self.fused_dispatches += 1
+        n = res.n.cpu().numpy()
+        self._cache_insert(
+            entry, beta=res.beta.cpu().numpy(), n=n, theta=theta,
+            error=float(gerr.max()), success=bool(gok.all()),
+            failed=bool(res.failed.cpu().numpy().any()),
+            iterations=int(res.iterations.max()),
+            group_error=gerr, group_success=gok)
         self._complete(
             entry, theta=theta, error=float(gerr.max()),
-            success=bool(gok.all()), n=res.n.cpu().numpy(),
+            success=bool(gok.all()), n=n,
             wall_time_s=time.perf_counter() - t0, queue_wait_s=0.0,
             route=Route.HOST, rows_sampled=rows,
             group_error=gerr, group_success=gok)

@@ -179,6 +179,6 @@ def test_lane_boot_seed_and_tick_seeds_match():
         jnp.arange(m, dtype=jnp.uint32)[None, :],
         jnp.uint32(jfused._SALT_GROUP)))
     params = tfused.LaneParams(*([None] * 4), torch.as_tensor(base_t),
-                               None, None)
+                               *([None] * 5))
     got = tfused._bootstrap_seeds(params, torch.as_tensor(k), m).numpy()
     assert np.array_equal(got.astype(np.uint32), want)

@@ -172,20 +172,25 @@ def test_pool_lane_equals_solo_run_bit_exact(cont):
 
 
 def test_later_slices_raise(cont):
+    """Only the sharded pool (ROADMAP Queue 1 item 14) is left to port: the
+    warm and SLO options are accepted, warm rows come both or neither."""
     td = cont[1]
-    with pytest.raises(NotImplementedError):
-        LanePool(td, degrade=True)
     with pytest.raises(NotImplementedError):
         LanePool(td, data_shards=2)
     with pytest.raises(NotImplementedError):
-        AQPSession(td, warm_cache=True)
+        AQPSession(td, data_shards=2)
+    LanePool(td, lanes=2, degrade=True, wfq=True, tenant_weights={"a": 2.0},
+             migrate=True, **SPEC)
+    AQPSession(td, warm_cache=True, degrade=True, wfq=True,
+               tenant_weights={"a": 2.0}, migrate=True, **SESSION_KW)
     pool = LanePool(td, lanes=2, **SPEC)
-    with pytest.raises(NotImplementedError):
-        pool.submit(Query(func="avg", epsilon=0.1), warm_n0=np.ones(2),
-                    warm_beta=np.ones(3))
-    with pytest.raises(NotImplementedError):
-        pool.submit_group(Query(func="avg", epsilon=0.1, group_by=True),
-                          warm_n0=np.ones(2), warm_beta=np.ones((2, 2)))
+    pool.submit(Query(func="avg", epsilon=0.1), warm_n0=np.full(2, 400),
+                warm_beta=np.ones(3))
+    pool.submit_group(Query(func="avg", epsilon=0.1, group_by=True),
+                      warm_n0=np.full(2, 400), warm_beta=np.ones((2, 2)))
+    assert pool.warm_spliced == 1          # the block; the lane at refill
+    with pytest.raises(ValueError):
+        pool.submit(Query(func="avg", epsilon=0.1), warm_n0=np.ones(2))
     with pytest.raises(ValueError):
         pool.submit(Query(func="median", epsilon=0.1))
     sess = AQPSession(td, **SESSION_KW)

@@ -170,9 +170,13 @@ def test_pool_holds_rotation_while_a_block_is_resident(data):
 
 def test_pool_refuses_what_blocks_cannot_serve(data):
     pool = LanePool(data[1], lanes=2, **POOL_KW)
-    with pytest.raises(NotImplementedError):
+    # A warm block is accepted; its rows come both or neither.
+    pool.submit_group(Query(func="avg", epsilon=EPS, group_by=True),
+                      warm_n0=np.full(G, 400), warm_beta=np.ones((G, 2)))
+    assert pool.busy_blocks == 1 and pool.warm_spliced == 1
+    with pytest.raises(ValueError):
         pool.submit_group(Query(func="avg", epsilon=EPS, group_by=True),
-                          warm_n0=np.ones(G), warm_beta=np.ones((G, 2)))
+                          warm_beta=np.ones((G, 2)))
     with pytest.raises(ValueError):
         pool.submit_group(Query(func="median", epsilon=EPS, group_by=True))
     assert not pool.supports_grouped(Query(func="avg", epsilon=EPS,
