@@ -117,13 +117,32 @@ non-zero and nothing falls back to the CPU:
    requests, then a burst of 32 with deadlines at 4x, 0.5x and 0.05x the
    priming wave's median latency: every error within its delivered
    epsilon, shed answers without an iteration, the 4x requests neither
-   shed nor degraded; then the result lines: a JSON object of kernel
-   measurements, then ``{"ok": true, "device": {...}}`` as the last line.
+   shed nor degraded;
+17. the sharded path at the CPU tests' size (tests/test_torch_shard.py's
+   table, n_cap = 4096): ``ShardLayout`` slot tables, solo sharded
+   ``fused_l2miss`` at S = 2 and 4 and a ``mesh=False`` pool at S = 4 card
+   == cpu (integers exact, theta and error bit-equal), each pool lane == its
+   solo sharded run on the card, ``sharded_group_stats`` (segment-aggregate
+   kernel) card vs cpu, every Poisson-bootstrap call of the phase replayed
+   through its plain version on the card bit for bit; then 4 gloo ranks
+   (this script with ``--mesh-rank``, one process each) sharing the card
+   drain the same pool over a ``DataMesh``, bit-equal to ``mesh=False``,
+   one collective a tick;
+18. sharded serve at real size: phase 6's table and 16 requests through
+   ``AQPSession(data_shards=4, mesh=False)`` (forced POOL, the reference
+   defaults, so a segment holds 16 384 slots): every request succeeds with
+   error <= epsilon, 14 of 16 within epsilon of numpy; then 2 of phase 7's
+   GROUP BY requests on the TAX table take the HOST route; then the result
+   lines: a JSON object of kernel measurements, then ``{"ok": true,
+   "device": {...}}`` as the last line.
 
-Phases 6, 7, 12, 14 and 16 are the main paths: every kernel's launch count
-is set to 0 just before each and read just after; the launches of the
+Phases 6, 7, 12, 14, 16 and 18 are the main paths: every kernel's launch
+count is set to 0 just before each and read just after; the launches of the
 other phases (the comparisons with the plain versions) count nowhere, but
-phase 15's are printed and kept in the kernels line beside phase 16's.
+phase 15's and phase 17's are printed and kept in the kernels line.
+
+``python3 chip_smoke.py --mesh-rank RANK WORLD STORE OUT`` runs one rank of
+phase 17's mesh; phase 17 starts them itself.
 """
 import collections
 import dataclasses
@@ -967,6 +986,7 @@ def phase_serve(data):
     check(pool_launches > 0 and loop_launches > 0,
           "the kernel never launched on the main path")
     lat = np.asarray([r.latency_s for r in res]) * 1e3
+    p50 = float(np.percentile(lat, 50))
     st = sess.stats()
     print(f"  serve: wall {wall:.3f} s, latency p50 {np.percentile(lat, 50):.2f}"
           f" ms p99 {np.percentile(lat, 99):.2f} ms, dispatches "
@@ -976,7 +996,7 @@ def phase_serve(data):
     print(f"  loop singleton: wall {loop_wall:.3f} s, n={lres.n.tolist()}, "
           f"kernel launches {loop_launches}")
     print(f"  launches by bucket width: {dict(sorted(widths.items()))}")
-    return add_counts(pool_counts, loop_counts), widths, calls
+    return add_counts(pool_counts, loop_counts), widths, calls, p50
 
 
 # ---------------------------------------------------------------------------
@@ -2286,6 +2306,299 @@ def phase_overload_serve(data):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the sharded path, the card against the CPU
+# ---------------------------------------------------------------------------
+
+SHARD_KW = dict(B=60, n_min=100, n_max=256, max_iters=8, n_cap=1 << 12)
+SHARD_SOLO = [(2, "avg", 0.08, 3), (2, "std", 0.08, 5), (4, "avg", 0.06, 5),
+              (4, "var", 0.15, 3), (4, "std", 0.08, 3)]
+SHARD_POOL = [("avg", 0.25), ("var", 0.3), ("avg", 0.08), ("std", 0.08),
+              ("avg", 0.06), ("var", 0.15)]
+MESH_RANKS = 4
+
+
+def _shard_table(device):
+    """tests/test_torch_shard.py's table: 2 groups of 12 000 rows."""
+    from repro_torch.data import make_grouped
+    return make_grouped(["normal", "exp"], 12_000, seed=3, biases=[4.0, 2.0],
+                        device=device)
+
+
+def _shard_pool(d, mesh):
+    """The 4-shard pool of phase 17 (4 lanes in 2 tiers, so the queue
+    refills mid-drain): its responses in submit order, the pool and the
+    query keys."""
+    from repro_torch.aqp.query import Query
+    from repro_torch.core import keys
+    from repro_torch.serve import LanePool
+
+    pool = LanePool(d, lanes=4, tiers=2, data_shards=MESH_RANKS, mesh=mesh,
+                    seed=0, sample_key=keys.prng_key(9), **SHARD_KW)
+    qkeys = keys.split(keys.prng_key(4), len(SHARD_POOL))
+    qids = [pool.submit(Query(func=f, epsilon=e), key=qkeys[i])
+            for i, (f, e) in enumerate(SHARD_POOL)]
+    out = {r.qid: r for r in pool.drain()}
+    return [out[q] for q in qids], pool, qkeys
+
+
+def _answers(rs) -> dict:
+    return {"n": np.stack([np.ravel(r.n) for r in rs]),
+            "it": np.asarray([r.iterations for r in rs]),
+            "err": np.asarray([r.error for r in rs], np.float32),
+            "theta": np.stack([np.ravel(r.theta) for r in rs]
+                              ).astype(np.float32)}
+
+
+def mesh_rank_main(argv) -> None:
+    """One rank of phase 17's mesh: a gloo group of ``MESH_RANKS`` processes
+    sharing the card drains :func:`_shard_pool` and writes its answers,
+    collectives and launches to an ``.npz``."""
+    import torch.distributed as dist
+    from repro_torch.core.mesh import make_data_mesh
+
+    rank, world, store, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    mesh = make_data_mesh(world, device="cuda")
+    d = _shard_table("cuda")
+    reset_counts()
+    rs, pool, _ = _shard_pool(d, mesh)
+    torch.cuda.synchronize()
+    np.savez(out, **_answers(rs), gathers=mesh.gathers,
+             ticks=pool.dispatches * pool.ticks_per_sync,
+             launches=read_counts()["poisson_bootstrap"],
+             shard_rows=np.asarray(pool.stats()["shard_rows"]))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _run_mesh_ranks(tmp: Path) -> list:
+    """Launch the ranks (this script with ``--mesh-rank``), all sharing the
+    card; every process is stopped before this returns."""
+    import os
+
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+         str(r), str(MESH_RANKS), str(tmp / "store"), str(tmp / f"r{r}.npz")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(MESH_RANKS)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=300)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"mesh rank {r} failed: {errs[r][-3000:]}")
+    return [dict(np.load(tmp / f"r{r}.npz")) for r in range(MESH_RANKS)]
+
+
+def phase_sharded_vs_cpu():
+    """The sharded layout's tables, solo sharded ``fused_l2miss`` at S = 2
+    and 4, and a ``mesh=False`` pool at S = 4 card == CPU (integers exact,
+    theta and error bit-equal); a pool lane == its solo run on the card;
+    ``sharded_group_stats`` (row 3) card vs CPU; every row-1 call replayed
+    through the plain version on the card bit for bit; 4 gloo ranks sharing
+    the card drain the pool bit-equal to ``mesh=False``, one collective a
+    tick.  Returns the launches of the card's runs (the ranks' apart)."""
+    import tempfile
+
+    from repro_torch.aqp import distributed as D
+    from repro_torch.core import keys
+    from repro_torch.core.fused import fused_l2miss
+    from repro_torch.core.sampling import ShardLayout, sharded_slot_tables
+    from repro_torch.kernels.poisson_bootstrap import ops, ref
+
+    dc, dh = _shard_table("cuda"), _shard_table("cpu")
+    skey = keys.prng_key(9)
+    for S in (2, 4):
+        lay = ShardLayout.build(dc.offsets, n_cap=SHARD_KW["n_cap"],
+                                num_shards=S)
+        for local in (True, False):
+            tc, th = (sharded_slot_tables(skey, lay, local_rows=local,
+                                          device=dev) for dev in ("cuda",
+                                                                  "cpu"))
+            check(torch.equal(tc.cpu(), th),
+                  f"sharded slot tables card != cpu (S={S}, local={local})")
+    print("  sharded slot tables (S = 2, 4; local and global rows): card == "
+          "cpu")
+    calls = []
+    launch = ops.bootstrap_moments_masked
+
+    def recording(x, mask, seeds, B_, *, lane_active=None):
+        out = launch(x, mask, seeds, B_, lane_active=lane_active)
+        calls.append((x.clone(), mask.clone(), seeds.clone(), B_,
+                      None if lane_active is None else lane_active.clone(),
+                      out.clone()))
+        return out
+
+    ops.bootstrap_moments_masked = recording
+    reset_counts()
+    try:
+        for S, est, eps, k in SHARD_SOLO:
+            res = [fused_l2miss(d.values, d.offsets, np.ones(2, np.float32),
+                                keys.prng_key(k), eps, 0.05, sample_key=skey,
+                                est_name=est, data_shards=S, l=4, **SHARD_KW)
+                   for d in (dc, dh)]
+            _same_answer(res[0], res[1], f"sharded fused_l2miss S={S} {est}")
+            check(_bits_equal(*res), f"sharded fused_l2miss S={S} {est}: "
+                                     f"theta or error card != cpu")
+            print(f"  sharded fused_l2miss S={S} {est} eps={eps}: n="
+                  f"{res[0].n.tolist()} iters={int(res[0].iterations)} "
+                  f"success={bool(res[0].success)}; card == cpu bit-exact")
+        card, pool, qkeys = _shard_pool(dc, False)
+        cpu, _, _ = _shard_pool(dh, False)
+        for a, b in zip(card, cpu):
+            check(np.array_equal(a.n, b.n) and a.iterations == b.iterations
+                  and a.success == b.success
+                  and a.rows_sampled == b.rows_sampled
+                  and a.theta.tobytes() == b.theta.tobytes()
+                  and np.float32(a.error) == np.float32(b.error),
+                  f"sharded pool {a.func}: card != cpu")
+        for (f, e), k, r in zip(SHARD_POOL, qkeys, card):
+            solo = fused_l2miss(dc.values, dc.offsets, np.ones(2, np.float32),
+                                k, e, 0.05, sample_key=skey, est_name=f,
+                                data_shards=MESH_RANKS, l=pool._spec["l"],
+                                **SHARD_KW)
+            _same_lane(r, solo, f"sharded pool {f} eps={e}")
+        st = pool.stats()
+        print(f"  mesh=False pool S=4: {len(card)} answers card == cpu "
+              f"bit-exact, each == its solo sharded run on the card; "
+              f"ticks {st['ticks']}, shard rows {st['shard_rows']}")
+    finally:
+        ops.bootstrap_moments_masked = launch
+    rng = np.random.default_rng(0)
+    gid = rng.integers(0, 4, 40_000)
+    x = rng.standard_normal(40_000).astype(np.float32) + gid
+    gs = [D.sharded_group_stats(None, *D.shard_dataset(None, gid, x,
+                                                       device=dev), 4)
+          for dev in ("cuda", "cpu")]
+    for k in ("count", "min", "max"):
+        check(torch.equal(gs[0][k].cpu(), gs[1][k]),
+              f"sharded_group_stats {k} card != cpu")
+    for k in ("sum", "sumsq"):
+        check(np.allclose(_np(gs[0][k]), _np(gs[1][k]), rtol=1e-6, atol=0),
+              f"sharded_group_stats {k} card != cpu")
+    stats_bits = all(torch.equal(gs[0][k].cpu(), gs[1][k]) for k in gs[1])
+    counts = read_counts()
+    bad = 0
+    for x_, m_, s_, B_, act, out in calls:
+        plain = ref.bootstrap_moments_masked_ref(x_, m_, s_, B_,
+                                                 lane_active=act)
+        bad += not torch.equal(plain, out)
+    check(bad == 0, f"{bad} of {len(calls)} row-1 calls differ from the "
+                    f"plain version on the card")
+    print(f"  sharded_group_stats (row 3): card == cpu (bit-equal: "
+          f"{stats_bits}); {len(calls)} row-1 calls replayed through the "
+          f"plain version on the card, bit-exact")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        ranks = _run_mesh_ranks(Path(tmp))
+        wall = time.perf_counter() - t
+    ref_ans = _answers(card)
+    for r, got in enumerate(ranks):
+        for f in ("n", "it", "err", "theta"):
+            check(got[f].tobytes() == ref_ans[f].tobytes(),
+                  f"mesh rank {r}: {f} != the mesh=False pool on the card")
+        check(int(got["gathers"]) == int(got["ticks"]) > 0,
+              f"mesh rank {r}: {int(got['gathers'])} collectives for "
+              f"{int(got['ticks'])} ticks")
+        check(int(got["launches"]) > 0, f"mesh rank {r} never launched row 1")
+        check(got["shard_rows"].tolist() == st["shard_rows"],
+              f"mesh rank {r}: shard rows {got['shard_rows']}")
+    print(f"  mesh: {MESH_RANKS} gloo ranks sharing the card drain the pool "
+          f"bit-equal to mesh=False; {int(ranks[0]['gathers'])} collectives "
+          f"for {int(ranks[0]['ticks'])} ticks; row-1 launches a rank "
+          f"{[int(r['launches']) for r in ranks]}; {wall:.1f} s with start-up")
+    check(counts["poisson_bootstrap"] > 0 and counts["segment_aggregate"] > 0,
+          f"row 1 or row 3 never launched in phase 17: {counts}")
+    print(f"  launches on the card in phase 17: {counts}")
+    return counts, int(ranks[0]["launches"])
+
+
+# ---------------------------------------------------------------------------
+# phase 18: sharded serve at real size
+# ---------------------------------------------------------------------------
+
+def phase_sharded_serve(data, tax, p50_solo: float):
+    """Phase 6's 16 requests through ``AQPSession(data_shards=4,
+    mesh=False)``, forced POOL, on lineitem SF10 GROUP BY SHIPINSTRUCT, then
+    2 of phase 7's GROUP BY requests on the TAX table, which a sharded
+    session sends to the HOST route.  Returns the launches."""
+    from repro_torch.aqp.query import Query, Request
+    from repro_torch.serve import AQPSession, Planner, Route
+
+    reqs, exact = serve_requests(data)
+    sess = AQPSession(data, data_shards=4, mesh=False,
+                      planner=Planner(mode=Route.POOL, pool_lanes=8,
+                                      data_shards=4), **SERVE)
+    check(sess.use_kernel, "the session did not select the CUDA kernel")
+    reset_counts()
+    t0 = time.perf_counter()
+    for f, e in reqs:
+        sess.submit(Request(query=Query(func=f, epsilon=e)))
+    res = sess.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pool_counts = read_counts()
+    check(len(res) == 16, f"{len(res)} of 16 requests answered")
+    within = 0
+    for r, (f, e) in zip(res, reqs):
+        check(r.route is Route.POOL, f"request on route {r.route}")
+        check(r.success and r.error <= e,
+              f"sharded {f} eps={e:.4g}: success={r.success} "
+              f"error={r.error:.4g}")
+        dev = float(np.linalg.norm(r.theta.ravel() - exact[f]))
+        within += dev <= e
+        print(f"  {f:4s} eps={e:12.4f} error={r.error:12.4f} "
+              f"|theta-exact|={dev:12.4f} n={r.n.tolist()} "
+              f"latency={r.latency_s * 1e3:8.2f} ms")
+    lat = np.asarray([r.latency_s for r in res]) * 1e3
+    st = sess.stats()
+    pst = st["pool"]
+    print(f"  sharded serve (S=4, mesh=False): wall {wall:.3f} s, latency "
+          f"p50 {np.percentile(lat, 50):.2f} ms p99 "
+          f"{np.percentile(lat, 99):.2f} ms (phase 6 p50 {p50_solo:.2f} ms), "
+          f"pool rounds {pst['ticks']}, dispatches {st['fused_dispatches']}, "
+          f"shard rows {pst['shard_rows']}, rows touched "
+          f"{st['rows_touched']}, {within}/16 within epsilon of numpy; "
+          f"launches {pool_counts}")
+    check(within >= 14, f"only {within} of 16 answers within epsilon")
+    check(pool_counts["poisson_bootstrap"] > 0,
+          "the sharded serve never launched row 1")
+    greqs, gexact, _ = grouped_requests(tax)
+    grouped = [r[:2] for r in greqs if r[2]][:2]
+    gsess = AQPSession(tax, data_shards=4, mesh=False, **SERVE)
+    reset_counts()
+    t0 = time.perf_counter()
+    for f, e in grouped:
+        gsess.submit(Request(query=Query(func=f, epsilon=e, group_by=True)))
+    gres = gsess.drain()
+    torch.cuda.synchronize()
+    gwall = time.perf_counter() - t0
+    host_counts = read_counts()
+    gwithin = 0
+    for r, (f, e) in zip(gres, grouped):
+        check(r.route is Route.HOST and r.group_by,
+              f"sharded GROUP BY on route {r.route}")
+        check(r.success and bool((r.group_error <= e).all()),
+              f"sharded GROUP BY {f} eps={e:.4g}: errors {r.group_error}")
+        gwithin += int((np.abs(np.asarray(r.theta, np.float64) - gexact[f])
+                        <= e).sum())
+    print(f"  GROUP BY TAX on the sharded session: {len(gres)} requests on "
+          f"the HOST route, wall {gwall:.3f} s, {gwithin}/"
+          f"{9 * len(gres)} per-group answers within epsilon of numpy; "
+          f"launches {host_counts}")
+    check(host_counts["segment_bootstrap"] > 0,
+          "the sharded session's GROUP BY never launched row 2")
+    return add_counts(pool_counts, host_counts)
+
+
 def _lineitem(group_by: str):
     from repro_torch.data import make_lineitem
 
@@ -2302,6 +2615,9 @@ def _lineitem(group_by: str):
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: a CUDA card is required")
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
+        mesh_rank_main(sys.argv[2:])
+        return
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.poisson_bootstrap import ops as pb_ops
     from repro_torch.kernels.segment_agg import ops as seg_ops
@@ -2350,7 +2666,7 @@ def main() -> None:
     phase_card_vs_cpu()
     # -- phase 6 --
     print("phase 6: solo serve, lineitem SF10 GROUP BY SHIPINSTRUCT")
-    solo_counts, widths, pb_calls = phase_serve(data)
+    solo_counts, widths, pb_calls, p50_solo = phase_serve(data)
     # -- phase 7 --
     print("phase 7: grouped serve, lineitem SF10 GROUP BY TAX")
     grouped_counts, lengths, seg_calls = phase_grouped_serve(tax)
@@ -2401,7 +2717,15 @@ def main() -> None:
     launches = add_counts(launches, serve16)
     print(f"  launches in phase 16: warm {warm_counts}, overload "
           f"{over_counts}")
-    print(f"  launches on the main paths (phases 6 + 7 + 12 + 14 + 16): "
+    # -- phase 17 --
+    print("phase 17: the sharded path, card vs cpu at the CPU tests' size, "
+          "and a 4-rank mesh on the card")
+    shard_cpu_counts, mesh_rank_launches = phase_sharded_vs_cpu()
+    # -- phase 18 --
+    print("phase 18: sharded serve (S = 4), lineitem SF10")
+    shard_counts = phase_sharded_serve(data, tax, p50_solo)
+    launches = add_counts(launches, shard_counts)
+    print(f"  launches on the main paths (phases 6 + 7 + 12 + 14 + 16 + 18): "
           f"{launches}")
     print(f"  result rows: Poisson bootstrap at the solo serve's most used "
           f"width w={w_main}; segment bootstrap at L={L_main}; aggregate over "
@@ -2422,7 +2746,11 @@ def main() -> None:
         "host_serve_launches": host_counts["poisson_bootstrap"],
         "warm_slo_launches": {
             "phase15": warm_cpu_counts["poisson_bootstrap"],
-            "phase16": serve16["poisson_bootstrap"]}},
+            "phase16": serve16["poisson_bootstrap"]},
+        "sharded_launches": {
+            "phase17": shard_cpu_counts["poisson_bootstrap"],
+            "phase17_mesh_rank0": mesh_rank_launches,
+            "phase18": shard_counts["poisson_bootstrap"]}},
         {
         "name": "segment_bootstrap", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
@@ -2436,7 +2764,10 @@ def main() -> None:
                                    for k, v in seg_serve.items()},
         "serve_replay": seg_replay, "warm_slo_launches": {
             "phase15": warm_cpu_counts["segment_bootstrap"],
-            "phase16": serve16["segment_bootstrap"]}}, {
+            "phase16": serve16["segment_bootstrap"]},
+        "sharded_launches": {
+            "phase17": shard_cpu_counts["segment_bootstrap"],
+            "phase18": shard_counts["segment_bootstrap"]}}, {
         "name": "segment_aggregate", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",
         "replaces": "src/repro/kernels/segment_agg/kernel.py:37",
@@ -2449,7 +2780,10 @@ def main() -> None:
         "host_serve_launches": host_counts["segment_aggregate"],
         "exact_ms": host_agg["exact_ms"],
         "exact_graph_ms": host_agg["exact_graph_ms"],
-        "exact_call_wall_ms": host_agg["exact_wall_ms"]}, {
+        "exact_call_wall_ms": host_agg["exact_wall_ms"],
+        "sharded_launches": {
+            "phase17": shard_cpu_counts["segment_aggregate"],
+            "phase18": shard_counts["segment_aggregate"]}}, {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:33",

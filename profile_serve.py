@@ -11,6 +11,8 @@ ops.  The phases (TPC-H lineitem SF10 resident on the card, a forced-POOL
   SHIPINSTRUCT;
 * ``--grouped``: the grouped serve, 8 GROUP BY requests as lane blocks and
   4 solo requests in one pool, GROUP BY TAX;
+* ``--sharded``: the solo serve through a sharded session
+  (``data_shards=4, mesh=False``), ``chip_smoke.py`` phase 18's pool;
 * ``--host``: the host serve of ``chip_smoke.py`` phase 14, its 12
   requests on the HOST route (auto planner) and the engine's exact answers
   of the moment requests, GROUP BY SHIPINSTRUCT; it also prints the
@@ -37,9 +39,9 @@ ops.  The phases (TPC-H lineitem SF10 resident on the card, a forced-POOL
 
 The solo and grouped profiles print each bootstrap kernel's share of the
 device time.  Run from the root of a checkout on a machine with a CUDA
-card: ``python3 profile_serve.py [--grouped | --host | --warm | --lm | --decode
-[TREE ...] | --boot [TREE ...]] [TRACE.json]``; with a path, the Chrome
-trace is written there.
+card: ``python3 profile_serve.py [--grouped | --sharded | --host | --warm |
+--lm | --decode [TREE ...] | --boot [TREE ...]] [TRACE.json]``; with a path,
+the Chrome trace is written there.
 """
 import argparse
 import contextlib
@@ -60,12 +62,14 @@ from chip_smoke import (LM_ARCH, LM_S_MAX, LM_SLOTS, N_CAP,  # noqa: E402
                         lm_requests, nvidia_smi, run_lm_serve, serve_requests)
 
 
-def serve_once(data, reqs) -> float:
+def serve_once(data, reqs, data_shards: int = 1) -> float:
     from repro_torch.aqp.query import Query, Request
     from repro_torch.serve import AQPSession, Planner, Route
 
-    sess = AQPSession(data, planner=Planner(mode=Route.POOL, pool_lanes=8),
-                      **SERVE)
+    sess = AQPSession(data, data_shards=data_shards,
+                      mesh=False if data_shards > 1 else None,
+                      planner=Planner(mode=Route.POOL, pool_lanes=8,
+                                      data_shards=data_shards), **SERVE)
     t0 = time.perf_counter()
     for f, e, g in reqs:
         sess.submit(Request(query=Query(func=f, epsilon=e, group_by=g)))
@@ -324,6 +328,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--grouped", action="store_true",
                     help="profile the grouped serve (GROUP BY TAX)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="profile the solo serve on a 4-shard session")
     ap.add_argument("--host", action="store_true",
                     help="profile the host serve (phase 14's requests)")
     ap.add_argument("--warm", action="store_true",
@@ -362,7 +368,9 @@ def main() -> None:
 
     data, _ = make_lineitem(scale_factor=10, group_by=(
         "tax" if args.grouped else "shipinstruct"), device="cuda")
-    once = host_once if args.host else serve_once
+    once = (host_once if args.host else
+            (lambda d, r: serve_once(d, r, data_shards=4)) if args.sharded
+            else serve_once)
     if args.host:
         reqs = host_requests(data)
     elif args.grouped:

@@ -227,6 +227,89 @@ def lane_moment_sums(v: torch.Tensor, mf: torch.Tensor, seeds: torch.Tensor,
     return M, M_plain
 
 
+def _window_feats(vals: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                  lane_active: torch.Tensor):
+    """``(mf, vz, M_plain)`` of live windows: ``mf (q, m, cap)`` the mask of
+    ``[lo, hi)`` on active lanes, ``vz`` the values with every other slot an
+    exact +0 (whatever the buffer holds there), ``M_plain (q, m, 3)`` the
+    mask-only sums over the whole slot axis (:func:`tree_sum`, so they do not
+    depend on how wide a slice the replicate sums read)."""
+    cap = vals.shape[-1]
+    pos = torch.arange(cap, dtype=torch.int64, device=vals.device)
+    live = ((pos >= lo[..., None]) & (pos < hi[..., None])
+            & lane_active.to(torch.bool)[:, None, None])
+    mf = live.to(torch.float32).contiguous()
+    vz = torch.where(live, vals.to(torch.float32), 0.0).contiguous()
+    feats = torch.stack([mf, mf * vz, mf * vz * vz], dim=-1)
+    return mf, vz, tree_sum(feats, 2)
+
+
+def windowed_lane_moment_sums(vals: torch.Tensor, lo: torch.Tensor,
+                              hi: torch.Tensor, seeds: torch.Tensor, B: int,
+                              widths, *, lane_active: torch.Tensor,
+                              chunk: int = 4
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RAW replicate moment sums over per-lane WINDOWS: the plain path of the
+    sharded step's ESTIMATE.
+
+    ``vals (q, m, cap)`` is one shard segment's value column, ``lo``/``hi
+    (q, m)`` each (lane, group)'s live window in segment slots, ``widths`` the
+    reference's ascending rung ladder topped by ``cap``.  Returns ``(M (q, m,
+    B, 3), M_plain (q, m, 3))`` as :func:`lane_moment_sums` does, inactive
+    lanes exact zeros.  Lanes go in chunks of ``chunk``: an all-parked chunk
+    does no work.  A live chunk sums its lanes' windows at their ABSOLUTE
+    slot positions through the plain version of the Poisson-bootstrap
+    kernel, over the slice from the 256-slot chunk boundary below its lowest
+    window to its highest window end: the kernel's order, so the sums equal
+    :func:`prefix_lane_moment_sums` (the card's path) bit for bit.  The
+    reference instead re-bases each window into a rung-wide gathered slice,
+    which reorders the additions; the port sizes the slice from the windows
+    (one host read a call), so ``widths`` is checked, not used.  Slots
+    outside a window contribute an exact zero whatever the buffer holds.
+    """
+    q, m, cap = vals.shape
+    if widths[-1] != cap:
+        raise ValueError(f"width ladder {widths} must top out at cap={cap}")
+    c = max(1, min(int(chunk), q))
+    mf, vz, M_plain = _window_feats(vals, lo, hi, lane_active)
+    M = torch.zeros((q, m, B, 3), dtype=torch.float32, device=vals.device)
+    host = torch.cat([lane_active.to(torch.int64).reshape(-1),
+                      lo.to(torch.int64).reshape(-1),
+                      hi.to(torch.int64).reshape(-1)]).cpu().numpy()
+    act = host[:q] != 0
+    lo_h = host[q:q + q * m].reshape(q, m)
+    hi_h = host[q + q * m:].reshape(q, m)
+    for c0 in range(0, q, c):
+        sel = np.arange(c0, min(c0 + c, q))
+        live = act[sel][:, None] & (hi_h[sel] > lo_h[sel])
+        if not live.any():
+            continue
+        start = int(lo_h[sel][live].min()) // pb_ref.CHUNK * pb_ref.CHUNK
+        end = int(hi_h[sel][live].max())
+        gate = lane_active[c0:c0 + len(sel), None].expand(len(sel), m)
+        M[c0:c0 + len(sel)] = pb_ref.bootstrap_moments_masked_ref(
+            vz[c0:c0 + len(sel), :, start:end],
+            mf[c0:c0 + len(sel), :, start:end], seeds[c0:c0 + len(sel)], B,
+            lane_active=gate, start=start)[..., :3]
+    return M, M_plain
+
+
+def prefix_lane_moment_sums(vals: torch.Tensor, lo: torch.Tensor,
+                            hi: torch.Tensor, seeds: torch.Tensor, B: int,
+                            width: int, *, lane_active: torch.Tensor,
+                            use_kernel: bool
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sums of :func:`windowed_lane_moment_sums` from ONE shared prefix
+    rung: the window is a mask on ``vals[..., :width]`` (``width`` covering
+    every active window) and the replicate sums come from
+    :func:`lane_moment_sums` -- on the card one Poisson-bootstrap kernel
+    launch, the reference's ``use_kernel`` branch."""
+    mf, vz, M_plain = _window_feats(vals, lo, hi, lane_active)
+    M, _ = lane_moment_sums(vz[..., :width], mf[..., :width], seeds, B,
+                            use_kernel=use_kernel, lane_active=lane_active)
+    return M, M_plain
+
+
 def segment_moment_sums(x: torch.Tensor, gid: torch.Tensor,
                         slot: torch.Tensor, valid: torch.Tensor,
                         seeds: torch.Tensor, q: int, B: int, *,

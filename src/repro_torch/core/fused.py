@@ -34,8 +34,17 @@ the two-point init design: tick 0 jumps to the cached prediction
 ``warm_n0`` and the normal TEST is its verification; a stale prediction
 extends through the cached coefficients until the lane has an ``l``-deep
 profile of its own.  Cold lanes carry all-False rows and run as before.
-Only the single-device, ``backend="poisson"`` path is here; sharding is a
-later slice.
+
+A SHARDED step (``fused_step(..., shard_spec, data_shards=S)``,
+:func:`make_sharded_step`) cuts every lane buffer's slot axis into S
+segments, one per row shard of a :class:`~.sampling.ShardLayout`: each
+segment gathers its own window from its own rows and computes RAW replicate
+moment sums under its own seed stream, and the S partials are combined --
+a sequential fold in shard order on one device, or one
+:meth:`~.mesh.DataMesh.all_gather_fold` on a mesh, the only collective a
+tick crosses.  Everything else is replicated, so a mesh pool drains bit-equal
+to the single-device run of the same layout.  Only ``backend="poisson"`` is
+ported.
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ import torch
 
 from ..kernels import prng, resolve_use_kernel
 from . import bootstrap, error_model, keys as keylib, sampling
+from .mesh import DataMesh
 from .estimators import get as get_estimator, moment_family_index
 from .reduce import tree_sum
 
@@ -53,6 +63,7 @@ LOG_FLOOR = -60.0
 
 _SALT_BOOT = 0xB007        # per-lane bootstrap seed base
 _SALT_GROUP = 0x7F4A7C15   # per-(iteration, group) bootstrap stream split
+_SALT_SHARD = sampling.SHARD_SALT   # per-shard bootstrap stream split
 
 _I32_MAX = 2147483647
 
@@ -590,13 +601,241 @@ def _lane_epilogue(s: LaneState, p: LaneParams, *, max_iters, active,
     )
 
 
+# ---------------------------------------------------------------------------
+# The sharded step: the same tick over S row shards
+# ---------------------------------------------------------------------------
+
+class ShardSpec(NamedTuple):
+    """Device-side shard layout tables of the sharded step: ``alloc[s, i,
+    n]`` counts the first ``n`` logical slots of group i that segment s owns
+    (:class:`~.sampling.ShardLayout`), ``cap_groups[i]`` is group i's logical
+    slot capacity.  Every rank of a mesh holds the whole stack: the growth
+    clamp reads every segment's table."""
+    alloc: torch.Tensor        # (S, m, n_cap + 1) int32
+    cap_groups: torch.Tensor   # (m,) int32
+
+
+def make_shard_spec(layout: sampling.ShardLayout, device=None) -> ShardSpec:
+    """Lift a host :class:`~.sampling.ShardLayout` onto ``device``."""
+    dev = torch.device(device) if device is not None else (
+        sampling.default_device())
+    return ShardSpec(alloc=torch.as_tensor(layout.alloc, device=dev),
+                     cap_groups=torch.as_tensor(layout.cap_groups, device=dev))
+
+
+def resolve_seg_window(n_cap: int, n_max: int, data_shards: int,
+                       ext_cap: Optional[int] = None) -> int:
+    """Per-SEGMENT extension window of the sharded step: each segment's
+    proportional share of the global window :func:`resolve_ext_cap` plus an
+    imbalance slack.  The step's growth clamp makes any window safe: a skewed
+    stretch of the alloc tables costs extra ticks, never missing rows."""
+    if n_cap % data_shards:
+        raise ValueError(
+            f"n_cap={n_cap} must divide by data_shards={data_shards}")
+    cap_s = n_cap // data_shards
+    if n_max > cap_s:
+        raise ValueError(
+            f"n_max={n_max} exceeds one shard segment ({cap_s} slots); "
+            f"raise n_cap or lower data_shards")
+    ext_global = resolve_ext_cap(n_cap, n_max, ext_cap)
+    share = -(-ext_global // data_shards)
+    return min(cap_s, share + max(share // 4, 32))
+
+
+def _sharded_step_body(values: torch.Tensor, s: LaneState, p: LaneParams,
+                       spec: ShardSpec, *, est_name: Optional[str], B: int,
+                       n_min: int, n_max: int, l: int, tau: float,
+                       max_iters: int, n_cap: int, metric: str,
+                       growth_cap: float, seg_window: int, use_kernel: bool,
+                       data_shards: int,
+                       mesh: Optional[DataMesh] = None) -> LaneState:
+    """One tick with the buffer slot axis cut into S shard segments.
+
+    The decisions are :func:`_step_body`'s; SAMPLE and the replicate moment
+    pass run per segment: segment s gathers its share of each window from
+    its own rows (its ``alloc`` table says how many slots it owns), and sums
+    the window under the seed stream ``hash3(seeds, s, SHARD_SALT)``.  The
+    RAW sums are combined by a left fold in shard order: here on one device
+    (``mesh=None``: ``values`` the whole padded table, ``s.buf`` all S
+    segments, ``p.slot_idx (S, m, seg_cap)`` in global rows), or, on a
+    mesh, this rank's segment only (``values`` its row block, ``s.buf`` its
+    ``(q, m, seg_cap, c)`` segment, ``p.slot_idx (1, m, seg_cap)`` in local
+    rows) and one :meth:`~.mesh.DataMesh.all_gather_fold` of the flattened
+    ``(q, m, B, 3)`` and ``(q, m, 3)`` sums, the tick's only collective.  The
+    growth clamp reads every segment's alloc table on every rank, so it needs
+    none.  One host read a tick: the active lanes and each segment's widest
+    active window.  The card takes one shared prefix rung a segment and one
+    Poisson-bootstrap launch (:func:`~.bootstrap.prefix_lane_moment_sums`);
+    the plain path windows chunks of lanes
+    (:func:`~.bootstrap.windowed_lane_moment_sums`), bit-equal to it.
+    """
+    est = get_estimator(est_name) if est_name is not None else None
+    S = data_shards
+    cap_s = n_cap // S
+    q, m = s.n_cur.shape
+    dev = s.k.device
+    l_min = min(max(int(round(l * n_max / (n_min + n_max))), 1), l - 1)
+    # Per-segment ESTIMATE rungs: from the segment's share of n_min (a
+    # window holds ~1/S of a lane's rows) up to the segment capacity.
+    seg_base = max(min(-(-n_max // S), -(-n_min // S)), 32)
+    seg_widths = _window_ladder(cap_s, min(seg_base, cap_s))
+
+    active = lane_active(s, max_iters)                         # (q,)
+    act2 = active[:, None]
+    phase = (s.k[:, None] + torch.arange(m, device=dev)[None, :]) % l
+    n_init = torch.where(phase < l_min, n_min, n_max).to(torch.int32)
+    n_pred, beta, r2, failed_fit = _fit_predict(
+        s, p, tau=tau, growth_cap=growth_cap, max_iters=max_iters, l=l)
+    init_phase = (s.k < l) & ~p.warm                           # (q,)
+    n_vec = torch.where(init_phase[:, None], n_init, n_pred)
+    n_vec = torch.minimum(torch.clamp(n_vec, min=1), spec.cap_groups[None, :])
+
+    def local(idx: torch.Tensor) -> torch.Tensor:
+        """(S, q, m) segment-local slot counts at logical slots ``idx``."""
+        at = idx.to(torch.int64).T[None].expand(S, m, q)
+        return torch.gather(spec.alloc, 2, at).transpose(1, 2)
+
+    # ---- cross-shard growth clamp: a segment grows by at most seg_window
+    # local slots a tick, so the logical watermark grows only as far as
+    # every segment's share fits.
+    lfill = local(s.filled)                                    # (S, q, m)
+    hi = torch.searchsorted(spec.alloc,
+                            (lfill + seg_window).transpose(1, 2).contiguous(),
+                            right=True)                        # (S, m, q)
+    allowed = (torch.amin(hi, 0).T - 1 - s.filled).to(torch.int32)
+    # An init probe's window is stacked at the watermark, so its size is its
+    # growth; a prediction tick reads the prefix [0, n), so it may reach the
+    # watermark plus the growth.  (The reference clamps both by the growth
+    # alone, which stalls a prediction below its own watermark.)
+    n_vec = torch.minimum(n_vec, torch.where(init_phase[:, None], allowed,
+                                             s.filled + allowed))
+    n_vec = torch.where(act2, n_vec, s.n_cur)
+    win_lo = torch.where(init_phase[:, None],
+                         torch.minimum(s.filled,
+                                       spec.cap_groups[None, :] - n_vec),
+                         torch.zeros_like(n_vec))
+    win_lo = torch.where(act2, win_lo, torch.zeros_like(win_lo))
+    win_hi = torch.where(act2, win_lo + n_vec,
+                         torch.minimum(s.n_cur, s.filled))
+    filled = torch.maximum(s.filled, win_hi)
+    seeds = _bootstrap_seeds(p, s.k, m)
+    llo, lhi = local(win_lo), local(win_hi)
+    # ---- the tick's one host read: active lanes + widest active windows ----
+    need = torch.amax(torch.where(act2[None], lhi, 0).reshape(S, -1), 1)
+    host = torch.cat([active.to(torch.int64), need.to(torch.int64)]).cpu()
+    host = host.numpy()
+    lanes = torch.as_tensor(np.nonzero(host[:q])[0], dtype=torch.int64,
+                            device=dev)
+
+    def seg_tick(si: int, buf_seg: torch.Tensor, table: torch.Tensor):
+        """Gather + RAW moment sums of segment ``si`` (``buf_seg`` a view of
+        its ``(q, m, cap_s, c)`` slots, updated in place)."""
+        _gather_windows(values, buf_seg, lfill[si], lhi[si], table, lanes,
+                        seg_window)
+        seeds_s = prng.hash3(seeds, si, _SALT_SHARD)
+        vals = buf_seg[..., 0]
+        if use_kernel:
+            needed = max(int(host[q + si]), 1)
+            width = seg_widths[sum(needed > w for w in seg_widths[:-1])]
+            return bootstrap.prefix_lane_moment_sums(
+                vals, llo[si], lhi[si], seeds_s, B, width,
+                lane_active=active, use_kernel=True)
+        return bootstrap.windowed_lane_moment_sums(
+            vals, llo[si], lhi[si], seeds_s, B, seg_widths,
+            lane_active=active)
+
+    if mesh is None:
+        parts = [seg_tick(si, s.buf[:, :, si * cap_s:(si + 1) * cap_s],
+                          p.slot_idx[si]) for si in range(S)]
+        M, Mp = parts[0]
+        for M_s, Mp_s in parts[1:]:
+            M = M + M_s
+            Mp = Mp + Mp_s
+    else:
+        M_s, Mp_s = seg_tick(mesh.rank, s.buf, p.slot_idx[0])
+        k = M_s.numel()
+        flat = mesh.all_gather_fold(torch.cat([M_s.reshape(-1),
+                                               Mp_s.reshape(-1)]))
+        M, Mp = flat[:k].reshape(M_s.shape), flat[k:].reshape(Mp_s.shape)
+    e_b, theta_b = bootstrap.finish_lanes_moments(
+        M, Mp, p.scale, p.deltas, est=est, est_fids=p.est_fids, metric=metric)
+    return _lane_epilogue(
+        s, p, max_iters=max_iters, active=active, init_phase=init_phase,
+        e_b=e_b, theta_b=theta_b, n_eff=n_vec, filled=filled, beta=beta,
+        r2=r2, failed_fit=failed_fit)
+
+
+def make_sharded_lane_params(layout: sampling.ShardLayout, scale, keys,
+                             epsilons, deltas, sample_key, est_fids=None, *,
+                             local_rows: bool, warm=None, warm_n0=None,
+                             warm_beta=None, device=None) -> LaneParams:
+    """Per-lane parameters of the sharded step: stacked ``(S, m, seg_cap)``
+    slot tables under ONE shared ``(2,)`` sample key (per-lane bindings are
+    not supported), in each shard's local rows (``local_rows=True``, the
+    mesh) or global rows of the padded table.  Seed bases as
+    :func:`make_lane_params` derives them, so a lane's streams match its
+    solo run; ``group_sizes`` holds the layout's ``cap_groups``."""
+    dev = torch.device(device) if device is not None else (
+        sampling.default_device())
+    sample_key = _host(sample_key, np.uint32)
+    if sample_key.ndim != 1:
+        raise ValueError("sharded lanes require one shared (2,) sample key")
+    keys = _host(keys, np.uint32)
+    q = keys.shape[0]
+    m = layout.cap_groups.shape[0]
+    if est_fids is None:
+        est_fids = np.zeros((q,), np.int32)
+    w, wn0, wb = resolve_warm_rows(q, m, warm, warm_n0, warm_beta, device=dev)
+    return LaneParams(
+        scale=torch.as_tensor(_host(scale, np.float32), device=dev),
+        epsilons=torch.as_tensor(_host(epsilons, np.float32), device=dev),
+        deltas=torch.as_tensor(_host(deltas, np.float32), device=dev),
+        est_fids=torch.as_tensor(_host(est_fids, np.int32), device=dev),
+        boot_base=torch.as_tensor([lane_boot_seed(k) for k in keys],
+                                  dtype=torch.int64, device=dev),
+        slot_idx=sampling.sharded_slot_tables(sample_key, layout,
+                                              local_rows=local_rows,
+                                              device=dev),
+        warm=w, warm_n0=wn0, warm_beta=wb,
+        group_sizes=torch.as_tensor(
+            np.broadcast_to(layout.cap_groups, (q, m)).copy(), device=dev))
+
+
+def make_sharded_step(mesh: DataMesh, *, num_ticks: int = 1, **statics):
+    """The mesh tick: ``step(values, state, params, shard_spec) -> state``
+    runs ``num_ticks`` sharded ticks of this rank (``values`` its row block,
+    ``state.buf`` its segment, ``params.slot_idx`` its ``(1, m, seg_cap)``
+    local table), one collective a tick.  ``statics`` are the sharded
+    body's keywords (``est_name``, ``B``, ``n_min``, ``n_max``, ``l``,
+    ``tau``, ``max_iters``, ``n_cap``, ``metric``, ``growth_cap``,
+    ``seg_window`` resolved by :func:`resolve_seg_window`, ``use_kernel``,
+    ``data_shards``).  Nothing compiles, so there is nothing to memoise."""
+    if mesh.size != statics["data_shards"]:
+        raise ValueError(f"mesh has {mesh.size} ranks; the step wants "
+                         f"data_shards={statics['data_shards']}")
+
+    def step(values: torch.Tensor, state: LaneState, params: LaneParams,
+             shard_spec: ShardSpec) -> LaneState:
+        if params.slot_idx.dim() != 3 or params.slot_idx.shape[0] != 1:
+            raise ValueError("a mesh rank takes its own (1, m, seg_cap) "
+                             "local slot table")
+        for _ in range(num_ticks):
+            state = _sharded_step_body(values, state, params, shard_spec,
+                                       mesh=mesh, **statics)
+        return state
+
+    return step
+
+
 def fused_step(values: torch.Tensor, offsets, state: LaneState,
-               params: LaneParams, *, est_name: Optional[str] = None,
+               params: LaneParams, shard_spec: Optional[ShardSpec] = None, *,
+               est_name: Optional[str] = None,
                B: int = 500, n_min: int = 100, n_max: int = 200, l: int = 10,
                tau: float = 1e-3, max_iters: int = 32, n_cap: int = 1 << 16,
                metric: str = "l2", growth_cap: float = 8.0,
                ext_cap: Optional[int] = None, adaptive: bool = True,
                use_kernel: "bool | str" = "auto", gate_gather: bool = True,
+               data_shards: int = 1, seg_window: Optional[int] = None,
                seg_cap: Optional[int] = None, num_ticks: int = 1) -> LaneState:
     """Host-callable resumable step: ``num_ticks`` ticks over all lanes.
 
@@ -606,16 +845,28 @@ def fused_step(values: torch.Tensor, offsets, state: LaneState,
     layout the params were built for.  The state's ``buf`` is updated in
     place.
 
+    ``data_shards > 1`` runs the SHARDED body on one device -- the
+    sequential-fold reference a mesh step reproduces bit for bit.  It needs a
+    ``shard_spec`` (:func:`make_shard_spec`) and stacked slot tables
+    (:func:`make_sharded_lane_params` with ``local_rows=False``) over the
+    padded table; ``ext_cap`` keeps its global meaning and resolves to a
+    per-segment window (:func:`resolve_seg_window`), which ``seg_window``
+    gives exactly instead.
+
     ``seg_cap`` selects the grouped lane BLOCK path: ``q`` lanes of m = 1,
     each bound to one group by :func:`make_group_lane_params`, ticked with
     one packed gather and one segment bootstrap pass.  Pass
     :func:`grouped_seg_cap` of the block's layout and the dummy ``[0, N]``
     step offsets (the per-group sizes live in ``params.group_sizes``); it
-    needs the adaptive path and a moment-family estimator.
+    needs the adaptive path, a moment-family estimator and one shard.
     """
     if len(offsets) - 1 != state.n_cur.shape[1]:
         raise ValueError("offsets do not match the state's group count")
+    if seg_window is not None and data_shards == 1:
+        raise ValueError("seg_window applies to the sharded step only")
     if seg_cap is not None:
+        if data_shards > 1:
+            raise ValueError("seg_cap (grouped blocks) is single-shard only")
         if not adaptive:
             raise ValueError("grouped blocks require the adaptive path")
         if len(offsets) != 2:
@@ -627,11 +878,35 @@ def fused_step(values: torch.Tensor, offsets, state: LaneState,
                              "tables (make_group_lane_params)")
         if est_name is not None:
             moment_family_index(est_name)   # raises for non-moment ests
+    use_kernel = resolve_use_kernel(use_kernel, values.device)
+    if data_shards > 1:
+        if shard_spec is None:
+            raise ValueError("data_shards > 1 requires a shard_spec")
+        if not adaptive:
+            raise ValueError(
+                "the sharded step supports the adaptive poisson path only")
+        if (params.slot_idx.dim() != 3
+                or params.slot_idx.shape[0] != data_shards):
+            raise ValueError(
+                "sharded lanes need stacked (S, m, seg_cap) slot tables "
+                "(make_sharded_lane_params)")
+        sspec = dict(
+            est_name=est_name, B=B, n_min=n_min, n_max=n_max, l=l, tau=tau,
+            max_iters=max_iters, n_cap=n_cap, metric=metric,
+            growth_cap=growth_cap,
+            seg_window=(seg_window if seg_window is not None else
+                        resolve_seg_window(n_cap, n_max, data_shards,
+                                           ext_cap)),
+            use_kernel=use_kernel, data_shards=data_shards)
+        for _ in range(num_ticks):
+            state = _sharded_step_body(values, state, params, shard_spec,
+                                       **sspec)
+        return state
     spec = dict(
         est_name=est_name, B=B, n_min=n_min, n_max=n_max, l=l, tau=tau,
         max_iters=max_iters, n_cap=n_cap, metric=metric,
         growth_cap=growth_cap, ext_cap=resolve_ext_cap(n_cap, n_max, ext_cap),
-        adaptive=adaptive, use_kernel=resolve_use_kernel(use_kernel, values.device),
+        adaptive=adaptive, use_kernel=use_kernel,
         gate_gather=gate_gather, seg_cap=seg_cap)
     for _ in range(num_ticks):
         state = _step_body(values, state, params, **spec)
@@ -653,7 +928,8 @@ def lanes_result(state: LaneState) -> FusedResult:
 
 def fused_l2miss_lanes(values: torch.Tensor, offsets, scale, keys, epsilons,
                        deltas, sample_keys=None, est_fids=None, warm_n0=None,
-                       warm_beta=None, *,
+                       warm_beta=None, *, data_shards: int = 1,
+                       shard_layout: Optional[sampling.ShardLayout] = None,
                        est_name: Optional[str] = "avg", B: int = 500,
                        n_min: int = 100, n_max: int = 200, l: int = 10,
                        tau: float = 1e-3, max_iters: int = 32,
@@ -666,26 +942,63 @@ def fused_l2miss_lanes(values: torch.Tensor, offsets, scale, keys, epsilons,
     done, failed or out of ticks.  A lane's trajectory equals its solo run
     with the same keys: the width bucket is compute width only.
     ``warm_n0 (q, m)``/``warm_beta (q, m+1)`` (both or neither) start every
-    lane from a cached prediction, as a pool's warm splice does."""
+    lane from a cached prediction, as a pool's warm splice does.
+
+    ``data_shards > 1`` runs the SHARDED step on one device (the sequential
+    fold a mesh reproduces): one shared ``(2,)`` sample key (default
+    ``keys[0]`` when q == 1), the adaptive path, no warm start (a sharded
+    pool takes warm rows through its splice); ``shard_layout`` skips
+    rebuilding the host tables and ``ext_cap`` becomes the per-segment
+    window."""
     if (warm_n0 is None) != (warm_beta is None):
         raise ValueError("warm_n0 and warm_beta come together")
     dev = values.device
     m = len(offsets) - 1
-    params = make_lane_params(offsets, scale, keys, epsilons, deltas,
-                              sample_keys, est_fids, n_cap=n_cap,
-                              warm_n0=warm_n0, warm_beta=warm_beta,
-                              device=dev)
+    use_kernel = resolve_use_kernel(use_kernel, dev)
     p_dim = (get_estimator(est_name).out_dim(values.shape[1])
              if est_name is not None else 1)
     state = init_lane_state(keys, m, n_cap=n_cap, c_dim=values.shape[1],
                             p_dim=p_dim, n_min=n_min, max_iters=max_iters,
                             device=dev, dtype=values.dtype)
+    if data_shards > 1:
+        if warm_n0 is not None:
+            raise ValueError(
+                "warm start on the closed sharded loop is not supported; "
+                "use a sharded LanePool splice instead")
+        if not adaptive:
+            raise ValueError(
+                "the sharded loop supports the adaptive poisson path only")
+        if sample_keys is None:
+            if _host(keys, np.uint32).shape[0] != 1:
+                raise ValueError(
+                    "sharded lanes require one shared (2,) sample key")
+            sample_keys = _host(keys, np.uint32)[0]
+        layout = shard_layout if shard_layout is not None else (
+            sampling.ShardLayout.build(offsets, n_cap=n_cap,
+                                       num_shards=data_shards))
+        params = make_sharded_lane_params(
+            layout, scale, keys, epsilons, deltas, sample_keys, est_fids,
+            local_rows=False, device=dev)
+        sspec = dict(
+            est_name=est_name, B=B, n_min=n_min, n_max=n_max, l=l, tau=tau,
+            max_iters=max_iters, n_cap=n_cap, metric=metric,
+            growth_cap=growth_cap,
+            seg_window=resolve_seg_window(n_cap, n_max, data_shards, ext_cap),
+            use_kernel=use_kernel, data_shards=data_shards)
+        shard_spec = make_shard_spec(layout, device=dev)
+        while bool(lane_active(state, max_iters).any()):
+            state = _sharded_step_body(values, state, params, shard_spec,
+                                       **sspec)
+        return lanes_result(state)
+    params = make_lane_params(offsets, scale, keys, epsilons, deltas,
+                              sample_keys, est_fids, n_cap=n_cap,
+                              warm_n0=warm_n0, warm_beta=warm_beta,
+                              device=dev)
     spec = dict(
         est_name=est_name, B=B, n_min=n_min, n_max=n_max, l=l, tau=tau,
         max_iters=max_iters, n_cap=n_cap, metric=metric,
         growth_cap=growth_cap, ext_cap=resolve_ext_cap(n_cap, n_max, ext_cap),
-        adaptive=adaptive, use_kernel=resolve_use_kernel(use_kernel, values.device),
-        gate_gather=gate_gather)
+        adaptive=adaptive, use_kernel=use_kernel, gate_gather=gate_gather)
     while bool(lane_active(state, max_iters).any()):
         state = _step_body(values, state, params, **spec)
     return lanes_result(state)

@@ -6,7 +6,9 @@ The dataset lives sorted by group with an offset table (the dense inverted
 index of paper SS4.1), resident on the card.  In the fused loop a sample of
 group i is a run of slots whose rows :func:`counter_slot_table` binds once
 per sample key, so samples are nested across iterations and shared across
-queries.
+queries.  A sharded table (:class:`ShardLayout`) splits the rows into S
+blocks and each lane buffer into S slot segments; :func:`sharded_slot_tables`
+is the same binding cut per segment, into each shard's own rows.
 
 On the host route, :class:`SampleStore` makes sampling incremental: each
 group holds a lazily materialized uniform random permutation of its extent
@@ -149,6 +151,186 @@ def bucket_cap(n: int, *, base: int = 256) -> int:
     while cap < n:
         cap *= 2
     return cap
+
+
+# ---------------------------------------------------------------------------
+# Sharded slot binding: the counter-PRNG binding split over row shards
+# ---------------------------------------------------------------------------
+
+# Domain-separation salt folding the shard index into the per-segment
+# bootstrap seed stream (core/fused.py ``_sharded_step_body``).
+SHARD_SALT = 0x5DA7
+
+
+def _shard_alloc_tables(lsizes: np.ndarray, n_cap: int,
+                        cap_s: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Cumulative slot-ownership tables of a sharded group layout.
+
+    ``lsizes[s, i]`` rows of group i live on shard s.  Shard s emits
+    candidate times ``k * (Z_i / z_si)`` for ``k = 1..cap_s`` (``Z_i`` the
+    group's rows), the candidates are merged by ``(time, shard)`` and the
+    first ``n_cap`` are the group's logical slot order; ``alloc[s, i, n]``
+    counts the slots shard s owns among the first ``n``.  The table is the
+    identity at S = 1, 1-Lipschitz in ``n`` (so one tick's growth clamp
+    always grants at least the per-segment window) and proportional (shard
+    s owns ~``z_si / Z_i`` of the slots).  Host numpy, the reference's
+    arithmetic step for step, so the tables are equal to its.
+    """
+    S, m = lsizes.shape
+    alloc = np.zeros((S, m, n_cap + 1), np.int64)
+    cap_groups = np.zeros((m,), np.int64)
+    for i in range(m):
+        z = lsizes[:, i].astype(np.float64)
+        total = z.sum()
+        if total <= 0:
+            continue
+        times: List[np.ndarray] = []
+        sids: List[np.ndarray] = []
+        k = np.arange(1, cap_s + 1, dtype=np.float64)
+        for s in range(S):
+            if z[s] <= 0:
+                continue
+            times.append(k * (total / z[s]))
+            sids.append(np.full(cap_s, s, np.int64))
+        t = np.concatenate(times)
+        sid = np.concatenate(sids)
+        order = np.lexsort((sid, t))          # stable: ties break by shard id
+        sid = sid[order][:n_cap]
+        cap_groups[i] = len(sid)
+        for s in range(S):
+            owned = np.cumsum(sid == s)
+            alloc[s, i, 1:1 + len(sid)] = owned
+            alloc[s, i, 1 + len(sid):] = owned[-1] if len(sid) else 0
+    return alloc, cap_groups
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """Host-side description of a grouped table split into S row blocks.
+
+    Shard s owns rows ``[s * R, (s + 1) * R)`` of the zero-padded table, ``R
+    = rows_per_shard``; each group's extent meets each block in at most one
+    sub-extent (``lstarts``/``lsizes``, shard-local).  A lane buffer's slot
+    axis is cut into S segments of ``seg_cap = n_cap // S`` slots, and
+    ``alloc`` maps a logical sample-prefix length to each segment's fill
+    (:func:`_shard_alloc_tables`).  ``cap_groups[i]`` is group i's logical
+    slot capacity, clamped to the group's size and to at least 1.
+    """
+    num_shards: int
+    rows_per_shard: int
+    n_cap: int
+    lstarts: np.ndarray     # (S, m) int32, shard-local row starts
+    lsizes: np.ndarray      # (S, m) int32
+    alloc: np.ndarray       # (S, m, n_cap + 1) int32, cumulative ownership
+    cap_groups: np.ndarray  # (m,) int32
+
+    @property
+    def seg_cap(self) -> int:
+        return self.n_cap // self.num_shards
+
+    @staticmethod
+    def build(offsets, *, n_cap: int, num_shards: int) -> "ShardLayout":
+        offsets = np.asarray(offsets, np.int64)
+        S = int(num_shards)
+        if S < 1:
+            raise ValueError(f"num_shards must be >= 1; got {S}")
+        if n_cap % S:
+            raise ValueError(f"n_cap={n_cap} must divide by num_shards={S}")
+        n_rows = int(offsets[-1])
+        rows_per_shard = -(-max(n_rows, 1) // S)
+        m = len(offsets) - 1
+        lstarts = np.zeros((S, m), np.int64)
+        lsizes = np.zeros((S, m), np.int64)
+        for s in range(S):
+            blo = s * rows_per_shard
+            bhi = blo + rows_per_shard
+            lo = np.clip(offsets[:-1], blo, bhi)
+            hi = np.clip(offsets[1:], blo, bhi)
+            lsizes[s] = np.maximum(hi - lo, 0)
+            # Empty sub-extents point at a valid local row; alloc owns none
+            # of their slots, so they are never gathered.
+            lstarts[s] = np.where(lsizes[s] > 0, lo - blo, 0)
+        alloc, cap_groups = _shard_alloc_tables(lsizes, n_cap, n_cap // S)
+        cap_groups = np.minimum(cap_groups, np.diff(offsets))
+        cap_groups = np.maximum(cap_groups, 1)      # keep n >= 1 clips valid
+        return ShardLayout(
+            num_shards=S, rows_per_shard=int(rows_per_shard), n_cap=int(n_cap),
+            lstarts=lstarts.astype(np.int32), lsizes=lsizes.astype(np.int32),
+            alloc=alloc.astype(np.int32), cap_groups=cap_groups.astype(np.int32))
+
+    def pad_values(self, values):
+        """Values padded with zero rows to ``S * rows_per_shard`` (2-D): a
+        numpy array on the host, a tensor on its own device."""
+        total = self.num_shards * self.rows_per_shard
+        if isinstance(values, torch.Tensor):
+            v = values if values.dim() == 2 else values[:, None]
+            if v.shape[0] < total:
+                v = torch.cat([v, v.new_zeros((total - v.shape[0],)
+                                              + tuple(v.shape[1:]))])
+            return v
+        v = np.asarray(values)
+        if v.ndim == 1:
+            v = v[:, None]
+        if len(v) < total:
+            v = np.pad(v, ((0, total - len(v)), (0, 0)))
+        return v
+
+    def block_values(self, values: torch.Tensor, s: int) -> torch.Tensor:
+        """Shard s's ``(rows_per_shard, c)`` row block of the padded table,
+        cut from ``values`` without padding the rest."""
+        R = self.rows_per_shard
+        v = values if values.dim() == 2 else values[:, None]
+        blk = v[s * R:(s + 1) * R]
+        if blk.shape[0] < R:
+            blk = torch.cat([blk, blk.new_zeros((R - blk.shape[0],)
+                                                + tuple(blk.shape[1:]))])
+        return blk
+
+    def shard_rows(self, filled) -> np.ndarray:
+        """(S,) resident slots per shard at per-group watermarks ``filled``
+        (m,): the per-shard dispatch accounting of the pool's stats."""
+        f = np.minimum(np.asarray(filled, np.int64).reshape(-1), self.n_cap)
+        gi = np.arange(self.alloc.shape[1])
+        return np.stack([self.alloc[s, gi, f].sum()
+                         for s in range(self.num_shards)])
+
+    def max_shard_frac(self) -> float:
+        """Largest per-shard share of any group's rows: translates a global
+        watermark into a worst-case segment fill (the pool's cost model)."""
+        z = self.lsizes.astype(np.float64)
+        tot = np.maximum(z.sum(axis=0), 1.0)
+        return float((z / tot[None, :]).max()) if z.size else 1.0
+
+
+def sharded_slot_tables(sample_key, layout: ShardLayout, *,
+                        local_rows: bool, device=None) -> torch.Tensor:
+    """(S, m, seg_cap) int32 stacked slot->row tables of the sharded step.
+
+    Segment slot j of shard s for group i draws ``u = uniform01(hash3(seed,
+    i, s * seg_cap + j))`` -- the stream of :func:`counter_slot_table`
+    indexed by the buffer-global slot -- into shard s's sub-extent of group
+    i.  ``local_rows=True`` gives rows of the shard's own block (the mesh);
+    ``False`` adds the block offset, giving rows of the whole (padded)
+    table: the single-device view of the same binding.
+    """
+    dev = torch.device(device) if device is not None else default_device()
+    S, m = layout.lsizes.shape
+    seg_cap = layout.seg_cap
+    seed = keylib.bits(keylib.fold_in(sample_key, SLOT_SALT))
+    lstarts = torch.as_tensor(layout.lstarts, device=dev)
+    lsizes = torch.as_tensor(layout.lsizes, device=dev)
+    gids = torch.arange(m, dtype=torch.int64, device=dev)[None, :, None]
+    slots = (torch.arange(S, dtype=torch.int64, device=dev)[:, None, None]
+             * seg_cap
+             + torch.arange(seg_cap, dtype=torch.int64, device=dev)[None, None, :])
+    u = prng.uniform01(prng.hash3(seed, gids, slots))         # (S, m, seg_cap)
+    draw = torch.minimum((u * lsizes[..., None]).to(torch.int32),
+                         torch.clamp(lsizes[..., None] - 1, min=0))
+    rows = lstarts[..., None] + draw
+    if not local_rows:
+        rows = rows + (torch.arange(S, dtype=torch.int32, device=dev)
+                       * layout.rows_per_shard)[:, None, None]
+    return rows
 
 
 # ---------------------------------------------------------------------------

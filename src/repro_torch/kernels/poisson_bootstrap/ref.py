@@ -36,8 +36,9 @@ def build_feats(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def _moments(x: torch.Tensor, mask: torch.Tensor, seeds: torch.Tensor,
-             B: int) -> torch.Tensor:
-    """(g, B, 5) replicate moment sums for ``g`` always-active groups."""
+             B: int, start: int = 0) -> torch.Tensor:
+    """(g, B, 5) replicate moment sums for ``g`` always-active groups whose
+    slice begins at absolute slot ``start``."""
     g, n = x.shape
     C = -(-n // CHUNK)
     pad = C * CHUNK - n
@@ -45,7 +46,7 @@ def _moments(x: torch.Tensor, mask: torch.Tensor, seeds: torch.Tensor,
                         torch.nn.functional.pad(mask, (0, pad)))
     feats = feats.reshape(g, C, CHUNK, NUM_MOMENTS)
     dev = x.device
-    rows = torch.arange(C * CHUNK, dtype=torch.int64, device=dev)
+    rows = start + torch.arange(C * CHUNK, dtype=torch.int64, device=dev)
     cols = torch.arange(B, dtype=torch.int64, device=dev)
     W = prng.poisson1_weights_at(seeds[:, None, None], rows[None, :, None],
                                  cols[None, None, :])          # (g, n_pad, B)
@@ -61,14 +62,20 @@ def _moments(x: torch.Tensor, mask: torch.Tensor, seeds: torch.Tensor,
 
 def bootstrap_moments_masked_ref(x: torch.Tensor, mask: torch.Tensor,
                                  seeds: torch.Tensor, B: int,
-                                 lane_active: Optional[torch.Tensor] = None
-                                 ) -> torch.Tensor:
+                                 lane_active: Optional[torch.Tensor] = None,
+                                 start: int = 0) -> torch.Tensor:
     """(..., B, 5) replicate moment sums of masked groups.
 
     ``x``/``mask`` are ``(..., n)``, ``seeds`` ``(...)`` uint32 patterns in an
     integer tensor, ``lane_active`` ``(...)`` gate flags (None = all on).
-    Inactive groups do no work and report zeros.
+    Inactive groups do no work and report zeros.  ``start`` (a multiple of
+    :data:`CHUNK`) is the absolute slot of the slice's first element: the
+    sums equal those of the whole prefix ``[0, start + n)`` whenever the
+    features below ``start`` are zero (masked finite values), because every
+    chunk below it adds an exact zero.
     """
+    if start % CHUNK:
+        raise ValueError(f"start={start} must be a multiple of {CHUNK}")
     lead, n = x.shape[:-1], x.shape[-1]
     xf = x.reshape(-1, n).to(torch.float32)
     mf = mask.reshape(-1, n).to(torch.float32)
@@ -83,5 +90,5 @@ def bootstrap_moments_masked_ref(x: torch.Tensor, mask: torch.Tensor,
     per = max(1, _MAX_ELEMS // max(1, (-(-n // CHUNK)) * CHUNK * B))
     for s in range(0, idx.numel(), per):
         sel = idx[s:s + per]
-        out[sel] = _moments(xf[sel], mf[sel], sf[sel], B)
+        out[sel] = _moments(xf[sel], mf[sel], sf[sel], B, start)
     return out.reshape(tuple(lead) + (B, NUM_MOMENTS))

@@ -45,6 +45,19 @@ as the exact special case:
   is moved, mid-flight, into a tier already riding that bucket (or an
   empty one): a full row copy of its state and parameters, so its answer
   does not change.
+
+Sharding (``data_shards = S > 1``): the table is cut into S row blocks of a
+:class:`~repro_torch.core.sampling.ShardLayout` and every lane buffer into S
+slot segments, ticked by the sharded step.  ``mesh=False`` keeps all S
+segments on one device (the padded table, a sequential fold of the S
+partial sums); a :class:`~repro_torch.core.mesh.DataMesh` makes this pool
+one rank of an SPMD group: it holds its row block and its buffer segments,
+runs the same host schedule as every other rank, and a tick crosses one
+collective.  The mesh pool drains bit-equal to the ``mesh=False`` pool of
+the same layout.  Under a mesh every clock reading a policy acts on (the
+deadline stamps, the shed and degrade decisions, the cost model's round
+times) is rank 0's, broadcast, so the ranks never disagree on a decision.
+GROUP BY blocks and migration stay single-shard.
 """
 from __future__ import annotations
 
@@ -62,9 +75,12 @@ from ..core import keys as keylib
 from ..core.fused import (LaneParams, LaneState, bucket_ladder, fused_step,
                           grouped_seg_cap, init_lane_state, lane_boot_seed,
                           make_group_lane_params, make_lane_params,
-                          resolve_ext_cap)
-from ..core.sampling import (GroupedData, counter_slot_table,
-                             stratified_slot_tables)
+                          make_shard_spec, make_sharded_lane_params,
+                          make_sharded_step, resolve_ext_cap,
+                          resolve_seg_window)
+from ..core.mesh import make_data_mesh
+from ..core.sampling import (GroupedData, ShardLayout, counter_slot_table,
+                             sharded_slot_tables, stratified_slot_tables)
 from ..kernels import resolve_use_kernel
 from .slo import PILOT_B_FLOOR, AdmissionController, FairQueue, predict_n0
 
@@ -250,17 +266,14 @@ def _migrate(src_st: LaneState, src_pr: LaneParams, dst_st: LaneState,
     src_st.done[src_lane] = True
 
 
-def _later(item: str):
-    return NotImplementedError(f"not ported yet: ROADMAP Queue 1 item {item}")
-
-
 class LanePool:
     """A fixed pool of query lanes with width-aware admission and
     retire-and-refill.  ``ticks_per_sync`` trades host round-trips against
     refill granularity; ``tiers="auto"`` splits an even pool into two width
     tiers.  ``degrade``/``wfq``/``tenant_weights``/``migrate`` arm the
-    overload policies; sharding (``data_shards``, ``mesh``) is a later slice
-    and raises."""
+    overload policies.  ``data_shards > 1`` shards the pool: ``mesh=False``
+    on one device, a :class:`~repro_torch.core.mesh.DataMesh` as one rank of
+    it, ``None`` the default process group's mesh."""
 
     def __init__(self, data: GroupedData, *, lanes: int = 4, B: int = 300,
                  n_min: int = 1000, n_max: int = 2000, max_iters: int = 24,
@@ -273,8 +286,6 @@ class LanePool:
                  mesh=None, degrade: bool = False, wfq: bool = False,
                  tenant_weights: Optional[Dict[str, float]] = None,
                  migrate: bool = False, max_degrade: float = 8.0):
-        if data_shards != 1 or mesh is not None:
-            raise _later("14 (sharded pool)")
         self.data = data
         self.device = data.device
         self.lanes = int(lanes)
@@ -290,15 +301,45 @@ class LanePool:
         self._offsets = np.asarray(data.offsets)
         self._family = {e.name: i
                         for i, e in enumerate(estimators.moment_family())}
-        self._values = data.values
-        self._spec = dict(
-            est_name=None, B=B, n_min=n_min, n_max=n_max,
-            l=int(l if l is not None else min(m + 2, 12)), tau=1e-3,
-            max_iters=max_iters, n_cap=n_cap, metric=metric,
-            growth_cap=growth_cap,
-            ext_cap=resolve_ext_cap(n_cap, n_max, ext_cap), adaptive=True,
-            use_kernel=resolve_use_kernel(use_kernel, self.device),
-            gate_gather=gate_gather)
+        self.data_shards = int(data_shards)
+        self._layout: Optional[ShardLayout] = None
+        self._mesh = None
+        l = int(l if l is not None else min(m + 2, 12))
+        if self.data_shards > 1:
+            self._layout = ShardLayout.build(self._offsets, n_cap=n_cap,
+                                             num_shards=self.data_shards)
+            if mesh is not False:
+                self._mesh = (mesh if mesh is not None
+                              else make_data_mesh(self.data_shards))
+                if self._mesh.size != self.data_shards:
+                    raise ValueError(
+                        f"mesh has {self._mesh.size} ranks; pool wants "
+                        f"data_shards={self.data_shards}")
+                # A rank places only its row block, on its own device.
+                self.device = self._mesh.device
+                self._values = self._layout.block_values(
+                    data.values, self._mesh.rank).to(self.device)
+            else:
+                self._values = self._layout.pad_values(data.values)
+            self._shard_spec = make_shard_spec(self._layout,
+                                               device=self.device)
+            self._spec = dict(
+                est_name=None, B=B, n_min=n_min, n_max=n_max, l=l,
+                tau=1e-3, max_iters=max_iters, n_cap=n_cap, metric=metric,
+                growth_cap=growth_cap,
+                seg_window=resolve_seg_window(n_cap, n_max, self.data_shards,
+                                              ext_cap),
+                use_kernel=resolve_use_kernel(use_kernel, self.device),
+                data_shards=self.data_shards)
+        else:
+            self._values = data.values
+            self._spec = dict(
+                est_name=None, B=B, n_min=n_min, n_max=n_max, l=l, tau=1e-3,
+                max_iters=max_iters, n_cap=n_cap, metric=metric,
+                growth_cap=growth_cap,
+                ext_cap=resolve_ext_cap(n_cap, n_max, ext_cap), adaptive=True,
+                use_kernel=resolve_use_kernel(use_kernel, self.device),
+                gate_gather=gate_gather)
         self.ticks_per_sync = int(ticks_per_sync)
         self.key = keylib.prng_key(seed)
         if sample_key is None:
@@ -307,15 +348,28 @@ class LanePool:
         keys0 = keylib.split(keylib.prng_key(seed), self.lanes)
         tl = self.tier_lanes
         self._tiers: List[_Tier] = []
+        # A mesh rank's buffers hold its own segment of the slot axis.
+        buf_cap = n_cap if self._mesh is None else self._layout.seg_cap
         for ti in range(self.tiers):
             tkeys = keys0[ti * tl:(ti + 1) * tl]
-            params = make_lane_params(
-                self._offsets, np.ones((tl, m), np.float32), tkeys,
-                np.ones((tl,), np.float32), np.full((tl,), 0.05, np.float32),
-                self._sample_key, np.zeros((tl,), np.int32), n_cap=n_cap,
-                device=self.device)
+            if self._layout is not None:
+                params = make_sharded_lane_params(
+                    self._layout, np.ones((tl, m), np.float32), tkeys,
+                    np.ones((tl,), np.float32),
+                    np.full((tl,), 0.05, np.float32), self._sample_key,
+                    np.zeros((tl,), np.int32),
+                    local_rows=self._mesh is not None, device=self.device)
+                params = params._replace(
+                    slot_idx=self._own_tables(params.slot_idx))
+            else:
+                params = make_lane_params(
+                    self._offsets, np.ones((tl, m), np.float32), tkeys,
+                    np.ones((tl,), np.float32),
+                    np.full((tl,), 0.05, np.float32), self._sample_key,
+                    np.zeros((tl,), np.int32), n_cap=n_cap,
+                    device=self.device)
             state = init_lane_state(
-                tkeys, m, n_cap=n_cap, c_dim=data.values.shape[1], p_dim=1,
+                tkeys, m, n_cap=buf_cap, c_dim=data.values.shape[1], p_dim=1,
                 n_min=n_min, max_iters=max_iters, device=self.device,
                 dtype=data.values.dtype)
             # Empty lanes are parked as ``done``: the step freezes them
@@ -330,7 +384,8 @@ class LanePool:
         # and steps on the dummy offsets [0, N]: its slot tables already
         # hold global rows.
         self._blocks: Dict[int, _Block] = {}
-        self._gseg_cap = grouped_seg_cap(self._offsets, n_cap)
+        self._gseg_cap = (grouped_seg_cap(self._offsets, n_cap)
+                          if self.data_shards == 1 else 0)
         self._goffsets = [0, int(self._offsets[-1])]
         self._gtables: Optional[torch.Tensor] = None  # per sample epoch
         self._pending_sample_key: Optional[np.ndarray] = None
@@ -342,7 +397,10 @@ class LanePool:
             bucket_ladder(n_cap, n_max), num_groups=m, n_min=n_min,
             max_degrade=max_degrade) if degrade else None
         self._wfq = FairQueue(tenant_weights) if wfq else None
-        self.migrate_enabled = bool(migrate) and self.tiers >= 2
+        self.migrate_enabled = (bool(migrate) and self.tiers >= 2
+                                and self.data_shards == 1)
+        # Under a mesh a policy that reads the clock takes rank 0's reading.
+        self._sync_clock = self._mesh is not None and degrade
         self.shed = 0             # requests answered by pilot, never laned
         self.degraded = 0         # requests admitted at a relaxed epsilon
         self.migrations = 0       # cross-tier lane moves
@@ -362,6 +420,23 @@ class LanePool:
         self.peak_queue_depth = 0
         self._active_frac_sum = 0.0
         self._retired_rows = 0
+        # Per-shard slot residency of retired queries (a single-shard pool
+        # reports one shard).
+        self._shard_rows_retired = np.zeros((self.data_shards,), np.int64)
+
+    def _own_tables(self, tables: torch.Tensor) -> torch.Tensor:
+        """This pool's slice of stacked ``(S, m, seg_cap)`` slot tables: a
+        mesh rank keeps its own ``(1, m, seg_cap)`` local table."""
+        if self._mesh is None:
+            return tables
+        r = self._mesh.rank
+        return tables[r:r + 1].contiguous()
+
+    def _clock(self) -> float:
+        """``time.perf_counter()``, rank 0's under a mesh while a policy
+        that acts on it (degrade) is armed."""
+        t = time.perf_counter()
+        return self._mesh.broadcast_float(t) if self._sync_clock else t
 
     # -- admission ----------------------------------------------------------
     @property
@@ -437,7 +512,7 @@ class LanePool:
             qid=qid, func=query.func, fid=self._family[query.func],
             epsilon=float(query.epsilon), delta=float(query.delta),
             key=keylib.as_key(key), scale_row=scale_row,
-            submitted_s=time.perf_counter(), priority=int(priority),
+            submitted_s=self._clock(), priority=int(priority),
             deadline_at=deadline_at, warm_n0=warm_n0, warm_beta=warm_beta,
             tenant=str(tenant), vft=vft)
         if self._slo is not None and deadline_at is not None and (
@@ -453,8 +528,9 @@ class LanePool:
 
     def supports_grouped(self, query: Query) -> bool:
         """Whether this pool can serve ``query`` as a grouped lane block
-        (the clause constraints of :meth:`supports`, GROUP BY or not)."""
-        return (query.func in self._family
+        (the clause constraints of :meth:`supports`, GROUP BY or not, on a
+        single-shard pool: the packed shared scan is not sharded)."""
+        return (self.data_shards == 1 and query.func in self._family
                 and query.metric == self._spec["metric"]
                 and query.epsilon is not None and query.predicate is None)
 
@@ -484,7 +560,7 @@ class LanePool:
                 f"lane pool cannot serve grouped func={query.func!r} "
                 f"metric={query.metric!r} (needs a moment-family func, "
                 f"metric {self._spec['metric']!r}, absolute epsilon, no "
-                f"predicate)")
+                f"predicate, data_shards == 1)")
         if key is None:
             self.key, key = keylib.split(self.key)
         key = keylib.as_key(key)
@@ -537,7 +613,7 @@ class LanePool:
     def _refill(self) -> None:
         if not self._queue:
             return
-        now = time.perf_counter()
+        now = self._clock()
         if self._slo is not None:
             # A queued ticket whose deadline passed while it waited is
             # answered by pilot now instead of taking a lane.
@@ -608,7 +684,8 @@ class LanePool:
         if self._pilot_tab is None:
             self._pilot_tab = counter_slot_table(
                 self._sample_key, self._offsets[:-1],
-                self._group_sizes_host, self._pilot_n(), device=self.device)
+                self._group_sizes_host, self._pilot_n(),
+                device=self.data.device)
         return self._pilot_tab
 
     def _pilot_n(self) -> int:
@@ -616,19 +693,20 @@ class LanePool:
 
     def _pilot_estimate(self, tk: _Ticket, B: int):
         """One ``n_min``-wide stratified pilot ESTIMATE through the generic
-        bootstrap, gathered from the resident table on its device: ``(e,
-        theta (m, 1))`` as host values, one host read."""
+        bootstrap, gathered from the unsharded table on its device (every
+        layout sheds alike): ``(e, theta (m, 1))`` as host values, one host
+        read."""
         tab = self._pilot_table()
         n_pilot = tab.shape[1]
-        sample = self._values[tab.to(torch.int64)]             # (m, n, c)
+        dev = self.data.device
+        sample = self.data.values[tab.to(torch.int64)]         # (m, n, c)
         sizes = torch.as_tensor(
-            np.minimum(self._group_sizes_host, n_pilot), device=self.device)
-        mask = (torch.arange(n_pilot, device=self.device)[None, :]
+            np.minimum(self._group_sizes_host, n_pilot), device=dev)
+        mask = (torch.arange(n_pilot, device=dev)[None, :]
                 < sizes[:, None]).to(torch.float32)
         e, theta = bootstrap.estimate_error(
             estimators.get(tk.func), sample, mask,
-            torch.as_tensor(tk.scale_row, dtype=torch.float32,
-                            device=self.device),
+            torch.as_tensor(tk.scale_row, dtype=torch.float32, device=dev),
             tk.key, tk.delta, B=B, metric=self._spec["metric"])
         host = torch.cat([e.reshape(1), theta.reshape(-1)]).cpu().numpy()
         return float(host[0]), host[1:].reshape(theta.shape)
@@ -654,6 +732,7 @@ class LanePool:
         self.shed += 1
         self.retired += 1
         self._retired_rows += rows
+        self._shard_rows_retired[0] += rows
 
     def _harvest(self) -> int:
         """Retire finished lanes; returns the number retired this sync."""
@@ -707,6 +786,11 @@ class LanePool:
                 tier.occupant[lane] = None
                 self.retired += 1
                 self._retired_rows += rows
+                if self._layout is not None:
+                    self._shard_rows_retired += self._layout.shard_rows(
+                        filled[lane])
+                else:
+                    self._shard_rows_retired[0] += rows
                 n_retired += 1
         return n_retired
 
@@ -746,6 +830,7 @@ class LanePool:
             self.retired += 1
             self.grouped_retired += 1
             self._retired_rows += rows
+            self._shard_rows_retired[0] += rows
             finished.append(qid)
         for qid in finished:
             del self._blocks[qid]
@@ -792,7 +877,7 @@ class LanePool:
         busy tier and per resident block (one dispatch each), harvest, feed
         the cost model, maybe migrate a straggler.  Returns busy lanes +
         blocks."""
-        t0 = time.perf_counter()
+        t0 = self._clock()
         self._maybe_rotate()
         self._refill()
         ran = False
@@ -802,9 +887,18 @@ class LanePool:
             if not busy:
                 continue
             round_rung = max(round_rung, tier.width)
-            tier.state = fused_step(
-                self._values, self._offsets, tier.state, tier.params,
-                num_ticks=self.ticks_per_sync, **self._spec)
+            if self._mesh is not None:
+                step = make_sharded_step(
+                    self._mesh, num_ticks=self.ticks_per_sync, **self._spec)
+                tier.state = step(self._values, tier.state, tier.params,
+                                  self._shard_spec)
+            else:
+                # One device; a sharded pool's spec carries its exact
+                # per-segment window and runs the sequential segment fold.
+                tier.state = fused_step(
+                    self._values, self._offsets, tier.state, tier.params,
+                    self._shard_spec if self._layout is not None else None,
+                    num_ticks=self.ticks_per_sync, **self._spec)
             self.dispatches += 1
             self.lane_ticks_busy += busy * self.ticks_per_sync
             self._active_frac_sum += busy / self.tier_lanes
@@ -826,7 +920,7 @@ class LanePool:
             # The harvest's host read closed the round: the wall time covers
             # dispatch and sync.
             self._slo.cost.observe_round(
-                time.perf_counter() - t0, self.ticks_per_sync, round_rung)
+                self._clock() - t0, self.ticks_per_sync, round_rung)
         self._maybe_migrate()
         return self.busy_lanes + self.busy_blocks
 
@@ -867,9 +961,14 @@ class LanePool:
 
     def _apply_sample_key(self, sample_key) -> None:
         self._sample_key = keylib.as_key(sample_key)
-        slot_idx = counter_slot_table(
-            self._sample_key, self._offsets[:-1], np.diff(self._offsets),
-            self._spec["n_cap"], device=self.device)
+        if self._layout is not None:
+            slot_idx = self._own_tables(sharded_slot_tables(
+                self._sample_key, self._layout,
+                local_rows=self._mesh is not None, device=self.device))
+        else:
+            slot_idx = counter_slot_table(
+                self._sample_key, self._offsets[:-1], np.diff(self._offsets),
+                self._spec["n_cap"], device=self.device)
         for tier in self._tiers:
             tier.params = tier.params._replace(slot_idx=slot_idx)
         self._gtables = None
@@ -879,9 +978,33 @@ class LanePool:
     # -- accounting ---------------------------------------------------------
     def bucket_of(self, watermark: int) -> int:
         """The ESTIMATE bucket width a lane with ``watermark`` filled rows
-        rides at -- what placement and migration minimize."""
-        widths = bucket_ladder(self._spec["n_cap"], self._spec["n_max"])
+        rides at -- what placement and migration minimize.  A sharded
+        pool's buckets cover SEGMENT fills: the watermark is first scaled by
+        the layout's largest per-shard share (a placement cost model only)."""
+        n_cap, n_max = self._spec["n_cap"], self._spec["n_max"]
+        if self._layout is not None:
+            seg_cap = self._layout.seg_cap
+            widths = bucket_ladder(seg_cap, min(n_max, seg_cap))
+            watermark = int(np.ceil(
+                watermark * self._layout.max_shard_frac()))
+        else:
+            widths = bucket_ladder(n_cap, n_max)
         return next((w for w in widths if watermark <= w), widths[-1])
+
+    def shard_dispatch_rows(self) -> np.ndarray:
+        """(S,) per-shard slot residency: retired queries' shares plus the
+        resident lanes' watermarks pushed through the layout's ownership
+        tables -- how the gather and bootstrap work split over the shards."""
+        out = self._shard_rows_retired.copy()
+        for t in self._tiers:
+            for i, tk in enumerate(t.occupant):
+                if tk is None:
+                    continue
+                if self._layout is not None:
+                    out += self._layout.shard_rows(t.filled_host[i])
+                else:
+                    out[0] += int(t.filled_host[i].sum())
+        return out
 
     def stats(self) -> Dict[str, float]:
         cap = max(self.ticks * self.lanes, 1)
@@ -893,6 +1016,8 @@ class LanePool:
         return {
             "lanes": self.lanes,
             "tiers": self.tiers,
+            "data_shards": self.data_shards,
+            "shard_rows": [int(x) for x in self.shard_dispatch_rows()],
             "ticks_per_sync": self.ticks_per_sync,
             "ticks": self.ticks,
             "dispatches": self.dispatches,

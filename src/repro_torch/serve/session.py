@@ -29,6 +29,13 @@ deadline-carrying fusable request to the pool, where it can be degraded or
 shed.  Responses carry the delivered contract (``delivered_epsilon``,
 ``delivered_B``, ``degraded``, ``shed``).
 
+``data_shards``/``mesh`` shard the pool (:class:`~.lane_pool.LanePool`);
+the planner's lane ceiling scales with the shard count and every GROUP BY
+request of a sharded session takes the HOST route.  Under a
+:class:`~repro_torch.core.mesh.DataMesh` every rank runs the same session
+on the same requests (SPMD), and with ``degrade`` the submit stamps a
+deadline is measured from are rank 0's.
+
 Sample reuse: one resident ``SampleStore`` per dataset, shared by the host
 engine and every HOST request, and one ``sample_key`` per epoch pinning the
 fused slot->row binding.  The epoch rotates after ``reshuffle_every``
@@ -51,6 +58,7 @@ from ..aqp.query import Query, Request
 from ..core import estimators
 from ..core import keys as keylib
 from ..core.fused import fused_l2miss_batch
+from ..core.mesh import DataMesh
 from ..core.sampling import GroupedData, SampleStore
 from ..kernels import resolve_use_kernel
 from .lane_pool import GroupPoolResponse, LanePool
@@ -120,13 +128,10 @@ class _InFlight:
     warm_beta: Optional[np.ndarray] = None  # its cached coefficients
 
 
-def _later(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1)")
-
-
 class AQPSession:
     """Serve Listing-1 requests asynchronously against one resident
-    GroupedData (on its device)."""
+    GroupedData (on its device); ``data_shards``/``mesh`` as
+    :class:`~.lane_pool.LanePool` takes them."""
 
     def __init__(self, data: GroupedData, *, B: int = 300,
                  n_min: int = 1000, n_max: int = 2000, max_iters: int = 24,
@@ -140,8 +145,6 @@ class AQPSession:
                  degrade: bool = False, wfq: bool = False,
                  tenant_weights: Optional[Dict[str, float]] = None,
                  migrate: bool = False, max_degrade: float = 8.0):
-        if data_shards != 1 or mesh is not None:
-            raise _later("the sharded pool (item 14)")
         self.data = data
         self.store = SampleStore(data, seed=seed)
         self.engine = AQPEngine(data, B=B, n_min=n_min, n_max=n_max,
@@ -156,8 +159,13 @@ class AQPSession:
         self.tenant_weights = tenant_weights
         self.migrate = bool(migrate)
         self.max_degrade = float(max_degrade)
+        # A data mesh multiplies pool capacity: the planner's lane ceiling
+        # scales with it; the rest of the scheduler is unaware of it.
+        self.data_shards = max(int(data_shards), 1)
+        self.mesh = mesh
         self.planner = (planner if planner is not None
-                        else Planner(slo_native=self.degrade))
+                        else Planner(data_shards=self.data_shards,
+                                     slo_native=self.degrade))
         self.pool_tiers = pool_tiers
         self.key = keylib.prng_key(seed)
         self._m = data.num_groups
@@ -206,8 +214,11 @@ class AQPSession:
                 f"wrap the Query: Request(query=...)")
         if request.rid in self._inflight or request.rid in self._results:
             raise ValueError(f"request id {request.rid} already submitted")
-        ticket = SessionTicket(rid=request.rid,
-                               submitted_s=time.perf_counter())
+        now = time.perf_counter()
+        if self.degrade and isinstance(self.mesh, DataMesh):
+            # The deadline clock of every rank: rank 0's.
+            now = self.mesh.broadcast_float(now)
+        ticket = SessionTicket(rid=request.rid, submitted_s=now)
         entry = _InFlight(ticket=ticket, request=request,
                           key=None if key is None else keylib.as_key(key))
         self._inflight[request.rid] = entry
@@ -398,7 +409,8 @@ class AQPSession:
             n_max=self.n_max, max_iters=self.max_iters, n_cap=self.n_cap,
             use_kernel=self.use_kernel, seed=self.seed,
             sample_key=self._sample_key, ticks_per_sync=ticks_per_sync,
-            tiers=self.pool_tiers, degrade=self.degrade, wfq=self.wfq,
+            tiers=self.pool_tiers, data_shards=self.data_shards,
+            mesh=self.mesh, degrade=self.degrade, wfq=self.wfq,
             tenant_weights=self.tenant_weights, migrate=self.migrate,
             max_degrade=self.max_degrade)
         self.planner.built_pool(lanes)
@@ -617,7 +629,7 @@ class AQPSession:
     def _run_host(self, entry: _InFlight) -> None:
         """The host engine: metrics, bounds, predicates and functions the
         fused program cannot run; grouped clauses a pool block cannot serve
-        (predicates, relative bounds)."""
+        (predicates, relative bounds, any clause of a sharded session)."""
         t0 = time.perf_counter()
         if entry.request.query.group_by:
             return self._run_host_grouped(entry, t0)

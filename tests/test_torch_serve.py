@@ -19,7 +19,7 @@ from repro.serve import (AQPSession as JSession, LanePool as JPool,
                          Planner as JPlanner, Route as JRoute)
 from repro_torch.aqp.query import Query, Request
 from repro_torch.core import estimators
-from repro_torch.core.fused import fused_l2miss
+from repro_torch.core.fused import fused_l2miss, fused_l2miss_lanes
 from repro_torch.core.sampling import GroupedData
 from repro_torch.data import make_grouped
 from repro_torch.serve import AQPSession, LanePool, Planner, Route
@@ -172,13 +172,41 @@ def test_pool_lane_equals_solo_run_bit_exact(cont):
 
 
 def test_later_slices_raise(cont):
-    """Only the sharded pool (ROADMAP Queue 1 item 14) is left to port: the
-    warm and SLO options are accepted, warm rows come both or neither."""
+    """Every pool and session option of the reference is ported: sharding
+    (``data_shards`` with ``mesh=False`` here; the mesh in
+    test_torch_mesh.py) is accepted with the reference's ValueErrors, and
+    without an initialised process group a mesh pool raises instead of
+    falling back to one process; the warm and SLO options are accepted,
+    warm rows come both or neither."""
     td = cont[1]
-    with pytest.raises(NotImplementedError):
-        LanePool(td, data_shards=2)
-    with pytest.raises(NotImplementedError):
-        AQPSession(td, data_shards=2)
+    pool = LanePool(td, lanes=2, data_shards=2, mesh=False, **SPEC)
+    assert pool.stats()["data_shards"] == 2
+    AQPSession(td, data_shards=2, **SESSION_KW)
+    AQPSession(td, data_shards=2, mesh=False, **SESSION_KW)
+    with pytest.raises(ValueError):           # no process group to mesh over
+        LanePool(td, lanes=2, data_shards=2, **SPEC)
+    with pytest.raises(ValueError):           # n_cap % data_shards
+        LanePool(td, lanes=2, data_shards=3, mesh=False, **SPEC)
+    with pytest.raises(ValueError):           # n_max > one segment
+        LanePool(td, lanes=2, data_shards=16, mesh=False,
+                 **{**SPEC, "n_max": 600})
+
+    class _Mesh:                              # a 4-rank mesh's fields
+        size, rank, device = 4, 0, torch.device("cpu")
+
+    with pytest.raises(ValueError):           # mesh size != data_shards
+        LanePool(td, lanes=2, data_shards=2, mesh=_Mesh(), **SPEC)
+    key = np.asarray(jax.random.PRNGKey(1), np.uint32)
+    with pytest.raises(ValueError):           # per-lane sample keys
+        fused_l2miss_lanes(td.values, td.offsets, np.ones((2, 2), np.float32),
+                           np.stack([key, key]), np.full(2, 0.1, np.float32),
+                           np.full(2, 0.05, np.float32),
+                           sample_keys=np.stack([key, key]), data_shards=2,
+                           **SPEC)
+    with pytest.raises(ValueError):           # warm rows, closed sharded loop
+        fused_l2miss(td.values, td.offsets, np.ones(2, np.float32), key, 0.1,
+                     0.05, warm_n0=np.full(2, 400), warm_beta=np.ones(3),
+                     data_shards=2, **SPEC)
     LanePool(td, lanes=2, degrade=True, wfq=True, tenant_weights={"a": 2.0},
              migrate=True, **SPEC)
     AQPSession(td, warm_cache=True, degrade=True, wfq=True,
