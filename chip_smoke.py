@@ -132,12 +132,47 @@ non-zero and nothing falls back to the CPU:
    ``AQPSession(data_shards=4, mesh=False)`` (forced POOL, the reference
    defaults, so a segment holds 16 384 slots): every request succeeds with
    error <= epsilon, 14 of 16 within epsilon of numpy; then 2 of phase 7's
-   GROUP BY requests on the TAX table take the HOST route; then the result
-   lines: a JSON object of kernel measurements, then ``{"ok": true,
+   GROUP BY requests on the TAX table take the HOST route;
+19. the baselines at real size (paper Figures 3 and 4): on phase 6's table,
+   avg at epsilon = 1 % of the L2 norm of the exact answers
+   (``AQPEngine.exact``, the segment-aggregate kernel), delta 0.05,
+   ``run_l2miss`` (B 200, n_min 1000, n_max 2000, the Poisson kernel's
+   moments entry), ``run_blk``, ``run_sps`` at epsilon_rel 1 % and
+   ``run_minibatch`` (step 2000, B 200), each printed with its success,
+   rows touched, iterations, wall and L2 error against the exact answers:
+   L2Miss and BLK within 2 epsilon, SPS's rows at least its full scan,
+   L2Miss under SPS's rows; then lineitem SF10 GROUP BY LINESTATUS with a
+   5 % group bias: ``run_ordermiss`` and ``run_ifocus`` both order the
+   groups as the exact answers do;
+20. MISS for the LM at full width: Qwen3-1.7B (QK norm, bf16, seeded
+   weights) and the pipeline's ``eval_domains(151936, 3 x 512 x 64)`` on
+   the card; ``MissEvaluator`` (delta 0.1, B 200, n_min 32, n_max 64) at
+   epsilon = 2 sigma sqrt(3/256) from a pilot of 64 losses a domain must
+   succeed with fewer model forwards than the full eval (run after it),
+   within 2 epsilon of it; ``mixture_statistics`` on 3 lognormal domains of
+   4 M documents (rtol 0.06 against numpy's means, fewer documents scanned
+   than held, through the Poisson kernel); ``estimate_router_load`` with the
+   reference test's synthetic router (E = 8) at epsilon 0.01 within 2
+   epsilon of the true load;
+21. the dense variants: (a) the decode-attention kernel with a sliding
+   window against its plain version at h2o-danube's decode shape (8 rows,
+   32 query over 8 KV heads, d = 120 and 128, window 4096, S_max 8192, f32
+   and bf16, lengths below, at and past the window, positions outside each
+   window poisoned), timed from a CUDA graph against the byte bound over
+   the windows' rows, the plain version and SDPA with the window mask;
+   (b) reduced qwen3-1.7b, h2o-danube-3-4b (window 16) and
+   command-r-plus-104b card == cpu as phase 10; (c) h2o-danube-3-4b in f32
+   at full width and depth: 16 greedy steps past a 4 200-token prompt
+   against teacher forcing's logits (phase 11's tolerance); (d) the
+   h2o-danube bf16 serve: 16 prompts of 3 000-6 000 tokens, 32 new tokens
+   each, through ``ContinuousBatcher(slots=8, s_max=8192)``; (e)
+   Qwen3-1.7B bf16 at phase 12's serve shape; (f) command-r-plus-104b at
+   full width cut to 4 of its 64 layers, 8 requests of 16 tokens; then the
+   result lines: a JSON object of kernel measurements, then ``{"ok": true,
    "device": {...}}`` as the last line.
 
-Phases 6, 7, 12, 14, 16 and 18 are the main paths: every kernel's launch
-count is set to 0 just before each and read just after; the launches of the
+Phases 6, 7, 12, 14, 16, 18, 19, 20 and 21(d-f) are the main paths: every
+kernel's launch count is set to 0 just before each and read just after; the launches of the
 other phases (the comparisons with the plain versions) count nowhere, but
 phase 15's and phase 17's are printed and kept in the kernels line.
 
@@ -1431,16 +1466,19 @@ def _lm_small_serve(cfg, params, prompts, eos):
     return {r.rid: list(map(int, r.out_tokens)) for r in b.run()}
 
 
-def phase_lm_card_vs_cpu():
+def phase_lm_card_vs_cpu(arch: str = LM_ARCH, window=None):
     """The reduced LM on the card (kernel) against the CPU (plain version):
-    the CPU serve test's weights and prompts."""
+    the CPU serve test's weights and prompts (``window`` overrides the
+    config's sliding window)."""
     from repro_torch.configs import get_config
     from repro_torch.convert import lm_params_from_numpy, lm_tree_from_seed
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.models import model as M
     from repro_torch.models.config import reduced_for_smoke
 
-    cfg = reduced_for_smoke(get_config(LM_ARCH))
+    cfg = reduced_for_smoke(get_config(arch))
+    if window is not None:
+        cfg = dataclasses.replace(cfg, sliding_window=window)
     tree = lm_tree_from_seed(cfg, 2)
     rng = np.random.default_rng(9)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -1469,7 +1507,7 @@ def phase_lm_card_vs_cpu():
     err = float(np.abs(logs[0] - logs[1]).max())
     check(np.allclose(logs[0], logs[1], **LM_TOL),
           f"LM logits card != cpu (max abs err {err})")
-    print(f"  reduced {LM_ARCH}: batcher tokens card == cpu for "
+    print(f"  reduced {arch}: batcher tokens card == cpu for "
           f"{len(card)} requests ({launched} kernel launches on the card), "
           f"prefill + 3 decode logits max abs err {err:.3g}")
 
@@ -1524,12 +1562,13 @@ def lm_requests(cfg):
     return [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
 
 
-def run_lm_serve(cfg, params, prompts) -> dict:
+def run_lm_serve(cfg, params, prompts, *, slots: int = LM_SLOTS,
+                 s_max: int = LM_S_MAX, new: int = LM_NEW) -> dict:
     """One ContinuousBatcher serve of ``prompts``; host-clock times around
     work that ends in a host read (each splice and step reads tokens)."""
     from repro_torch.serve.batching import ContinuousBatcher, Request
 
-    batcher = ContinuousBatcher(cfg, params, slots=LM_SLOTS, s_max=LM_S_MAX)
+    batcher = ContinuousBatcher(cfg, params, slots=slots, s_max=s_max)
     splice_s, step_s, steps = [], [], [0]
     splice, decode = batcher._splice, batcher._decode
 
@@ -1543,7 +1582,7 @@ def run_lm_serve(cfg, params, prompts) -> dict:
         return decode(*a)
 
     batcher._splice, batcher._decode = timed_splice, counted_decode
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=LM_NEW)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new)
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1565,29 +1604,39 @@ def run_lm_serve(cfg, params, prompts) -> dict:
                 step_s=step_s, steps=steps[0], latency_s=done_s)
 
 
-def phase_lm_serve():
-    """Qwen2-1.5B bf16 at full width: 16 requests through 8 slots."""
+def phase_lm_serve(arch: str = LM_ARCH, *, n_layers=None, prompts=None,
+                   warm=None, slots: int = LM_SLOTS, s_max: int = LM_S_MAX,
+                   new: int = LM_NEW) -> dict:
+    """An LM in bf16 at full width (``n_layers`` cuts the depth): by default
+    phase 12's 16 requests through 8 slots; ``warm`` prompts (default the
+    first two) run first, outside the count.  Returns every kernel's
+    launches in the counted serve."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t = time.perf_counter()
     params = M.init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    print(f"  {LM_ARCH} bf16: {M.count_params(params) / 1e9:.3f} B params, "
-          f"built in {time.perf_counter() - t:.1f} s")
-    prompts = lm_requests(cfg)
-    run_lm_serve(cfg, params, prompts[:2])          # warm-up: first calls
+    print(f"  {arch} bf16, {cfg.n_layers} of {get_config(arch).n_layers} "
+          f"layers: {M.count_params(params) / 1e9:.3f} B params, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, built "
+          f"in {time.perf_counter() - t:.1f} s")
+    prompts = lm_requests(cfg) if prompts is None else prompts
+    kw = dict(slots=slots, s_max=s_max, new=new)
+    run_lm_serve(cfg, params, prompts[:2] if warm is None else warm, **kw)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    st = run_lm_serve(cfg, params, prompts)
+    st = run_lm_serve(cfg, params, prompts, **kw)
     counts = read_counts()
     n_da = counts["decode_attention"]
     done = st["done"]
-    check(len(done) == LM_REQUESTS, f"{len(done)} of {LM_REQUESTS} requests "
-                                    f"completed")
+    check(len(done) == len(prompts), f"{len(done)} of {len(prompts)} "
+                                     f"requests completed")
     for r in done:
-        check(len(r.out_tokens) == LM_NEW,
+        check(len(r.out_tokens) == new,
               f"request {r.rid} has {len(r.out_tokens)} tokens")
         check(all(0 <= x < cfg.vocab_size for x in r.out_tokens),
               f"request {r.rid}: token out of the vocabulary")
@@ -1602,8 +1651,9 @@ def phase_lm_serve():
           f"{st['steps']} decode steps, decode step mean "
           f"{step_ms.mean():.2f} ms p50 {np.percentile(step_ms, 50):.2f} ms; "
           f"prefill (+splice) mean {np.mean(st['splice_s']) * 1e3:.2f} ms "
-          f"over {len(st['splice_s'])} prompts of {LM_PROMPT[0]}-"
-          f"{LM_PROMPT[1]} tokens; latency (submit -> last token) p50 "
+          f"over {len(st['splice_s'])} prompts of "
+          f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens; "
+          f"latency (submit -> last token) p50 "
           f"{np.percentile(lat, 50):.2f} ms p99 {np.percentile(lat, 99):.2f} "
           f"ms; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB;"
           f" decode-attention launches {n_da}")
@@ -2599,6 +2649,468 @@ def phase_sharded_serve(data, tax, p50_solo: float):
     return add_counts(pool_counts, host_counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the baselines at real size (paper Figures 3 and 4)
+# ---------------------------------------------------------------------------
+
+BASE_CFG = dict(delta=0.05, B=200, n_min=1000, n_max=2000, max_iters=60,
+                seed=0)          # benchmarks/bench_efficiency.py's L2Miss
+
+
+def _l2(theta, exact) -> float:
+    return float(np.linalg.norm(np.ravel(theta) - np.ravel(exact)))
+
+
+def phase_baselines(data):
+    """Fig. 3 on phase 6's table (GROUP BY SHIPINSTRUCT, avg at epsilon = 1 %
+    of the exact answers' L2 norm, delta 0.05): L2Miss through the moments
+    entry, BLK, SPS at epsilon_rel 1 % and MiniBatch (step 2000, B 200),
+    scored against ``AQPEngine.exact``; Fig. 4 on lineitem SF10 GROUP BY
+    LINESTATUS with a 5 % group bias: OrderMiss against IFocus.  Returns
+    every kernel's launches in the phase."""
+    from repro_torch.aqp import AQPEngine, Query
+    from repro_torch.core import baselines as bl
+    from repro_torch.core.extensions import run_ordermiss
+    from repro_torch.core.l2miss import MissConfig, run_l2miss
+    from repro_torch.data import add_group_bias
+
+    reset_counts()
+    t0 = time.perf_counter()
+    exact = AQPEngine(data).exact(Query(func="avg", epsilon=1.0))[:, 0]
+    eps = 0.01 * float(np.linalg.norm(exact))
+    rows = {}
+
+    def run(name, fn):
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        theta = res.theta if res.theta is not None else np.zeros_like(exact)
+        rows[name] = dict(success=bool(res.success),
+                          rows=int(res.total_sampled),
+                          iterations=int(res.iterations), wall_s=wall,
+                          l2_err=_l2(theta, exact),
+                          n=np.asarray(res.n).tolist())
+        r = rows[name]
+        print(f"  fig3 {name:9s} success={r['success']} rows touched "
+              f"{r['rows']:>10d} iterations {r['iterations']:>3d} wall "
+              f"{wall:8.3f} s  L2 error vs exact {r['l2_err']:10.3f} "
+              f"(eps {eps:.3f})  n={r['n']}")
+        return res
+
+    run("L2Miss", lambda: run_l2miss(data, "avg", MissConfig(epsilon=eps,
+                                                             **BASE_CFG)))
+    run("BLK", lambda: bl.run_blk(data, "avg", eps, 0.05))
+    run("SPS", lambda: bl.run_sps(data, "avg", 0.01, 0.05))
+    run("MiniBatch", lambda: bl.run_minibatch(data, "avg", eps, 0.05,
+                                              step=2000, B=200))
+    check(rows["L2Miss"]["success"] and rows["L2Miss"]["l2_err"] <= 2 * eps,
+          f"L2Miss: {rows['L2Miss']}")
+    check(rows["BLK"]["success"] and rows["BLK"]["l2_err"] <= 2 * eps,
+          f"BLK: {rows['BLK']}")
+    check(rows["SPS"]["rows"] >= data.values.shape[0],
+          f"SPS touched {rows['SPS']['rows']} rows, less than its full scan")
+    check(rows["L2Miss"]["rows"] < rows["SPS"]["rows"],
+          "L2Miss touched no fewer rows than SPS")
+    ls, _ = _lineitem("linestatus")
+    biased = add_group_bias(ls, 0.05)
+    del ls
+    truth = AQPEngine(biased).exact(Query(func="avg", epsilon=1.0))[:, 0]
+    t = time.perf_counter()
+    om = run_ordermiss(biased, "avg", MissConfig(epsilon=0.0, **BASE_CFG))
+    torch.cuda.synchronize()
+    om_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ifo = bl.run_ifocus(biased, "avg", 0.05)
+    if_s = time.perf_counter() - t
+    check(om.success, f"OrderMiss failed: {om.status}")
+    check(ifo.success and np.array_equal(np.argsort(ifo.theta[:, 0]),
+                                         np.argsort(truth)),
+          f"IFocus order {ifo.theta[:, 0]} vs exact {truth}")
+    check(np.array_equal(np.argsort(om.theta[:, 0]), np.argsort(truth)),
+          f"OrderMiss order {om.theta[:, 0]} vs exact {truth}")
+    print(f"  fig4 (LINESTATUS, bias 5 %, exact {truth.round(2).tolist()}): "
+          f"OrderMiss n={np.asarray(om.n).tolist()} (sum "
+          f"{int(np.sum(om.n))}, rows touched {om.total_sampled}, "
+          f"{om.iterations} iterations, {om_s:.3f} s); IFocus n="
+          f"{ifo.n.tolist()} (sum {int(np.sum(ifo.n))}, rows touched "
+          f"{ifo.total_sampled}, {ifo.iterations} rounds, {if_s:.3f} s); "
+          f"both order the groups as the exact answers")
+    del biased
+    counts = read_counts()
+    check(counts["poisson_bootstrap"] > 0 and counts["segment_aggregate"] > 0,
+          f"a kernel of the baselines' path never launched: {counts}")
+    print(f"  phase 19 wall {time.perf_counter() - t0:.1f} s; launches "
+          f"{counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 20: MISS for the LM at full width
+# ---------------------------------------------------------------------------
+
+EVAL_ARCH = "qwen3-1.7b"
+EVAL_DOMAINS, EVAL_PER, EVAL_SEQ = 3, 512, 64
+EVAL_PILOT = 64
+MIX_DOCS = 4_000_000
+ROUTER_P = np.asarray([0.3, 0.2, 0.15, 0.1, 0.1, 0.05, 0.05, 0.05])
+
+
+def _per_example_loss(cfg, params):
+    """tests/test_aqp_serve_integration.py's per-example loss: the mean
+    over positions of logsumexp - gold, in f32 over train_logits."""
+    from repro_torch.models import model as M
+
+    def loss(tokens):
+        logits, _ = M.train_logits(cfg, params, {"tokens": tokens[:, :-1]})
+        lf = logits.float()
+        gold = torch.gather(lf, -1, tokens[:, 1:, None].long())[..., 0]
+        return torch.mean(torch.logsumexp(lf, -1) - gold, -1)
+    return loss
+
+
+def phase_miss_lm():
+    """``MissEvaluator`` certifying Qwen3-1.7B's (bf16, seeded weights)
+    per-domain eval loss on the pipeline's ``eval_domains``, then the full
+    eval; ``mixture_statistics`` on 3 lognormal domains of 4 M documents;
+    ``estimate_router_load`` with the reference test's synthetic router.
+    Returns every kernel's launches in the phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import eval_domains
+    from repro_torch.integration import (estimate_router_load,
+                                         mixture_statistics)
+    from repro_torch.integration.miss_eval import (MissEvalConfig,
+                                                   MissEvaluator)
+    from repro_torch.models import model as M
+
+    cfg = get_config(EVAL_ARCH)
+    t = time.perf_counter()
+    params = M.init_model(cfg, seed=3, device="cuda")
+    domains = eval_domains(cfg.vocab_size, n_domains=EVAL_DOMAINS,
+                           n_per=EVAL_PER, seq_len=EVAL_SEQ, device="cuda")
+    loss = _per_example_loss(cfg, params)
+    with torch.no_grad():
+        pilot = [loss(d[:EVAL_PILOT]).cpu().numpy() for d in domains]
+    sigma = float(np.sqrt(np.mean([np.var(p, ddof=1) for p in pilot])))
+    eps = 2.0 * sigma * np.sqrt(EVAL_DOMAINS / 256.0)
+    print(f"  {EVAL_ARCH} bf16 ({M.count_params(params) / 1e9:.3f} B "
+          f"params, QK norm) and eval_domains({cfg.vocab_size}, "
+          f"{EVAL_DOMAINS} x {EVAL_PER} x {EVAL_SEQ}) built in "
+          f"{time.perf_counter() - t:.1f} s; pilot of {EVAL_PILOT} losses a "
+          f"domain: means {[round(float(p.mean()), 4) for p in pilot]}, "
+          f"pooled std {sigma:.5f} -> eps = 2 sigma sqrt({EVAL_DOMAINS}/256)"
+          f" = {eps:.5f} (sizes near 256 a domain: between n_max 64 and "
+          f"{EVAL_PER})")
+    reset_counts()
+    t0 = time.perf_counter()
+    ev = MissEvaluator(loss, domains, MissEvalConfig(
+        epsilon=eps, delta=0.1, B=200, n_min=32, n_max=64))
+    tr = ev.certify()
+    torch.cuda.synchronize()
+    miss_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    with torch.no_grad():
+        full = np.asarray([float(torch.cat([
+            loss(d[i:i + 32]) for i in range(0, len(d), 32)]).mean())
+            for d in domains])
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t
+    gap = _l2(tr.theta, full)
+    fw, total = tr.info["model_forwards"], tr.info["full_eval_forwards"]
+    print(f"  MissEvaluator: success={tr.success} n={np.asarray(tr.n)} "
+          f"after {tr.iterations} iterations, error {tr.error:.5f} (eps "
+          f"{eps:.5f}), model forwards {fw} of {total}; wall {miss_s:.3f} s"
+          f" (full eval {full_s:.3f} s); |theta - full eval|_2 = {gap:.5f}")
+    check(tr.success, f"MissEvaluator failed: {tr.status}")
+    check(fw < total, f"{fw} model forwards, no fewer than the full eval")
+    check(gap <= 2 * eps, f"certified loss {gap} from the full eval's")
+    del params, domains
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(2)
+    docs = [rng.lognormal(5.0 + 0.3 * d, 0.4, MIX_DOCS) for d in range(3)]
+    t = time.perf_counter()
+    mix = mixture_statistics(docs, epsilon_rel=0.01, delta=0.1,
+                             device="cuda")
+    mix_s = time.perf_counter() - t
+    truth = np.asarray([d.mean() for d in docs])
+    check(np.allclose(mix["mean_len"], truth, rtol=0.06),
+          f"mixture means {mix['mean_len']} vs {truth}")
+    check(mix["docs_scanned"] < mix["docs_total"],
+          f"mixture scanned {mix['docs_scanned']} of {mix['docs_total']}")
+    check(abs(float(mix["weights"].sum()) - 1.0) <= 1e-6,
+          "mixture weights do not sum to 1")
+    print(f"  mixture_statistics (3 x {MIX_DOCS} documents, eps_rel 1 %): "
+          f"mean_len {np.round(mix['mean_len'], 3).tolist()} vs numpy "
+          f"{np.round(truth, 3).tolist()}, weights "
+          f"{np.round(mix['weights'], 5).tolist()}, {mix['trace'].iterations}"
+          f" iterations, docs scanned {mix['docs_scanned']} of "
+          f"{mix['docs_total']}, {mix_s:.3f} s")
+    del docs
+    rr = np.random.default_rng(3)
+
+    def route_fn(tokens):
+        return rr.choice(len(ROUTER_P), size=tokens.shape[0] * tokens.shape[1],
+                         p=ROUTER_P)
+
+    def token_source(n):
+        return rr.integers(0, 100, (n, 8)).astype(np.int32)
+
+    t = time.perf_counter()
+    rl = estimate_router_load(route_fn, token_source, len(ROUTER_P),
+                              epsilon=0.01, delta=0.1, device="cuda")
+    rl_s = time.perf_counter() - t
+    rgap = float(np.linalg.norm(rl.load - ROUTER_P))
+    check(rl.success and rgap <= 0.02,
+          f"router load {rl.load} (|load - p| {rgap}, success {rl.success})")
+    print(f"  estimate_router_load (E = 8, eps 0.01): {rl.n_tokens} token "
+          f"rows, {rl.iterations} iterations, error {rl.error:.5f}, "
+          f"|load - p|_2 = {rgap:.5f}, {rl_s:.3f} s")
+    counts = read_counts()
+    check(counts["poisson_bootstrap"] > 0,
+          f"mixture_statistics never launched the Poisson kernel: {counts}")
+    print(f"  launches in phase 20: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the dense variants (sliding window, QK norm, untied head)
+# ---------------------------------------------------------------------------
+
+H2O_ARCH, H2O_WINDOW = "h2o-danube-3-4b", 4096
+H2O_DECODE = (8, 32, 8, 120, 8192)          # B, Hq, Hkv, d, S (serve shape)
+H2O_EDGE_LENS = [H2O_WINDOW - 1, H2O_WINDOW, H2O_WINDOW + 1, 1, 5000, 8192,
+                 6000, 4200]
+H2O_PROMPT = (3000, 6000)
+H2O_F32_PROMPT, H2O_F32_STEPS = 4200, 16
+CR_ARCH, CR_LAYERS = "command-r-plus-104b", 4
+
+
+def _window_inputs(shape, dtype, gen, lens, W):
+    """q, and a cache poisoned outside each row's window [len - W, len)."""
+    B, Hq, Hkv, d, S = shape
+    q, k, v = _decode_inputs(B, Hq, Hkv, d, S, dtype, gen, lens)
+    for b, L in enumerate(lens.tolist()):
+        lo = max(L - W, 0)
+        k[b, :lo] = 100.0
+        v[b, :lo] = 1e4
+    return q, k, v
+
+
+def window_sets(seed: int = 21):
+    """``DECODE_ROT`` rotating bf16 caches at h2o-danube's decode shape with
+    lengths in the serve's range (prompts of 3 000-6 000 tokens plus 32 new
+    ones), poisoned outside each window."""
+    B, Hq, Hkv, d, S = H2O_DECODE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    sets = []
+    for _ in range(DECODE_ROT):
+        lens = torch.as_tensor(rng.integers(H2O_PROMPT[0], H2O_PROMPT[1] +
+                                            LM_NEW + 1, B),
+                               dtype=torch.int32, device="cuda")
+        sets.append((*_window_inputs(H2O_DECODE, torch.bfloat16, gen, lens,
+                                     H2O_WINDOW), lens))
+    return sets
+
+
+def phase_window_kernel():
+    """Row 4 with the window against its plain version at h2o-danube's
+    decode shape (d = 120, window 4096, S_max 8192) in bf16 and f32 at the
+    edge lengths (window - 1, window, window + 1 among them), and at d = 128;
+    then timed from a CUDA graph over rotating caches in the serve's range
+    against the byte bound over the windows' rows, the plain version and
+    SDPA with the window mask.  Returns the row of the result line."""
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    W = H2O_WINDOW
+    B, Hq, Hkv, d, S = H2O_DECODE
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    edge = torch.as_tensor(H2O_EDGE_LENS, dtype=torch.int32, device="cuda")
+    max_err = 0.0
+    for dd in (120, 128):
+        shape = (B, Hq, Hkv, dd, S)
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = _window_inputs(shape, dt, gen, edge, W)
+            got = ops.decode_attention(q, k, v, edge, window=W)
+            want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                            edge, W)
+            wide = ops.decode_attention(q, k, v, edge.long(), window=W)
+            full = torch.full_like(edge, S)
+            qc, kc, vc = _decode_inputs(B, Hq, Hkv, dd, S, dt, gen, full)
+            one = ops.decode_attention(qc, kc, vc, W + 1, window=W)
+            one_t = ops.decode_attention(qc, kc, vc, full.clamp(max=W + 1),
+                                         window=W)
+            torch.cuda.synchronize()
+            check(torch.isfinite(got).all(), f"window d={dd} {dt}: "
+                                             f"non-finite output")
+            check(torch.equal(got, wide) and torch.equal(one, one_t)
+                  and bool(torch.isfinite(one).all()),
+                  f"window d={dd} {dt}: int64 / int lengths differ")
+            if dt == torch.float32:
+                err = float((got - want).abs().max())
+                check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+                      f"window d={dd} f32 kernel != plain (max abs err "
+                      f"{err})")
+            else:
+                ulps = _bf16_ulps(got, want)
+                check(ulps <= 1.0, f"window d={dd} bf16 kernel {ulps} ulps "
+                                   f"off")
+                err = float((got.float() - ref.decode_attention_ref(
+                    q, k, v, edge, W).float()).abs().max())
+            max_err = max(max_err, err)
+    print(f"  window {W}, lengths {H2O_EDGE_LENS}, poisoned outside "
+          f"[len - W, len): d = 120 and 128, f32 (rtol 1e-5) and bf16 "
+          f"(1 ulp) pass; int32 == int64 == int lengths")
+    sets = window_sets()
+    for q, k, v, lens in sets[:2]:
+        got = ops.decode_attention(q, k, v, lens, window=W)
+        want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                        lens, W)
+        torch.cuda.synchronize()
+        check(_bf16_ulps(got, want) <= 1.0, "window serve set off")
+        check(torch.equal(got, ops.decode_attention(q, k, v, lens,
+                                                    window=W)),
+              "two windowed calls differ")
+    it = iter(range(1 << 30))
+    pos = torch.arange(S, device="cuda")[None, :]
+    masks = [((pos < s[3][:, None]) & (pos >= s[3][:, None] - W))[
+        :, None, None] for s in sets]
+
+    def library(i):
+        q, k, v, _ = sets[i]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=masks[i], enable_gqa=True)
+
+    times = {}
+    for name, fn in (
+            ("ms", lambda i: ops.decode_attention(*sets[i], window=W)),
+            ("plain_ms", lambda i: ref.decode_attention_ref(*sets[i], W)),
+            ("library_ms", library)):
+        def call(fn=fn):
+            return fn(next(it) % len(sets))
+        times[name] = graph_ms(call, reps=64, rounds=5)
+        times["eager_" + name] = cuda_ms(call, reps=64, rounds=5)
+    rows = np.mean([float((s[3].clamp(max=S) - (s[3] - W).clamp(min=0))
+                          .sum()) for s in sets])
+    n_bytes = rows * Hkv * d * 2 * 2 + 2 * B * Hq * d * 2 + 4 * B
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = rows * Hq * d * 4 / F32_FLOPS * 1e3
+    row = dict(times, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               mb=n_bytes / 1e6, window_rows=rows, max_abs_err=max_err,
+               shape=list(H2O_DECODE), window=W)
+    print(f"  h2o decode shape {H2O_DECODE}, window {W} (mean {rows:.0f} "
+          f"window rows a call, {row['mb']:.2f} MB), CUDA graph of 64 calls:"
+          f" kernel {row['ms']:.5f} ms  library (SDPA, window mask) "
+          f"{row['library_ms']:.5f} ms  plain {row['plain_ms']:.4f} ms  "
+          f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}; kernel at "
+          f"{row['bound_ms'] / row['ms']:.1%} of it); eager back to back: "
+          f"kernel {row['eager_ms']:.4f}  library "
+          f"{row['eager_library_ms']:.4f}  plain {row['eager_plain_ms']:.4f}"
+          f" ms")
+    del sets, masks
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_h2o_f32():
+    """h2o-danube-3-4b in f32 at full width and depth: 16 greedy steps
+    past a 4 200-token prompt against teacher forcing's logits under the
+    window mask (one ``train_logits`` over the whole sequence)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(H2O_ARCH), dtype="float32")
+    t = time.perf_counter()
+    params = M.init_model(cfg, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  {H2O_ARCH} f32: {M.count_params(params) / 1e9:.3f} B params "
+          f"(untied head), {torch.cuda.memory_allocated() / 1e9:.2f} GB on "
+          f"the card, built in {time.perf_counter() - t:.1f} s")
+    seq = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, H2O_F32_PROMPT)), device="cuda")
+    n0 = da_ops.counter.launches
+    last, raw, _ = M.prefill(cfg, params, {"tokens": seq})
+    caches = M.caches_from_prefill(cfg, raw, S_max=H2O_F32_PROMPT +
+                                   H2O_F32_STEPS + 8)
+    del raw
+    outs = [last[:, 0]]
+    for _ in range(H2O_F32_STEPS):
+        nxt = last[:, -1].argmax(-1)[:, None]
+        seq = torch.cat([seq, nxt], dim=1)
+        last, caches = M.decode_step(cfg, params, nxt, caches)
+        outs.append(last[:, 0])
+    launched = da_ops.counter.launches - n0
+    del caches
+    full, _ = M.train_logits(cfg, params, {"tokens": seq})
+    want = full[0, H2O_F32_PROMPT - 1:]
+    got = torch.cat(outs)
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, **LM_TOL),
+          f"h2o f32 decode != teacher forcing (max abs err {err})")
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > LM_TOL["atol"]
+    check(torch.equal(got.argmax(-1)[clear], want.argmax(-1)[clear]),
+          "h2o f32 argmax differs")
+    check(launched == cfg.n_layers * H2O_F32_STEPS,
+          f"{launched} windowed decode launches")
+    print(f"  prefill({H2O_F32_PROMPT}) + {H2O_F32_STEPS} greedy steps "
+          f"(positions {H2O_F32_PROMPT}-{H2O_F32_PROMPT + H2O_F32_STEPS - 1},"
+          f" past the window {H2O_WINDOW}) vs train_logits over "
+          f"{seq.shape[1]} tokens: max abs err {err:.3g} (rtol/atol 2e-4), "
+          f"argmax equal on {int(clear.sum())} of {len(clear)} clear rows; "
+          f"{launched} windowed kernel launches")
+    del params, full, last, outs
+    torch.cuda.empty_cache()
+
+
+def phase_dense_variants():
+    """(a) row 4 with the window; (b) card == CPU for the three reduced
+    archs; (c) h2o-danube f32 against teacher forcing; (d) the h2o-danube
+    bf16 serve (16 prompts of 3 000-6 000 tokens, 8 slots, S_max 8192);
+    (e) Qwen3-1.7B bf16 at phase 12's serve shape; (f) command-r-plus-104b
+    at full width cut to 4 of its 64 layers, 8 requests of 16 tokens.
+    Returns the windowed kernel's row and the launches of (d)-(f)."""
+    from repro_torch.configs import get_config
+
+    print("  (a) windowed decode attention vs plain at h2o-danube's shape")
+    row = phase_window_kernel()
+    print("  (b) reduced archs, card vs cpu (h2o window cut to 16)")
+    for arch, window in (("qwen3-1.7b", None), (H2O_ARCH, 16),
+                         (CR_ARCH, None)):
+        phase_lm_card_vs_cpu(arch, window)
+    print(f"  (c) {H2O_ARCH} f32 at full width and depth")
+    phase_h2o_f32()
+    print(f"  (d) {H2O_ARCH} bf16 serve, window {H2O_WINDOW}")
+    rng = np.random.default_rng(4)
+    lens = rng.integers(H2O_PROMPT[0], H2O_PROMPT[1] + 1, LM_REQUESTS)
+    vocab = get_config(H2O_ARCH).vocab_size
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+    past = int(np.sum(lens + LM_NEW > H2O_WINDOW))
+    print(f"  prompts of {lens.min()}-{lens.max()} tokens: {past} of "
+          f"{len(lens)} requests decode past the window")
+    h2o = phase_lm_serve(H2O_ARCH, prompts=prompts, warm=[p[:256] for p in
+                                                          prompts[:2]],
+                         s_max=H2O_DECODE[4])
+    print(f"  (e) {EVAL_ARCH} bf16 serve at phase 12's shape")
+    q3 = phase_lm_serve(EVAL_ARCH)
+    print(f"  (f) {CR_ARCH} bf16, {CR_LAYERS} of 64 layers (a depth cut: "
+          f"208 GB of weights at full depth)")
+    cr_prompts = [np.random.default_rng(6 + i).integers(
+        0, get_config(CR_ARCH).vocab_size, 16).astype(np.int32)
+        for i in range(8)]
+    cr = phase_lm_serve(CR_ARCH, n_layers=CR_LAYERS, prompts=cr_prompts,
+                        s_max=64, new=16)
+    counts = add_counts(add_counts(h2o, q3), cr)
+    row["launches"] = h2o["decode_attention"]
+    print(f"  launches on phase 21's serves (d-f): {counts}")
+    return row, counts
+
+
 def _lineitem(group_by: str):
     from repro_torch.data import make_lineitem
 
@@ -2725,8 +3237,26 @@ def main() -> None:
     print("phase 18: sharded serve (S = 4), lineitem SF10")
     shard_counts = phase_sharded_serve(data, tax, p50_solo)
     launches = add_counts(launches, shard_counts)
-    print(f"  launches on the main paths (phases 6 + 7 + 12 + 14 + 16 + 18): "
-          f"{launches}")
+    del tax
+    # -- phase 19 --
+    print("phase 19: the baselines at real size (paper Figures 3 and 4), "
+          "lineitem SF10")
+    base_counts = phase_baselines(data)
+    launches = add_counts(launches, base_counts)
+    del data
+    torch.cuda.empty_cache()
+    # -- phase 20 --
+    print(f"phase 20: MISS for the LM at full width ({EVAL_ARCH}), mixture "
+          f"statistics, router load")
+    lm20_counts = phase_miss_lm()
+    launches = add_counts(launches, lm20_counts)
+    # -- phase 21 --
+    print("phase 21: the dense variants (sliding window, QK norm, untied "
+          "head)")
+    window_row, dense_counts = phase_dense_variants()
+    launches = add_counts(launches, dense_counts)
+    print(f"  launches on the main paths (phases 6 + 7 + 12 + 14 + 16 + 18 + "
+          f"19 + 20 + 21): {launches}")
     print(f"  result rows: Poisson bootstrap at the solo serve's most used "
           f"width w={w_main}; segment bootstrap at L={L_main}; aggregate over "
           f"the whole table GROUP BY TAX with a random mask (phase 4; its "
@@ -2744,6 +3274,8 @@ def main() -> None:
         "ops_per_pair": pb_pp, "stacked_w8192_graph_ms":
             pb_rows["stacked w=8192"]["graph_ms"], "serve_replay": pb_serve,
         "host_serve_launches": host_counts["poisson_bootstrap"],
+        "baselines_launches": base_counts["poisson_bootstrap"],
+        "miss_lm_launches": lm20_counts["poisson_bootstrap"],
         "warm_slo_launches": {
             "phase15": warm_cpu_counts["poisson_bootstrap"],
             "phase16": serve16["poisson_bootstrap"]},
@@ -2778,6 +3310,7 @@ def main() -> None:
         "bound_ms": agg["bound_ms"], "bound_by": "bytes",
         "library_ms": agg["library_ms"],
         "host_serve_launches": host_counts["segment_aggregate"],
+        "baselines_launches": base_counts["segment_aggregate"],
         "exact_ms": host_agg["exact_ms"],
         "exact_graph_ms": host_agg["exact_graph_ms"],
         "exact_call_wall_ms": host_agg["exact_wall_ms"],
@@ -2790,7 +3323,9 @@ def main() -> None:
         "launches": launches["decode_attention"],
         "max_abs_err": da["max_abs_err"], "ms": da["ms"],
         "plain_ms": da["plain_ms"], "bound_ms": da["bound_ms"],
-        "bound_by": da["bound_by"], "library_ms": da["library_ms"]}]}))
+        "bound_by": da["bound_by"], "library_ms": da["library_ms"],
+        "dense_variant_launches": dense_counts["decode_attention"],
+        "window_h2o": window_row}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

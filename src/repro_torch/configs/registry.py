@@ -10,12 +10,14 @@ from ..models.config import ModelConfig
 
 _ARCH_MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
+    "h2o-danube-3-4b": "h2o_danube_3_4b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "qwen3-1.7b": "qwen3_1_7b",
 }
 
-# The reference's other archs: MoE, SSM/hybrid, sliding window,
-# cross-attention and encoder-decoder layers wait for later slices.
+# The reference's other archs: MoE, SSM/hybrid, cross-attention and
+# encoder-decoder layers wait for later slices.
 NOT_PORTED = (
-    "h2o-danube-3-4b", "command-r-plus-104b", "qwen3-1.7b",
     "granite-moe-1b-a400m", "deepseek-moe-16b", "rwkv6-7b",
     "jamba-1.5-large-398b", "seamless-m4t-large-v2", "llama-3.2-vision-90b",
 )

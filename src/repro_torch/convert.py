@@ -73,7 +73,7 @@ def lane_params_from_numpy(leaves: Mapping[str, np.ndarray],
 OUT_GAIN = 8.0              # lm_tree_from_seed's output-projection gain
 
 # Leaves the reference keeps in f32 whatever the model's dtype (norm gains).
-_F32_LEAVES = ("ln1", "ln2", "final_norm")
+_F32_LEAVES = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
 
 
 def _lm_leaf(name: str, a, dtype, device) -> torch.Tensor:
@@ -91,8 +91,8 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
     carry a leading ``n_pattern_repeats`` axis (the reference's scan
     stack); layer ``r * len(pattern) + j`` is repeat ``r`` of position
     ``j``.  Weights take the config's dtype and norm gains stay f32, as the
-    reference initialises them; the tied head is formed from the
-    embedding."""
+    reference initialises them; a tied head is formed from the embedding,
+    an untied one is the tree's ``unembed``."""
     lm.check_supported(cfg)
     dtype = lm._dtype(cfg)
 
@@ -109,7 +109,8 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
         raise ValueError(f"{len(layers)} layers in the tree, config has "
                          f"{cfg.n_layers}")
     params["layers"] = layers
-    lm.attach_tied_head(cfg, params)
+    if cfg.tie_embeddings:
+        lm.attach_tied_head(cfg, params)
     return params
 
 
@@ -127,7 +128,9 @@ def lm_tree_from_seed(cfg: ModelConfig, seed: int) -> Dict[str, Any]:
     exercised, and the output projections are drawn at ``OUT_GAIN`` times
     their fan-in scale: under a tied head, random layers that small leave
     each token's own embedding to pick the next token, and greedy decoding
-    would repeat the prompt's last token whatever the attention does."""
+    would repeat the prompt's last token whatever the attention does.  QK
+    norm gains and an untied head (at its fan-in scale) are drawn after
+    every other leaf, so a config without them keeps its weights."""
     lm.check_supported(cfg)
     rng = np.random.default_rng(seed)
     d, dh, H, Hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -158,4 +161,8 @@ def lm_tree_from_seed(cfg: ModelConfig, seed: int) -> Dict[str, Any]:
                    "wo": w(nr, cfg.d_ff, d,
                            scale=OUT_GAIN * cfg.d_ff ** -0.5)}}],
     }
+    if cfg.qk_norm:
+        mixer.update(q_norm=gain(nr, dh), k_norm=gain(nr, dh))
+    if not cfg.tie_embeddings:
+        tree["unembed"] = w(d, cfg.vocab_size, scale=d ** -0.5)
     return tree

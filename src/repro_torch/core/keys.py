@@ -211,10 +211,11 @@ _LOGF_Q1, _LOGF_Q2 = -2.12194440e-4, 0.693359375
 
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     """f32 fused multiply-add, ``a * b + c`` rounded once (through float64:
-    the f32 product is exact there)."""
-    return torch.addcmul(torch.as_tensor(c, dtype=torch.float64),
-                         a.double(), torch.as_tensor(b, dtype=torch.float64)
-                         ).float()
+    the product of two f32 values is exact there).  ``b`` and ``c`` are f32
+    tensors on ``a``'s device or Python floats holding f32 values."""
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    return (a.double() * b + c).float()
 
 
 def _horner(coeffs, x: torch.Tensor) -> torch.Tensor:
@@ -281,6 +282,37 @@ def _log1p_small(x: torch.Tensor) -> torch.Tensor:
     xs = x * x
     r = _horner(_LOG1P_P, x) / _horner(_LOG1P_Q, x)
     return x + (-0.5 * xs + (x * xs) * r)
+
+
+# XLA CPU's f32 exp: Cephes' expf reduction and polynomial (the last
+# coefficient rounded to 0.5 in f32), every multiply-add fused.
+_EXP_HI = float(np.float32(88.8))
+_EXP_LOG2E = float(np.float32(1.44269504088896341))
+_EXP_C1, _EXP_C2 = float(np.float32(0.693359375)), float(
+    np.float32(-2.12194440e-4))
+_EXP_P = tuple(float(np.float32(c)) for c in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 0.5))
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``exp`` of a non-negative tensor as XLA compiles it for the CPU
+    (the machine code of a jitted ``jnp.exp``): ``n = floor(fma(x, log2 e,
+    1/2))`` clamped to 127, ``r = x - n C1 - n C2`` as two fused steps, a
+    fused Horner polynomial ``y`` in ``r``, ``fma(y, r*r, r) + 1`` times
+    ``2**n``.  Bit-equal to ``jnp.exp`` on the CPU for ``0 <= x <= 88.8``
+    (its lower clamp and its negative range are not needed here); not
+    correctly rounded, so torch's ``exp`` differs in ~9 % of values."""
+    x = torch.clamp(x.to(torch.float32), max=_EXP_HI)
+    n = torch.clamp(torch.floor(_fma(x, _EXP_LOG2E, 0.5)), max=127.0)
+    r = _fma(n, -_EXP_C1, x)
+    r = _fma(n, -_EXP_C2, r)
+    y = torch.full_like(r, _EXP_P[0])
+    for c in _EXP_P[1:]:
+        y = _fma(y, r, c)
+    y = _fma(y, r * r, r) + 1.0
+    scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return y * scale
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:

@@ -6,11 +6,14 @@
 // in f32, never forming the score matrix in device memory.
 //
 // What it computes.  For batch row b and KV head h, the G query heads
-// q[b, h*G + g, :] attend over positions [0, kv_len[b]) of k[b, :, h, :] and
-// v[b, :, h, :].  Scores are f32 dot products times `scale`; the result is
-// acc / max(l, 1e-30) written in the dtype of q (f32 or bf16), so a row of
-// length 0 reads zeros.  A position at or past kv_len[b] is never read.  The
-// plain PyTorch version beside it is
+// q[b, h*G + g, :] attend over positions [lo[b], hi[b]) of k[b, :, h, :] and
+// v[b, :, h, :], with hi[b] = min(kv_len[b], S) and, under a sliding window
+// of W positions, lo[b] = min(max(0, kv_len[b] - W), hi[b]) (else 0): the
+// reference's decode mask kj <= length, kj > length - W with kv_len =
+// length + 1.  Scores are f32 dot products times `scale`; the result is
+// acc / max(l, 1e-30) written in the dtype of q (f32 or bf16), so an empty
+// range reads zeros.  A position outside [lo, hi) is never read.  Head
+// dimensions 32, 64, 120 and 128.  The plain PyTorch version beside it is
 // src/repro_torch/kernels/decode_attention/ref.py.
 //
 // What bounds it.  Bytes: every valid K and V row is read once and the G
@@ -34,9 +37,11 @@
 //    resets the counter to 0 for the next call or graph replay.  No atomics
 //    touch data.
 //  * Splits balanced by the lengths on the device.  Every block reads the B
-//    lengths and computes the same partition: the smallest chunk of whole
-//    TILE-row tiles for which the splits of all pairs, ceil(len / chunk)
-//    each (one for a length of 0), fit the grid; a prefix over the rows
+//    lengths, forms each row's range [lo, hi) and computes the same
+//    partition of the ranges: the smallest chunk of whole TILE-row tiles for
+//    which the splits of all pairs, ceil((hi - lo) / chunk) each (one for an
+//    empty range), fit the grid; split s of a row covers
+//    [lo + s * chunk, min(lo + (s + 1) * chunk, hi)); a prefix over the rows
 //    gives each block its (row, head, split), and blocks past the work exit
 //    at once.  32 candidate chunks are counted at once, so this costs two
 //    barriers.  ops.partition is the same arithmetic in Python.
@@ -50,7 +55,10 @@
 //    bf16 products are exact in f32), the G query heads padded to the 16
 //    rows of A.  Scores: warp w takes positions 8w .. 8w + 7 of a 64-row
 //    tile; the softmax works on the fragments in registers and exchanges
-//    only per-warp maxima and sums.  P.V keeps P in f32, as the reference
+//    only per-warp maxima and sums.  A head dimension that is not a
+//    multiple of 16 (120) takes a last k-step of 8, its upper half zeroed
+//    in both fragments; the shared rows keep D + 8 elements, so the cache
+//    is neither padded nor copied.  P.V keeps P in f32, as the reference
 //    does: each weight is stored as three bf16 parts whose sum is exactly
 //    the f32 weight (8 significant bits each), and P.V is three products
 //    into separate accumulators, summed at the end.  f32 stays on the CUDA
@@ -96,7 +104,8 @@ template <typename T, int D> struct Cfg {
   static constexpr int STAGES = clampi(kRingBytes / STAGE_BYTES, 2, 4);
   static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
   // f32 P.V on the CUDA cores: a thread owns two adjacent columns of GPT
-  // heads, GSTEP heads side by side.
+  // heads, GSTEP heads side by side (with D = 120 the last kThreads % PAIRS
+  // threads own no column).
   static constexpr int PAIRS = D / 2;
   static constexpr int GSTEP = kThreads / PAIRS;
   static constexpr int GPT = (kMaxG + GSTEP - 1) / GSTEP;
@@ -107,8 +116,9 @@ template <typename T, int D> struct Cfg {
       std::is_same<T, __nv_bfloat16>::value ? 3 * kMaxG * PLD * 2 : 0;
   static constexpr int NT = D / 8;
   static constexpr int WT = (NT + kWarps - 1) / kWarps;
-  static_assert(TILE * ROW_VECS % kThreads == 0, "whole copy rounds");
-  static_assert(kThreads % PAIRS == 0 && TILE % 16 == 0, "P.V roles");
+  static constexpr int COPIES = TILE * ROW_VECS;   // 16-byte copies a tile
+  static_assert(D % 8 == 0 && D <= 128 && PAIRS <= kThreads, "head dim");
+  static_assert(TILE % 16 == 0, "P.V roles");
 };
 
 __host__ __device__ constexpr size_t round16(size_t x) {
@@ -116,7 +126,8 @@ __host__ __device__ constexpr size_t round16(size_t x) {
 }
 
 // Dynamic shared memory: the K/V ring, q, the tile's scores (f32), P's
-// bf16 parts (bf16), the lengths.  The merge reuses the ring and the scores.
+// bf16 parts (bf16), the rows' range sizes and starts.  The merge reuses the
+// ring and the scores.
 template <typename T, int D>
 __host__ __device__ constexpr size_t q_offset() {
   return Cfg<T, D>::RING_BYTES;
@@ -136,7 +147,7 @@ __host__ __device__ constexpr size_t len_offset(int G) {
 }
 template <typename T, int D>
 __host__ __device__ constexpr size_t smem_bytes(int B, int G) {
-  return len_offset<T, D>(G) + round16((size_t)B * sizeof(int));
+  return len_offset<T, D>(G) + 2 * round16((size_t)B * sizeof(int));
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -280,7 +291,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const void* __restrict__ kv_len,
-                   int len_kind, int fixed_len, T* __restrict__ out,
+                   int len_kind, int fixed_len, int window,
+                   T* __restrict__ out,
                    float* __restrict__ m_part, float* __restrict__ l_part,
                    float* __restrict__ acc_part, int* __restrict__ arrivals,
                    int B, int S, int Hkv, int G, long long k_sb,
@@ -300,6 +312,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __nv_bfloat16* ps_s =                  // P's three bf16 parts (bf16 only)
       reinterpret_cast<__nv_bfloat16*>(smem + psplit_offset<T, D>(G));
   int* len_s = reinterpret_cast<int*>(smem + len_offset<T, D>(G));
+  int* lo_s = len_s + round16((size_t)B * sizeof(int)) / sizeof(int);
   __shared__ float m_s[kMaxG], l_s[kMaxG], alpha_s[kMaxG];
   __shared__ float wmax_s[kWarps][16], wsum_s[kWarps][16];  // bf16 softmax
   __shared__ int cand_s[kWarps][32];
@@ -314,12 +327,13 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l_s[tid] = 0.f;
   }
 
-  // -- 1. the lengths and the partition (ops.partition), two barriers -----
+  // -- 1. the ranges and the partition (ops.partition), two barriers ------
+  // len_s[b] is the size of row b's range [lo_s[b], lo_s[b] + len_s[b]).
   // The chunk is the smallest t in [1, t_hi] tiles for which
   // Hkv * sum_b max(1, ceil(len_b / (t * TILE))) splits fit the grid; t_hi
   // (one split a pair) always fits, since the grid has >= B * Hkv blocks.
-  // Warp w loads the lengths of rows w, w + kWarps, ... (clamped to
-  // [0, S]) and counts them for the 32 candidates t = lane + 1 at once.
+  // Warp w loads the lengths of rows w, w + kWarps, ... and counts them for
+  // the 32 candidates t = lane + 1 at once.
   const int t_hi = cdiv(S, TILE);
   {
     int c = 0;
@@ -327,8 +341,15 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       long long L = fixed_len;
       if (len_kind == 1) L = static_cast<const int*>(kv_len)[b];
       if (len_kind == 2) L = static_cast<const long long*>(kv_len)[b];
-      const int len = static_cast<int>(L < 0 ? 0 : (L > S ? S : L));
-      if (lane == 0) len_s[b] = len;
+      if (L < 0) L = 0;
+      const int hi = static_cast<int>(L > S ? S : L);
+      long long lo_w = window > 0 ? L - window : 0;
+      const int lo = static_cast<int>(lo_w < 0 ? 0 : (lo_w > hi ? hi : lo_w));
+      const int len = hi - lo;
+      if (lane == 0) {
+        len_s[b] = len;
+        lo_s[b] = lo;
+      }
       c += max(1, cdiv(len, (lane + 1) * TILE));
     }
     cand_s[warp][lane] = c;
@@ -363,8 +384,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ns = info_s[3];
   const int local = blk - info_s[2];
   const int h = local / ns, split = local - h * ns;
-  const int lo = split * chunk;
-  const int rows = max(0, min(lo + chunk, len_s[b]) - lo);
+  const int lo = lo_s[b] + split * chunk;
+  const int rows = max(0, min(split * chunk + chunk, len_s[b]) - split * chunk);
   const int n_tiles = cdiv(rows, TILE);
   const long long bh = (long long)b * Hkv + h;
 
@@ -375,8 +396,9 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* ks = ring + (tile % STAGES) * 2 * C::TILE_ELEMS;
     T* vs = ks + C::TILE_ELEMS;
 #pragma unroll
-    for (int j = 0; j < TILE * ROW_VECS / kThreads; ++j) {
+    for (int j = 0; j < (C::COPIES + kThreads - 1) / kThreads; ++j) {
       const int i = tid + j * kThreads;
+      if (C::COPIES % kThreads != 0 && i >= C::COPIES) break;
       const int r = i / ROW_VECS, e = (i % ROW_VECS) * VEC;
       const int t = tile * TILE + r;
       const bool ok = t < rows;
@@ -400,7 +422,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int grp = lane >> 2, tig = lane & 3;
   // f32: acc[j] holds columns c2, c2 + 1 of head g0 + j * GSTEP; the carry
   // (m, l) per head is in m_s, l_s.
-  const int g0 = tid / C::PAIRS, c2 = 2 * (tid % C::PAIRS);
+  const int g0 = tid < C::PAIRS * C::GSTEP ? tid / C::PAIRS : kMaxG;
+  const int c2 = 2 * (tid % C::PAIRS);
   float acc[kBf16 ? 1 : C::GPT][2];
   // bf16: o[t][part] is the m16n8 product tile of P's part (heads grp,
   // grp + 8; columns (warp + t * kWarps) * 8 + 2 * tig, + 1), one chain of
@@ -433,13 +456,15 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const T* qr = q_s + grp * C::QLD + tig * 2;
       const T* kr = ks + (warp * 8 + grp) * LD + tig * 2;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < (D + 15) / 16; ++kk) {
+        const bool full = (kk + 1) * 16 <= D;    // else k 8..15 are zero
         const uint32_t qa[4] = {
             grp < G ? ld32(qr + kk * 16) : 0u,
             grp + 8 < G ? ld32(qr + 8 * C::QLD + kk * 16) : 0u,
-            grp < G ? ld32(qr + kk * 16 + 8) : 0u,
-            grp + 8 < G ? ld32(qr + 8 * C::QLD + kk * 16 + 8) : 0u};
-        mma_bf16(c, qa, ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
+            full && grp < G ? ld32(qr + kk * 16 + 8) : 0u,
+            full && grp + 8 < G ? ld32(qr + 8 * C::QLD + kk * 16 + 8) : 0u};
+        mma_bf16(c, qa, ld32(kr + kk * 16),
+                 full ? ld32(kr + kk * 16 + 8) : 0u);
       }
       const int col = warp * 8 + tig * 2;
       const bool v0 = col < valid, v1 = col + 1 < valid;
@@ -735,14 +760,14 @@ int prepare() {
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* kv_len,
-           int len_kind, int fixed_len, void* out, float* part, int* arrivals,
-           int n_blocks, int B, int S, int Hkv, int G, long long k_sb,
-           long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-           long long v_sh, float scale, cudaStream_t st) {
+           int len_kind, int fixed_len, int window, void* out, float* part,
+           int* arrivals, int n_blocks, int B, int S, int Hkv, int G,
+           long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+           long long v_ss, long long v_sh, float scale, cudaStream_t st) {
   const long long n = (long long)n_blocks * G;
   decode_attn_kernel<T, D><<<n_blocks, kThreads, smem_bytes<T, D>(B, G), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_len, len_kind, fixed_len,
+      static_cast<const T*>(v), kv_len, len_kind, fixed_len, window,
       static_cast<T*>(out), part + n * D, part + n * D + n, part, arrivals,
       B, S, Hkv, G, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
   return static_cast<int>(cudaGetLastError());
@@ -750,19 +775,20 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
 
 template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v,
-             const void* kv_len, int len_kind, int fixed_len, void* out,
-             float* part, int* arrivals, int n_blocks, int B, int S, int Hkv,
-             int G, long long k_sb, long long k_ss, long long k_sh,
+             const void* kv_len, int len_kind, int fixed_len, int window,
+             void* out, float* part, int* arrivals, int n_blocks, int B, int S,
+             int Hkv, int G, long long k_sb, long long k_ss, long long k_sh,
              long long v_sb, long long v_ss, long long v_sh, float scale,
              cudaStream_t st) {
 #define DA_CASE(DD)                                                          \
   case DD:                                                                   \
-    return launch<T, DD>(q, k, v, kv_len, len_kind, fixed_len, out, part,    \
-                         arrivals, n_blocks, B, S, Hkv, G, k_sb, k_ss, k_sh, \
-                         v_sb, v_ss, v_sh, scale, st);
+    return launch<T, DD>(q, k, v, kv_len, len_kind, fixed_len, window, out,  \
+                         part, arrivals, n_blocks, B, S, Hkv, G, k_sb, k_ss, \
+                         k_sh, v_sb, v_ss, v_sh, scale, st);
   switch (D) {
     DA_CASE(32)
     DA_CASE(64)
+    DA_CASE(120)
     DA_CASE(128)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -776,42 +802,46 @@ int launch_d(int D, const void* q, const void* k, const void* v,
 // current device (once per device, before the first launch and outside any
 // graph capture).  Returns the first CUDA error (0 = ok).
 extern "C" int da_prepare() {
-  const int rcs[] = {prepare<float, 32>(), prepare<float, 64>(),
-                     prepare<float, 128>(), prepare<__nv_bfloat16, 32>(),
-                     prepare<__nv_bfloat16, 64>(),
+  const int rcs[] = {prepare<float, 32>(),          prepare<float, 64>(),
+                     prepare<float, 120>(),         prepare<float, 128>(),
+                     prepare<__nv_bfloat16, 32>(),  prepare<__nv_bfloat16, 64>(),
+                     prepare<__nv_bfloat16, 120>(),
                      prepare<__nv_bfloat16, 128>()};
   for (int rc : rcs)
     if (rc != 0) return rc;
   return 0;
 }
 
-// Plain C entry point (bound through ctypes).  q (B, Hkv*G, D) contiguous;
-// k/v element strides over (batch, position, KV head), unit stride over D,
-// every row 16-byte aligned.  Lengths: len_kind 0 takes fixed_len for every
-// row, 1 reads kv_len as (B,) int32, 2 as (B,) int64; each is clamped to
-// [0, S].  out like q.  part holds n_blocks*G*(D+2) floats, 16-byte
-// aligned (acc, then m, then l, of each block's split); arrivals B*Hkv int32
-// zeros, left zero by the call.
+// Plain C entry point (bound through ctypes).  q (B, Hkv*G, D) contiguous,
+// D in {32, 64, 120, 128}; k/v element strides over (batch, position, KV
+// head), unit stride over D, every row 16-byte aligned.  Lengths: len_kind 0
+// takes fixed_len for every row, 1 reads kv_len as (B,) int32, 2 as (B,)
+// int64; each row attends over [lo, hi) with hi = min(max(kv_len, 0), S)
+// and lo = min(max(kv_len - window, 0), hi) for window > 0, else 0.  out
+// like q.  part holds n_blocks*G*(D+2) floats, 16-byte aligned (acc, then
+// m, then l, of each block's split); arrivals B*Hkv int32 zeros, left zero
+// by the call.
 // n_blocks is ops.grid_blocks(B, Hkv, S, n_sm, tile); B <= 1024, G <= 16.
 // Returns the CUDA error of the launch (0 = ok).
 extern "C" int da_launch(const void* q, const void* k, const void* v,
                          const void* kv_len, int len_kind, int fixed_len,
-                         void* out, void* part, void* arrivals, int n_blocks,
-                         int B, int S, int Hkv, int G, int D, long long k_sb,
-                         long long k_ss, long long k_sh, long long v_sb,
-                         long long v_ss, long long v_sh, float scale,
-                         int is_bf16, void* stream) {
+                         int window, void* out, void* part, void* arrivals,
+                         int n_blocks, int B, int S, int Hkv, int G, int D,
+                         long long k_sb, long long k_ss, long long k_sh,
+                         long long v_sb, long long v_ss, long long v_sh,
+                         float scale, int is_bf16, void* stream) {
   if (G < 1 || G > kMaxG || B < 1 || B > kMaxB || S < 1 || Hkv < 1 ||
-      len_kind < 0 || len_kind > 2 || n_blocks < B * Hkv)
+      len_kind < 0 || len_kind > 2 || n_blocks < B * Hkv || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   float* p = static_cast<float*>(part);
   int* arr = static_cast<int*>(arrivals);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch_d<__nv_bfloat16>(D, q, k, v, kv_len, len_kind, fixed_len,
-                                   out, p, arr, n_blocks, B, S, Hkv, G, k_sb,
-                                   k_ss, k_sh, v_sb, v_ss, v_sh, scale, st);
-  return launch_d<float>(D, q, k, v, kv_len, len_kind, fixed_len, out, p, arr,
-                         n_blocks, B, S, Hkv, G, k_sb, k_ss, k_sh, v_sb, v_ss,
-                         v_sh, scale, st);
+                                   window, out, p, arr, n_blocks, B, S, Hkv,
+                                   G, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                                   scale, st);
+  return launch_d<float>(D, q, k, v, kv_len, len_kind, fixed_len, window, out,
+                         p, arr, n_blocks, B, S, Hkv, G, k_sb, k_ss, k_sh,
+                         v_sb, v_ss, v_sh, scale, st);
 }

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from ..core.sampling import GroupedData
 
@@ -39,3 +40,15 @@ def make_lineitem(scale_factor: float = 1.0, group_by: str = "linestatus", *,
     # Mild per-group shift so GROUP BY answers differ (as in real TPC-H).
     extprice = extprice * (1.0 + 0.01 * gid.astype(np.float32))
     return GroupedData.from_columns(gid, extprice, device=device), gid
+
+
+def add_group_bias(data: GroupedData, bias: float) -> GroupedData:
+    """Separate group means by ``bias`` (relative), as the paper does for the
+    ordering experiments (SS6.3.2 'group bias'): group i's values times
+    ``(1 + bias) ** i`` in f32, on the data's device."""
+    vals = data.values.cpu().numpy().copy()
+    for i in range(data.num_groups):
+        lo, hi = data.offsets[i], data.offsets[i + 1]
+        vals[lo:hi] *= (1.0 + bias) ** i
+    return GroupedData(torch.from_numpy(vals), data.offsets.copy(),
+                       data.scale.copy(), device=data.device)

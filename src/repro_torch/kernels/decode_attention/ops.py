@@ -1,19 +1,21 @@
 """Wrapper of the Hopper decode-attention kernel (``csrc/decode_attention.cu``).
 
-``decode_attention(q, k, v, kv_len)`` is the decode step's attention: one
-query token per row (q ``(B, Hq, d)``) over the first ``kv_len[b]``
-positions of the cache in its serving layout (k/v ``(B, S_max, Hkv, d)``),
-with ``kv_len`` an int or a ``(B,)`` int32/int64 device tensor that the
-kernel reads itself -- no host read of the lengths, no conversion.  On a
+``decode_attention(q, k, v, kv_len, window=None)`` is the decode step's
+attention: one query token per row (q ``(B, Hq, d)``) over the first
+``kv_len[b]`` positions of the cache in its serving layout (k/v ``(B,
+S_max, Hkv, d)``) -- under a sliding window of ``W`` positions over the
+last ``W`` of them, ``[max(0, kv_len[b] - W), kv_len[b])`` -- with
+``kv_len`` an int or a ``(B,)`` int32/int64 device tensor that the kernel
+reads itself -- no host read of the lengths, no conversion.  On a
 CUDA tensor it launches the kernel, one launch a call (or raises); on a CPU
 tensor it runs the plain version (:mod:`.ref`), because no card is there.
 It never falls back.
 
 Unlike the reference's wrapper, it neither pads nor transposes the cache:
-the kernel reads K and V rows through their strides, and only positions
-below each row's length.  The grid is fixed by the shapes and the card
-(:func:`grid_blocks`); the kernel splits the valid positions over it by the
-lengths on the device (:func:`partition` is the same arithmetic).  The
+the kernel reads K and V rows through their strides, and only the
+positions of each row's range.  The grid is fixed by the shapes and the card
+(:func:`grid_blocks`); the kernel splits the ranges over it by the lengths
+on the device (:func:`partition` is the same arithmetic).  The
 splits' partials and the pairs' arrival counters are allocated once per
 device and shape and kept, so a CUDA graph that captured them keeps valid
 pointers; calls on one device therefore run in stream order, not
@@ -22,14 +24,14 @@ concurrently on two streams.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
 from .. import nvcc, resolve_use_kernel
 from . import ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 120, 128)
 MAX_G = 16                  # query heads per KV head (kMaxG in the source)
 MAX_B = 1024                # rows (kMaxB: the lengths sit in shared memory)
 BLOCKS_PER_SM = 2           # the grid holds about this many blocks per SM
@@ -40,8 +42,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.da_prepare.argtypes = []
     lib.da_prepare.restype = I
-    lib.da_launch.argtypes = [P, P, P, P, I, I, P, P, P, I, I, I, I, I, I,
-                              LL, LL, LL, LL, LL, LL, ctypes.c_float, I, P]
+    lib.da_launch.argtypes = [P, P, P, P, I, I, I, P, P, P, I, I, I, I, I,
+                              I, LL, LL, LL, LL, LL, LL, ctypes.c_float, I,
+                              P]
     lib.da_launch.restype = I
 
 
@@ -69,20 +72,32 @@ def grid_blocks(B: int, Hkv: int, S: int, n_sm: int, tile: int = 64) -> int:
     return max(B * Hkv, min(BLOCKS_PER_SM * n_sm, B * Hkv * _cdiv(S, tile)))
 
 
+def row_range(length: int, S_max: int, window: Optional[int]
+              ) -> Tuple[int, int]:
+    """Row range ``(lo, hi)`` of one length: the kernel's arithmetic
+    (``ref.bounds``)."""
+    raw = max(int(length), 0)
+    hi = min(raw, S_max)
+    return (0 if window is None else min(max(raw - window, 0), hi)), hi
+
+
 def partition(lengths, B: int, Hkv: int, S_max: int, n_sm: int,
-              tile: int = 64) -> Tuple[int, int, List[Tuple[int, int, int,
-                                                            int]]]:
+              tile: int = 64, window: Optional[int] = None
+              ) -> Tuple[int, int, List[Tuple[int, int, int, int]]]:
     """``(n_blocks, chunk, blocks)``: what every block of the kernel computes
-    from the lengths.  ``chunk`` is the smallest whole number of tiles for
-    which the splits of every (row, KV head) pair -- ``ceil(len / chunk)``,
-    or one for a length of 0 -- fit the ``n_blocks`` of the grid.
-    ``blocks[i] = (b, h, lo, hi)`` is block i's slice of row b's positions
-    for KV head h, rows in order, then heads, then splits; blocks past
-    ``len(blocks)`` exit at once.  A pair of length 0 has one block with
-    ``lo == hi == 0``, which writes zeros."""
-    lens = [min(max(int(x), 0), S_max) for x in lengths]
-    if len(lens) != B:
-        raise ValueError(f"need {B} lengths, got {len(lens)}")
+    from the lengths.  Row b attends over ``[lo_b, hi_b)``
+    (:func:`row_range`).  ``chunk`` is the smallest whole number of tiles
+    for which the splits of every (row, KV head) pair -- ``ceil((hi - lo)
+    / chunk)``, or one for an empty range -- fit the ``n_blocks`` of the
+    grid.  ``blocks[i] = (b, h, lo, hi)`` is block i's slice of row b's
+    positions for KV head h, rows in order, then heads, then splits; split
+    s covers ``[lo_b + s * chunk, min(lo_b + (s + 1) * chunk, hi_b))``;
+    blocks past ``len(blocks)`` exit at once.  A pair with an empty range
+    has one block with ``lo == hi``, which writes zeros."""
+    if len(lengths) != B:
+        raise ValueError(f"need {B} lengths, got {len(lengths)}")
+    ranges = [row_range(x, S_max, window) for x in lengths]
+    lens = [hi - lo for lo, hi in ranges]
     n_blocks = grid_blocks(B, Hkv, S_max, n_sm, tile)
 
     def fits(t: int) -> bool:
@@ -95,11 +110,11 @@ def partition(lengths, B: int, Hkv: int, S_max: int, n_sm: int,
         lo, hi = (lo, mid) if fits(mid) else (mid + 1, hi)
     chunk = lo * tile
     blocks = []
-    for b, L in enumerate(lens):
+    for b, ((lo_b, hi_b), L) in enumerate(zip(ranges, lens)):
         ns = max(1, _cdiv(L, chunk))
         for h in range(Hkv):
-            blocks += [(b, h, min(s * chunk, L), min(s * chunk + chunk, L))
-                       for s in range(ns)]
+            blocks += [(b, h, lo_b + min(s * chunk, L),
+                        lo_b + min(s * chunk + chunk, L)) for s in range(ns)]
     return n_blocks, chunk, blocks
 
 
@@ -122,18 +137,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: Union[int, torch.Tensor], *,
+                     window: Optional[int] = None,
                      use_kernel: Union[bool, str] = "auto") -> torch.Tensor:
     """(B, Hq, d) attention of each row's query over its first ``kv_len[b]``
-    cache positions, scores scaled by ``d**-0.5``, in q's dtype.
-    ``use_kernel`` as :func:`..resolve_use_kernel`: ``True`` on a CPU tensor
-    raises, and a CUDA tensor always takes the kernel."""
+    cache positions (the last ``window`` of them under a sliding window),
+    scores scaled by ``d**-0.5``, in q's dtype.  ``use_kernel`` as
+    :func:`..resolve_use_kernel`: ``True`` on a CPU tensor raises, and a
+    CUDA tensor always takes the kernel."""
     _check(q, k, v)
+    if window is not None and (int(window) != window or window < 1):
+        raise ValueError(f"window must be a positive int, got {window!r}")
     if not resolve_use_kernel(use_kernel, q.device):
         if q.device.type == "cuda":
             raise ValueError("a CUDA tensor takes the kernel; the plain "
                              "version is ref.decode_attention_ref")
-        return ref.decode_attention_ref(q, k, v, kv_len)
-    return _launch(q, k, v, kv_len)
+        return ref.decode_attention_ref(q, k, v, kv_len, window)
+    return _launch(q, k, v, kv_len, window)
 
 
 def _prepared(dev: torch.device, lib: ctypes.CDLL) -> int:
@@ -170,7 +189,7 @@ def _buffers(dev: torch.device, B: int, Hkv: int, n_blocks: int, G: int,
     return bufs
 
 
-def _launch(q, k, v, kv_len):
+def _launch(q, k, v, kv_len, window):
     B, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -190,7 +209,7 @@ def _launch(q, k, v, kv_len):
             raise ValueError(f"{name} needs a unit stride over d and 16-byte "
                              f"aligned rows; strides {t.stride()}")
     dev = q.device
-    if isinstance(kv_len, torch.Tensor):       # the kernel clamps to [0, S]
+    if isinstance(kv_len, torch.Tensor):       # the kernel clamps the range
         if kv_len.shape != (B,):
             raise ValueError(f"kv_len must be ({B},), got "
                              f"{tuple(kv_len.shape)}")
@@ -201,7 +220,7 @@ def _launch(q, k, v, kv_len):
         lens_ptr, kind, fixed = lens.data_ptr(), 1 + (
             lens.dtype == torch.int64), 0
     else:
-        lens_ptr, kind, fixed = None, 0, min(max(int(kv_len), 0), S)
+        lens_ptr, kind, fixed = None, 0, min(max(int(kv_len), 0), _MAX_GRID)
     q = q.contiguous()
     out = torch.empty_like(q)
     lib = library()
@@ -211,7 +230,8 @@ def _launch(q, k, v, kv_len):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.da_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           lens_ptr, kind, fixed, out.data_ptr(),
+                           lens_ptr, kind, fixed,
+                           min(int(window or 0), _MAX_GRID), out.data_ptr(),
                            part.data_ptr(), arrivals.data_ptr(), n_blocks, B,
                            S, Hkv, G, d, *k.stride()[:3], *v.stride()[:3],
                            d ** -0.5, int(q.dtype == torch.bfloat16), stream)

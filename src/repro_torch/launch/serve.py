@@ -1,15 +1,20 @@
 """LM serving entry point: continuous-batching decode of random prompts.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
-        [--smoke] [--device cpu] [--requests 6 --slots 2]
+        [--smoke] [--layers N] [--device cpu] [--requests 6 --slots 2]
 
-Runs on the card unless ``--device cpu`` is given; ``--smoke`` serves the
-reduced same-family config.  Weights are random, drawn on the device from
+``--arch`` is any arch of ``configs.ARCHS`` (qwen2-1.5b, qwen3-1.7b,
+h2o-danube-3-4b, command-r-plus-104b).  Runs on the card unless ``--device
+cpu`` is given; ``--smoke`` serves the reduced same-family config,
+``--layers N`` the full width cut to N layers.  A model whose weights do not
+fit the card's memory (command-r-plus-104b: 208 GB of bf16 weights at full
+depth) is refused unless cut.  Weights are random, drawn on the device from
 a ``torch.Generator`` seeded with ``--seed``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -26,6 +31,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=2)
     ap.add_argument("--max-new", type=int, default=16)
@@ -36,9 +43,20 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced_for_smoke(cfg)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA card: pass --device cpu to serve on the CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA card: pass --device cpu to serve on "
+                             "the CPU")
+        need = M.weight_bytes(cfg)
+        have = torch.cuda.get_device_properties(dev).total_memory
+        if need > have:
+            raise SystemExit(
+                f"{cfg.name}: {need / 1e9:.0f} GB of weights at "
+                f"{cfg.n_layers} layers do not fit the card's "
+                f"{have / 1e9:.0f} GB; pass --smoke or --layers N")
 
     params = M.init_model(cfg, args.seed, device=dev)
     batcher = ContinuousBatcher(cfg, params, slots=args.slots, s_max=128)

@@ -1,22 +1,27 @@
-"""GQA self-attention in train/prefill and decode modes, with preallocated
-KV caches for serving.
+"""GQA self-attention (full or sliding-window, optional per-head QK norm)
+in train/prefill and decode modes, with preallocated KV caches for serving.
 
 Prefill and teacher forcing run plain f32 einsums (the reference's
-``_sdpa``, which no Pallas kernel covers).  Decode goes through the
+``_sdpa``, which no Pallas kernel covers) under the causal mask, windowed
+when the config sets ``sliding_window``.  Decode goes through the
 decode-attention op (``kernels/decode_attention``): the CUDA kernel on the
 card, its plain version on the CPU, one launch per layer and step.  The
-reference's decode evaluates ``_sdpa`` under the mask ``kj <= length[b]``;
-the op computes the same function with ``kv_len[b] = min(length[b] + 1,
-S_max)``.
+reference's decode evaluates ``_sdpa`` under the mask ``kj <= length[b]``
+(and ``kj > length[b] - W`` under a window of W); the op computes the same
+function with ``kv_len[b] = length[b] + 1``, over ``[max(0, kv_len[b] - W),
+min(kv_len[b], S_max))``.  An idle slot whose window has moved wholly past
+the cache (``length >= S_max + W - 1``) reads zeros where the reference
+averages every position; no request reads it.
 
-Unlike the reference, which returns a new cache, decode writes the new K/V
-row into the cache tensors in place (the returned cache shares them) and
-returns a new length tensor.  Sliding windows, QK norm and cross-attention
-are not ported yet (``models.model.check_supported`` raises).
+QK norm (the Qwen3 signature) is an RMS norm of each head's q and k, in
+f32, before RoPE.  Unlike the reference, which returns a new cache, decode
+writes the new K/V row into the cache tensors in place (the returned cache
+shares them) and returns a new length tensor.  Cross-attention is not ported
+yet (``models.model.check_supported`` raises).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -46,6 +51,9 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig, dtype, device):
         p["bq"] = torch.zeros((H * dh,), dtype=dtype, device=device)
         p["bk"] = torch.zeros((Hkv * dh,), dtype=dtype, device=device)
         p["bv"] = torch.zeros((Hkv * dh,), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = nn.rms_norm_init(dh, device)
+        p["k_norm"] = nn.rms_norm_init(dh, device)
     return p
 
 
@@ -55,6 +63,8 @@ def _project_q(p, cfg: ModelConfig, x, rope):
     B, S, _ = x.shape
     q = nn.dense(p["wq"], x, p.get("bq")).reshape(B, S, cfg.n_heads,
                                                   cfg.head_dim)
+    if cfg.qk_norm:
+        q = nn.rms_norm(p["q_norm"], q, cfg.rms_eps)
     return nn.apply_rope(q, *rope)
 
 
@@ -63,6 +73,8 @@ def _project_kv(p, cfg: ModelConfig, x, rope):
     dh, Hkv = cfg.head_dim, cfg.n_kv_heads
     k = nn.dense(p["wk"], x, p.get("bk")).reshape(B, S, Hkv, dh)
     v = nn.dense(p["wv"], x, p.get("bv")).reshape(B, S, Hkv, dh)
+    if cfg.qk_norm:
+        k = nn.rms_norm(p["k_norm"], k, cfg.rms_eps)
     return nn.apply_rope(k, *rope), v
 
 
@@ -79,10 +91,15 @@ def _sdpa(q, k, v, mask):
     return out.reshape(B, S, H, dh).to(q.dtype)
 
 
-def causal_mask(S: int, T: int, device=None):
-    """(S, T) bool; query i attends keys j <= i."""
-    return (torch.arange(T, device=device)[None, :]
-            <= torch.arange(S, device=device)[:, None])
+def causal_mask(S: int, T: int, window: Optional[int] = None, device=None):
+    """(S, T) bool; query i attends keys j <= i (and j > i - window under a
+    sliding window)."""
+    qi = torch.arange(S, device=device)[:, None]
+    kj = torch.arange(T, device=device)[None, :]
+    m = kj <= qi
+    if window is not None:
+        m = m & (kj > qi - window)
+    return m
 
 
 def self_attention(p, cfg: ModelConfig, x):
@@ -92,7 +109,7 @@ def self_attention(p, cfg: ModelConfig, x):
     rope = nn.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     q = _project_q(p, cfg, x, rope)
     k, v = _project_kv(p, cfg, x, rope)
-    mask = causal_mask(S, S, device=x.device)
+    mask = causal_mask(S, S, cfg.sliding_window, device=x.device)
     out = _sdpa(q, k, v, mask)
     return nn.dense(p["wo"], out.reshape(B, S, -1)), (k, v)
 
@@ -128,8 +145,9 @@ def decode_self_attention(p, cfg: ModelConfig, x, cache: KVCache):
     k_new, v_new = _project_kv(p, cfg, x, rope)
     _write_rows(cache, k_new[:, 0], v_new[:, 0])
     new_len = cache.length + 1
-    # kv_len = min(length + 1, S_max): the op clamps to the cache length.
-    out = da_ops.decode_attention(q[:, 0], cache.k, cache.v, new_len)
+    # kv_len = length + 1: the op clamps its range to the cache length.
+    out = da_ops.decode_attention(q[:, 0], cache.k, cache.v, new_len,
+                                  window=cfg.sliding_window)
     out = nn.dense(p["wo"], out.reshape(B, 1, -1))
     return out, KVCache(cache.k, cache.v, new_len)
 

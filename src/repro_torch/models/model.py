@@ -1,11 +1,11 @@
-"""Model assembly for the dense decoder-only family with a tied head.
+"""Model assembly for the dense decoder-only family: full or sliding-window
+attention, optional QK norm, a tied or untied head.
 
 Parameters are a dict of tensors with one entry per layer (``"layers"``, a
 list), where the reference stacks each pattern position over repeats and
 runs ``lax.scan``; a Python loop over the layers takes its place.  Layer
 kinds other than ``dense`` (MoE, SSM/hybrid, cross-attention,
-encoder-decoder), sliding windows, QK norm and untied heads raise
-``NotImplementedError``.
+encoder-decoder) raise ``NotImplementedError``.
 
 Entry points (functions of a params dict):
   init_model(cfg, seed, device)            -> params
@@ -16,10 +16,11 @@ Entry points (functions of a params dict):
   caches_from_prefill(cfg, raw, S_max)     -> decode caches
 
 Caches are one :class:`~.attention.KVCache` per layer; raw prefill caches
-one ``(k, v)`` pair per layer.  The tied head (``embed.T * d_model**-0.5``
-in the parameter dtype) is formed once and kept as ``params["tied_head"]``;
+one ``(k, v)`` pair per layer.  A tied head (``embed.T * d_model**-0.5`` in
+the parameter dtype) is formed once and kept as ``params["tied_head"]``;
 elementwise scaling gives the same bits every time, so this equals the
-reference's per-call product.
+reference's per-call product.  An untied head is ``params["unembed"]`` (d,
+V), applied as ``x @ unembed``.
 """
 from __future__ import annotations
 
@@ -47,11 +48,6 @@ def check_supported(cfg: ModelConfig) -> ModelConfig:
         raise NotImplementedError(
             f"{cfg.name}: layer pattern {cfg.layer_pattern} (family "
             f"{cfg.family}) is not ported yet; only dense decoders are")
-    for what, unported in (("sliding-window attention", cfg.sliding_window),
-                           ("QK norm", cfg.qk_norm),
-                           ("an untied head", not cfg.tie_embeddings)):
-        if unported:
-            raise NotImplementedError(f"{cfg.name}: {what} is not ported yet")
     return cfg
 
 
@@ -83,7 +79,11 @@ def init_model(cfg: ModelConfig, seed: int = 0,
         "ln2": nn.rms_norm_init(d, device),
         "ff": mlp_mod.init_mlp(gen, d, cfg.d_ff, dtype, device),
     } for _ in range(cfg.n_layers)]
-    attach_tied_head(cfg, params)
+    if cfg.tie_embeddings:
+        attach_tied_head(cfg, params)
+    else:
+        params["unembed"] = nn.dense_init(gen, d, cfg.vocab_size, dtype,
+                                          device)
     return params
 
 
@@ -113,7 +113,9 @@ def _embed(cfg, params, tokens):
 
 
 def _unembed(cfg, params, x):
-    return torch.nn.functional.linear(x, params["tied_head"])
+    if cfg.tie_embeddings:
+        return torch.nn.functional.linear(x, params["tied_head"])
+    return torch.matmul(x, params["unembed"])
 
 
 def train_logits(cfg: ModelConfig, params, batch):
@@ -173,6 +175,16 @@ def caches_from_prefill(cfg: ModelConfig, raw_caches,
             torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad),
             torch.full((B,), S, dtype=torch.int32, device=k.device)))
     return out
+
+
+def weight_bytes(cfg: ModelConfig) -> int:
+    """Bytes of a dense model's weights in its dtype (norm gains and biases
+    left out), from the config alone."""
+    d, dh, V = cfg.d_model, cfg.head_dim, cfg.vocab_size
+    attn_w = d * dh * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    layer = attn_w + 3 * d * cfg.d_ff
+    heads = (1 if cfg.tie_embeddings else 2) * V * d
+    return (cfg.n_layers * layer + heads) * _dtype(cfg).itemsize
 
 
 def count_params(params) -> int:

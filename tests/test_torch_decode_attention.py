@@ -1,9 +1,10 @@
 """The port's decode-attention op against the JAX reference: its plain
 version against the reference's Pallas kernel (interpret mode, as the
 reference's own tests run it) on the four shapes of the reference's kernel
-test in f32 and bf16, a poisoned tail, per-row lengths against the
-reference decode path's ``_sdpa`` under the decode mask, and, on a card, the
-CUDA kernel against its plain version.
+test and on h2o-danube's head dimension (120) in f32 and bf16, a poisoned
+tail, per-row lengths against the reference decode path's ``_sdpa`` under
+the decode mask, with and without a sliding window, the partition of each
+row's range, and, on a card, the CUDA kernel against its plain version.
 
 Tolerances: f32 at rtol 1e-5, atol 1e-6 (both sides accumulate in f32 in
 different orders); bf16 within one bf16 ulp, since both sides compute in f32
@@ -23,6 +24,7 @@ SHAPES = [                      # tests/test_kernels.py's decode shapes
     (2, 4, 4, 64, 600, 256),    # kv_len not a tile multiple
     (1, 16, 8, 128, 512, 128),
     (2, 8, 1, 128, 768, 256),   # MQA
+    (2, 8, 2, 120, 300, 128),   # h2o-danube's head dimension
 ]
 
 
@@ -139,15 +141,64 @@ GRID_BOUND = (264, 4, 1, 32, 2112)
 GRID_LENS = np.random.default_rng(7).integers(0, 2113, 264)
 
 
-def _coverage(lens, Hkv, S, n_sm, tile):
+def _coverage(lens, Hkv, S, n_sm, tile, window=None):
     n_blocks, chunk, blocks = ops.partition(lens, len(lens), Hkv, S, n_sm,
-                                            tile)
+                                            tile, window)
     seen = {}
     for b, h, lo, hi in blocks:
         seen.setdefault((b, h), []).append((lo, hi))
     return n_blocks, chunk, blocks, seen
 
 
+def test_windowed_rows_match_reference_decode_mask(jx):
+    """Under a sliding window of W, row b attends over [kv_len[b] - W,
+    kv_len[b]): the reference decode path's ``_sdpa`` with ``kj <= length``
+    and ``kj > length - W`` at ``length = kv_len - 1``, at lengths below,
+    at and past the window (W - 1, W, W + 1), for d = 120 and 128; rows
+    before the window, poisoned, add nothing."""
+    jnp = jx["jnp"]
+    W, S = 48, 128
+    lens = np.array([W - 1, W, W + 1, 1, 2 * W + 5, S, S + 3], np.int32)
+    for d in (120, 128):
+        q, k, v = _case(len(lens), 8, 2, d, S, seed=d)
+        length = lens[:, None] - 1
+        kj = np.arange(S)[None, :]
+        mask = ((kj <= length) & (kj > length - W))[:, None, :]
+        want = np.asarray(jx["attn"]._sdpa(
+            jnp.asarray(q[:, None]), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(mask), None))[:, 0]
+        lo = np.maximum(lens - W, 0)
+        for b, lo_b in enumerate(lo):
+            k[b, :lo_b] = 100.0
+            v[b, :lo_b] = float("nan")
+        got = ops.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), torch.from_numpy(lens),
+                                   window=W)
+        assert torch.isfinite(got).all()
+        assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+        got_int = ops.decode_attention(
+            torch.from_numpy(q[:3]), torch.from_numpy(k[:3]),
+            torch.from_numpy(v[:3]), W + 1, window=W)
+        assert_allclose(got_int[2].numpy(), want[2], rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="window"):
+        ops.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), 4, window=0)
+
+
+def test_window_bounds_are_the_kernel_arithmetic():
+    """``ref.bounds`` and ``ops.row_range`` agree: hi = min(len, S), lo =
+    min(max(len - W, 0), hi); a row whose window passed the cache is
+    empty."""
+    lens = [0, 1, 15, 16, 17, 40, 55, 70, 90]
+    lo, hi = ref.bounds(torch.tensor(lens), len(lens), 40, 16, "cpu")
+    assert list(zip(lo.tolist(), hi.tolist())) == [
+        ops.row_range(L, 40, 16) for L in lens]
+    assert ops.row_range(17, 40, 16) == (1, 17)
+    assert ops.row_range(70, 40, 16) == (40, 40)
+    assert ops.row_range(17, 40, None) == (0, 17)
+
+
+@pytest.mark.parametrize("window", [None, 64, 700])
 @pytest.mark.parametrize("tile", [64, 32])
 @pytest.mark.parametrize("Hkv,S,n_sm,lens", [
     (2, 2048, 132, SERVE_LENS),
@@ -161,23 +212,27 @@ def _coverage(lens, Hkv, S, n_sm, tile):
     (2, 96, 132, [1, 37, 96, 64, 5]),
     (1, 2112, 132, GRID_LENS),
 ])
-def test_partition_covers_every_position_once(Hkv, S, n_sm, lens, tile):
-    """Every valid position of every (row, KV head) lies in exactly one
-    split, in order; no split of a non-empty pair is empty, a pair of
-    length 0 has one block (it writes zeros); the splits fit the grid."""
-    n_blocks, chunk, blocks, seen = _coverage(lens, Hkv, S, n_sm, tile)
+def test_partition_covers_every_position_once(Hkv, S, n_sm, lens, tile,
+                                              window):
+    """Every position of every (row, KV head)'s range -- [0, len), or
+    [len - window, len) under a window -- lies in exactly one split, in
+    order; no split of a non-empty pair is empty, a pair with an empty range
+    has one block (it writes zeros); the splits fit the grid."""
+    n_blocks, chunk, blocks, seen = _coverage(lens, Hkv, S, n_sm, tile,
+                                              window)
     assert chunk % tile == 0 and len(blocks) <= n_blocks
     assert sorted(seen) == [(b, h) for b in range(len(lens))
                             for h in range(Hkv)]
     assert blocks == sorted(blocks)     # rows, then heads, then splits
     for (b, h), spans in seen.items():
         L = min(max(int(lens[b]), 0), S)
-        if L == 0:
-            assert spans == [(0, 0)]
+        first = 0 if window is None else min(max(int(lens[b]) - window, 0), L)
+        if first == L:
+            assert spans == [(L, L)]
             continue
-        assert all(0 <= lo < hi <= lo + chunk for lo, hi in spans)
+        assert all(first <= lo < hi <= lo + chunk for lo, hi in spans)
         covered = [t for lo, hi in spans for t in range(lo, hi)]
-        assert covered == list(range(L))
+        assert covered == list(range(first, L))
 
 
 @pytest.mark.parametrize("B,Hkv,S,n_sm", [(8, 2, 2048, 132), (2, 4, 600, 132),
@@ -266,3 +321,49 @@ def test_cuda_kernel_matches_plain_version(dtype):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(first, eager) and torch.equal(out, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_windowed_kernel_matches_plain_version(dtype):
+    """On the card: the windowed kernel against its plain version at
+    h2o-danube's decode shape (8 rows, 32 query over 8 KV heads, d = 120,
+    window 4096, S_max = 8192) and at d = 128, lengths below, at and past
+    the window (W - 1, W, W + 1 included), positions outside each range
+    poisoned; one counted launch a call; int and tensor lengths agree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    tdt = getattr(torch, dtype)
+    W, S = 4096, 8192
+    lens = np.array([W - 1, W, W + 1, 1, 5000, 8192, 6000, 4200])
+    for d in (120, 128):
+        q, k, v = (torch.from_numpy(a).to(dev, tdt)
+                   for a in _case(8, 32, 8, d, S, seed=d))
+        for b, L in enumerate(lens):
+            lo = max(int(L) - W, 0)
+            k[b, :lo] = 100.0
+            v[b, :lo] = float("nan")
+            k[b, L:] = 100.0
+            v[b, L:] = float("nan")
+        kv_len = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        n = ops.counter.launches
+        got = ops.decode_attention(q, k, v, kv_len, window=W)
+        assert ops.counter.launches == n + 1
+        want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
+                                        kv_len, W)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        if dtype == "float32":
+            assert torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+        else:
+            assert_within_bf16_ulp(got, want, atol=1e-6)
+        assert torch.equal(ops.decode_attention(q, k, v, kv_len, window=W),
+                           got)
+        qc, kc, vc = (torch.from_numpy(a).to(dev, tdt)
+                      for a in _case(8, 32, 8, d, S, seed=d + 1))
+        same = torch.full((8,), W + 1, dtype=torch.int64, device=dev)
+        one = ops.decode_attention(qc, kc, vc, W + 1, window=W)
+        assert torch.isfinite(one).all()
+        assert torch.equal(one, ops.decode_attention(qc, kc, vc, same,
+                                                     window=W))

@@ -45,7 +45,11 @@ def test_every_module_imports_without_jax_or_reference():
                  "kernels.decode_attention.ref", "models.config",
                  "models.nn", "models.mlp", "models.attention",
                  "models.model", "configs.registry", "configs.qwen2_1_5b",
-                 "serve.batching", "launch.serve"):
+                 "configs.qwen3_1_7b", "configs.h2o_danube_3_4b",
+                 "configs.command_r_plus_104b", "serve.batching",
+                 "launch.serve", "core.baselines", "data.pipeline",
+                 "integration", "integration.miss_eval",
+                 "integration.miss_mixture", "integration.miss_router"):
         assert f"repro_torch.{name}" in expected, name
 
 

@@ -17,7 +17,7 @@ import pytest
 import torch
 from numpy.testing import assert_allclose
 
-from repro_torch.configs import NOT_PORTED, get_config
+from repro_torch.configs import ARCHS, NOT_PORTED, get_config
 from repro_torch.convert import lm_params_from_numpy, lm_tree_from_seed
 from repro_torch.models import attention as attn
 from repro_torch.models import model as M
@@ -61,23 +61,38 @@ def assert_same_greedy(got, want, tol=TOL["atol"]):
 
 
 def test_config_and_registry_match_reference(jx, cfg):
+    """Every ported arch's config, full and reduced, equals the reference's;
+    the dense variants (sliding window, QK norm, untied head) build; MoE and
+    the archs still in ``NOT_PORTED`` raise."""
     full = get_config("qwen2-1.5b")
-    assert dataclasses.asdict(full) == dataclasses.asdict(
-        jx["get_config"]("qwen2-1.5b"))
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jx["reduced"](jx["get_config"]("qwen2-1.5b")))
     assert (full.head_dim, full.n_heads // full.n_kv_heads) == (128, 6)
     assert cfg.n_heads // cfg.n_kv_heads == 4
+    assert set(ARCHS) == {"qwen2-1.5b", "qwen3-1.7b", "h2o-danube-3-4b",
+                          "command-r-plus-104b"}
+    for arch in ARCHS:
+        want = jx["get_config"](arch)
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+            want)
+        assert dataclasses.asdict(reduced_for_smoke(get_config(arch))) == \
+            dataclasses.asdict(jx["reduced"](want))
+    assert get_config("qwen3-1.7b").qk_norm
+    assert get_config("h2o-danube-3-4b").sliding_window == 4096
+    assert not get_config("command-r-plus-104b").tie_embeddings
     for arch in NOT_PORTED:
         with pytest.raises(NotImplementedError, match=arch):
             get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    for unported in (dict(family="moe", moe=MoEConfig(8, 2, 64)),
-                     dict(sliding_window=16), dict(qk_norm=True),
-                     dict(tie_embeddings=False)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            M.init_model(dataclasses.replace(cfg, **unported), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        M.init_model(dataclasses.replace(
+            cfg, family="moe", moe=MoEConfig(8, 2, 64)), device="cpu")
+    for variant in (dict(sliding_window=16), dict(qk_norm=True),
+                    dict(tie_embeddings=False)):
+        params = M.init_model(dataclasses.replace(cfg, **variant),
+                              device="cpu")
+        assert ("unembed" in params) == ("tie_embeddings" in variant)
 
 
 def test_reference_init_tree_carries_over(jx, cfg):
