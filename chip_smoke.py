@@ -73,7 +73,8 @@ non-zero and nothing falls back to the CPU:
    bf16 within one bf16 ulp (beyond that atol) of the plain version's f32
    result; int32, int64 and int lengths give the same output, two calls and
    two CUDA-graph replays the eager output bit for bit, and a trace of 16
-   calls holds 16 device kernels and nothing else; kernel, plain and
+   calls, half of them with a window, holds 16 device kernels and nothing
+   else; kernel, plain and
    library (``scaled_dot_product_attention`` with a length mask and
    ``enable_gqa``) times over eight rotating caches (colder than L2) at the
    serve's lengths, at full length (2048) and at 64, from a CUDA graph of
@@ -143,7 +144,10 @@ non-zero and nothing falls back to the CPU:
    L2Miss and BLK within 2 epsilon, SPS's rows at least its full scan,
    L2Miss under SPS's rows; then lineitem SF10 GROUP BY LINESTATUS with a
    5 % group bias: ``run_ordermiss`` and ``run_ifocus`` both order the
-   groups as the exact answers do;
+   groups as the exact answers do; every Poisson-bootstrap and
+   segment-aggregate call of the phase is recorded, and one of each shape
+   is held against its plain version afterwards (Poisson bit for bit, the
+   aggregate as in phase 4);
 20. MISS for the LM at full width: Qwen3-1.7B (QK norm, bf16, seeded
    weights) and the pipeline's ``eval_domains(151936, 3 x 512 x 64)`` on
    the card; ``MissEvaluator`` (delta 0.1, B 200, n_min 32, n_max 64) at
@@ -153,23 +157,28 @@ non-zero and nothing falls back to the CPU:
    4 M documents (rtol 0.06 against numpy's means, fewer documents scanned
    than held, through the Poisson kernel); ``estimate_router_load`` with the
    reference test's synthetic router (E = 8) at epsilon 0.01 within 2
-   epsilon of the true load;
+   epsilon of the true load; one recorded Poisson-bootstrap call of each
+   shape is held against its plain version bit for bit afterwards;
 21. the dense variants: (a) the decode-attention kernel with a sliding
-   window against its plain version at h2o-danube's decode shape (8 rows,
-   32 query over 8 KV heads, d = 120 and 128, window 4096, S_max 8192, f32
-   and bf16, lengths below, at and past the window, positions outside each
-   window poisoned), timed from a CUDA graph against the byte bound over
-   the windows' rows, the plain version and SDPA with the window mask;
-   (b) reduced qwen3-1.7b, h2o-danube-3-4b (window 16) and
+   window against its plain version as in phase 9: rotating caches at
+   h2o-danube's decode shape (8 rows, 32 query over 8 KV heads, d = 120,
+   window 4096, S_max 8192, lengths in the serve's range), the edge
+   lengths (below, at and past the window) at d = 120 and 128, positions
+   outside each window poisoned; Command R+'s decode shape (96 query over
+   8 KV heads, d = 128, S_max 64) at its serve's lengths and the edge
+   lengths; the windowed kernel timed from a CUDA graph against the byte
+   bound over the windows' rows, the plain version and SDPA with the window
+   mask; (b) reduced qwen3-1.7b, h2o-danube-3-4b (window 16) and
    command-r-plus-104b card == cpu as phase 10; (c) h2o-danube-3-4b in f32
    at full width and depth: 16 greedy steps past a 4 200-token prompt
    against teacher forcing's logits (phase 11's tolerance); (d) the
-   h2o-danube bf16 serve: 16 prompts of 3 000-6 000 tokens, 32 new tokens
-   each, through ``ContinuousBatcher(slots=8, s_max=8192)``; (e)
-   Qwen3-1.7B bf16 at phase 12's serve shape; (f) command-r-plus-104b at
-   full width cut to 4 of its 64 layers, 8 requests of 16 tokens; then the
-   result lines: a JSON object of kernel measurements, then ``{"ok": true,
-   "device": {...}}`` as the last line.
+   h2o-danube bf16 serve: 16 prompts of 4 100-6 000 tokens, 32 new tokens
+   each (every one decodes past the window), through
+   ``ContinuousBatcher(slots=8, s_max=8192)``; (e) Qwen3-1.7B bf16 at
+   phase 12's serve shape; (f) command-r-plus-104b at full width cut to 4
+   of its 64 layers, 8 requests of 16 tokens; then the result lines: a
+   JSON object of kernel measurements, then ``{"ok": true, "device":
+   {...}}`` as the last line.
 
 Phases 6, 7, 12, 14, 16, 18, 19, 20 and 21(d-f) are the main paths: every
 kernel's launch count is set to 0 just before each and read just after; the launches of the
@@ -188,6 +197,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -407,21 +417,46 @@ def replays_equal(fn) -> bool:
 
 
 def device_kernels(fn, n: int) -> dict:
-    """Device kernels, by name, that ``n`` calls of ``fn`` ran: the second
-    of two profiler steps of ``n`` calls (the first warms the tracer up,
-    which can drop a session's first kernel)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    """The device work that ``n`` calls of ``fn`` enqueue, by name: the nodes
+    of one CUDA graph that captures the ``n`` calls (after an eager call on
+    a side stream), read from the DOT dump of the kept, uninstantiated
+    graph.  A kernel node is keyed
+    by its function's mangled name, any other node (a copy, a memset) by its
+    type.  A capture records every operation the calls put on the stream;
+    profiler traces on the card dropped some kernels of a step."""
+    import tempfile
 
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "calls.dot"
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            graph.debug_dump(str(path))
+        check(path.exists(), f"the graph of {n} calls wrote no DOT dump")
+        text = path.read_text()
+    del graph
+    nodes = re.findall(r'(?ms)^"graph_\d+_node_\d+"\s*\[(.*?)\];\s*$', text)
+    check(bool(nodes), f"the graph of {n} calls dumped no nodes: {text[:400]}")
+    found = collections.Counter()
+    for body in nodes:
+        name = (re.search(r"_Z\w+", body)
+                or re.search(r"\b\w*kernel\w*", body))
+        kind = re.search(r"\b(MEMCPY|MEMSET|HOST|GRAPH|EMPTY|WAIT_EVENT|"
+                         r"EVENT_RECORD|MEM_ALLOC|MEM_FREE|[A-Z_]{4,})\b",
+                         body)
+        found[name.group(0) if name else
+              kind.group(1) if kind else body[:80]] += 1
+    return dict(found)
 
 
 def graph_seq_ms(fns, rounds: int) -> float:
@@ -1229,15 +1264,18 @@ def _bf16_ulps(got: torch.Tensor, want_f32: torch.Tensor) -> float:
     return float(((g - want).abs() - 1e-6).clamp_min(0.0).div(ulp).max())
 
 
-def _decode_inputs(B, Hq, Hkv, d, S, dtype, gen, lens):
-    """q, and a cache whose positions past each row's length are poisoned."""
+def _decode_inputs(B, Hq, Hkv, d, S, dtype, gen, lens, window=None):
+    """q, and a cache poisoned outside each row's range: past its length,
+    and before ``length - window`` under a window."""
     dev = "cuda"
     q = torch.randn(B, Hq, d, generator=gen, device=dev).to(dtype) * 0.3
     k = (torch.randn(B, S, Hkv, d, generator=gen, device=dev) * 0.3).to(dtype)
     v = torch.randn(B, S, Hkv, d, generator=gen, device=dev).to(dtype)
     for b, L in enumerate(lens.tolist()):
-        k[b, L:] = 100.0
-        v[b, L:] = 1e4
+        lo = max(L - window, 0) if window else 0
+        for at in (slice(L, None), slice(0, lo)):
+            k[b, at] = 100.0
+            v[b, at] = 1e4
     return q, k, v
 
 
@@ -1249,36 +1287,52 @@ DECODE_GRID_BOUND = (264, 4, 1, 32, 2112)
 DECODE_ROT = 8              # 8 x 16.8 MB of cache: colder than L2
 
 
-def decode_sets(kind: str, seed: int = 13):
-    """``DECODE_ROT`` rotating bf16 caches at the serve's shape, with their
-    (B,) int32 lengths: ``serve`` draws them in the serve's range (prompt +
-    new tokens), ``full`` sets every length to S_max, ``short`` to 64."""
-    B, Hq, Hkv, d, S = DECODE_SERVE
+def decode_sets(kind: str, seed: int = 13, shape=DECODE_SERVE,
+                prompt=LM_PROMPT, window=None):
+    """``DECODE_ROT`` rotating bf16 caches at ``shape``, with their (B,)
+    int32 lengths: ``serve`` draws them in a serve's range (``prompt``
+    lengths plus the new tokens), ``full`` sets every length to S_max,
+    ``short`` to 64; positions outside each row's range are poisoned."""
+    B, Hq, Hkv, d, S = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rng = np.random.default_rng(seed)
     sets = []
     for _ in range(DECODE_ROT):
         if kind == "serve":
-            lens = rng.integers(LM_PROMPT[0] + 1, LM_PROMPT[1] + LM_NEW + 1, B)
+            lens = rng.integers(prompt[0] + 1, prompt[1] + LM_NEW + 1, B)
         else:
             lens = np.full(B, S if kind == "full" else 64)
         lens = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
         sets.append((*_decode_inputs(B, Hq, Hkv, d, S, torch.bfloat16, gen,
-                                     lens), lens))
+                                     lens, window), lens))
     return sets
 
 
-def decode_timing(kind: str, sets) -> dict:
-    """Kernel, plain and library (``scaled_dot_product_attention`` with a
-    length mask and ``enable_gqa``) times over the rotating ``sets``: from a
-    CUDA graph of 64 calls (the device's time) and eagerly back to back (the
-    host's enqueue rate included), beside the byte bound of the lengths."""
+def _cache_rows(lens: torch.Tensor, S: int, window=None) -> int:
+    """Cache positions the lengths make the kernel read, all rows summed."""
+    hi = lens.long().clamp(0, S)
+    lo = (lens.long() - window).clamp(min=0) if window else 0
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def decode_timing(kind: str, sets, window=None) -> dict:
+    """Kernel, plain and library (``scaled_dot_product_attention`` with the
+    rows' range as its mask and ``enable_gqa``) times over the rotating
+    ``sets``: from a CUDA graph of 64 calls (the device's time) and eagerly
+    back to back (the host's enqueue rate included), beside the byte bound
+    of the rows the ranges hold."""
     from repro_torch.kernels.decode_attention import ops, ref
 
-    B, Hq, Hkv, d, S = DECODE_SERVE
+    B, S, Hkv, d = sets[0][1].shape
+    Hq = sets[0][0].shape[1]
     it = iter(range(1 << 30))
-    masks = [(torch.arange(S, device="cuda")[None, :] < s[3][:, None])[
-        :, None, None] for s in sets]
+    pos = torch.arange(S, device="cuda")[None, :]
+    masks = []
+    for s in sets:
+        m = pos < s[3][:, None]
+        if window:
+            m &= pos >= s[3][:, None] - window
+        masks.append(m[:, None, None])
 
     def library(i):
         q, k, v, _ = sets[i]
@@ -1287,24 +1341,27 @@ def decode_timing(kind: str, sets) -> dict:
             attn_mask=masks[i], enable_gqa=True)
 
     times = {}
-    for name, fn in (("ms", lambda i: ops.decode_attention(*sets[i])),
-                     ("plain_ms", lambda i: ref.decode_attention_ref(*sets[i])),
-                     ("library_ms", library)):
+    for name, fn in (
+            ("ms", lambda i: ops.decode_attention(*sets[i], window=window)),
+            ("plain_ms", lambda i: ref.decode_attention_ref(*sets[i],
+                                                            window)),
+            ("library_ms", library)):
         def call(fn=fn):
             return fn(next(it) % len(sets))
         times[name] = graph_ms(call, reps=64, rounds=5)
         times["eager_" + name] = cuda_ms(call, reps=64, rounds=5)
-    tot = sum(int(s[3].sum()) for s in sets) / len(sets)   # mean sum of lengths
-    n_bytes = tot * Hkv * d * 2 * 2 + 2 * B * Hq * d * 2 + 4 * B
+    rows = sum(_cache_rows(s[3], S, window) for s in sets) / len(sets)
+    n_bytes = rows * Hkv * d * 2 * 2 + 2 * B * Hq * d * 2 + 4 * B
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = tot * Hq * d * 4 / F32_FLOPS * 1e3
+    ops_ms = rows * Hq * d * 4 / F32_FLOPS * 1e3
     row = dict(times, bound_ms=max(bytes_ms, ops_ms),
                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               mb=n_bytes / 1e6, mean_len_sum=tot)
-    print(f"  {kind:5s} lengths (mean sum {tot:.0f}, {row['mb']:.2f} MB a "
-          f"call), CUDA graph of 64 calls: kernel {row['ms']:.5f} ms  "
-          f"library {row['library_ms']:.5f} ms  plain {row['plain_ms']:.4f} "
-          f"ms  bound {row['bound_ms']:.5f} ms ({row['bound_by']}; kernel at "
+               mb=n_bytes / 1e6, cache_rows=rows)
+    print(f"  {kind:5s} lengths ({rows:.0f} cache rows a call on the mean"
+          f"{f', window {window}' if window else ''}, {row['mb']:.2f} MB), "
+          f"CUDA graph of 64 calls: kernel {row['ms']:.5f} ms  library "
+          f"{row['library_ms']:.5f} ms  plain {row['plain_ms']:.4f} ms  "
+          f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}; kernel at "
           f"{row['bound_ms'] / row['ms']:.1%} of it); eager back to back: "
           f"kernel {row['eager_ms']:.4f}  library "
           f"{row['eager_library_ms']:.4f}  plain {row['eager_plain_ms']:.4f} "
@@ -1312,22 +1369,75 @@ def decode_timing(kind: str, sets) -> dict:
     return row
 
 
-def _decode_checks(sets) -> float:
-    """The kernel against its plain version at the serve's shape (bf16
-    rotating sets, f32, the edge lengths in both types) and the reference
-    test's shapes; int32, int64 and int lengths alike; repeat calls and
-    graph replays bit-equal; one device kernel a call.  Returns the largest
-    abs error against the plain version in the kernel's type."""
+def _check_shape(shape, lens, gen, window=None) -> float:
+    """The kernel against its plain version at one shape, in f32 (rtol 1e-5,
+    atol 1e-6) and bf16 (one ulp beyond that atol of the plain version's f32
+    result), the cache poisoned outside each row's range.  ``lens`` is one
+    int (the same lengths as a tensor give the same output) or one length a
+    row (int64 lengths give int32's output); rows of length 0 read zeros.
+    Returns the largest abs error against the plain version in the kernel's
+    type."""
     from repro_torch.kernels.decode_attention import ops, ref
 
-    B, Hq, Hkv, d, S = DECODE_SERVE
-    gen = torch.Generator(device="cuda").manual_seed(9)
+    B, Hq, Hkv, d, S = shape
+    one = isinstance(lens, int)
+    t = torch.as_tensor(np.broadcast_to(lens, (B,)).copy(), dtype=torch.int32,
+                        device="cuda")
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = _decode_inputs(B, Hq, Hkv, d, S, dt, gen, t.clamp(max=S),
+                                 window)
+        got = ops.decode_attention(q, k, v, lens if one else t, window=window)
+        same = ops.decode_attention(q, k, v, t if one else t.long(),
+                                    window=window)
+        want = ref.decode_attention_ref(q.float(), k.float(), v.float(), t,
+                                        window)
+        torch.cuda.synchronize()
+        what = f"{shape} window {window} {dt}"
+        check(torch.equal(got, same), f"{what}: int, int32 and int64 lengths "
+                                      f"differ")
+        check(not got[t == 0].any(), f"{what}: a row of length 0 is not zero")
+        if dt == torch.float32:
+            e = float((got - want).abs().max())
+            check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+                  f"{what}: f32 kernel != plain (max abs err {e})")
+        else:
+            ulps = _bf16_ulps(got, want)
+            check(ulps <= 1.0, f"{what}: bf16 kernel {ulps} ulps off")
+            e = float((got.float() - ref.decode_attention_ref(
+                q, k, v, t, window).float()).abs().max())
+        err = max(err, e)
+    return err
+
+
+def _check_cases(cases, window=None, seed: int = 9) -> float:
+    """:func:`_check_shape` on each ``(label, shape, lens)``; returns the
+    largest abs error."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    err = 0.0
+    for label, shape, lens in cases:
+        err = max(err, _check_shape(shape, lens, gen, window))
+        print(f"  {label} (B, Hq, Hkv, d, S) = {shape}"
+              f"{f', window {window}' if window else ''}, lengths "
+              f"{lens if np.size(lens) <= 8 else f'{len(lens)} drawn'}: f32 "
+              f"and bf16 pass, int / int32 / int64 lengths alike")
+    return err
+
+
+def _decode_checks(sets, window=None) -> float:
+    """The kernel against its plain version on the rotating ``sets`` (bf16)
+    and in f32 on the first; repeat calls and graph replays bit-equal.
+    Returns the largest abs error against the plain version in the kernel's
+    type."""
+    from repro_torch.kernels.decode_attention import ops, ref
+
     max_err, worst_ulps = 0.0, 0.0
     for q, k, v, lens in sets:
-        got = ops.decode_attention(q, k, v, lens)
-        again = ops.decode_attention(q, k, v, lens)
-        plain = ref.decode_attention_ref(q, k, v, lens)
-        f32 = ref.decode_attention_ref(q.float(), k.float(), v.float(), lens)
+        got = ops.decode_attention(q, k, v, lens, window=window)
+        again = ops.decode_attention(q, k, v, lens, window=window)
+        plain = ref.decode_attention_ref(q, k, v, lens, window)
+        f32 = ref.decode_attention_ref(q.float(), k.float(), v.float(), lens,
+                                       window)
         torch.cuda.synchronize()
         check(torch.equal(got, again), "two calls differ")
         max_err = max(max_err, float((got.float() - plain.float()).abs().max()))
@@ -1336,85 +1446,21 @@ def _decode_checks(sets) -> float:
                              f"version's f32 result")
     q, k, v, lens = sets[0]
     qf, kf, vf = q.float(), k.float(), v.float()
-    got = ops.decode_attention(qf, kf, vf, lens)
-    want = ref.decode_attention_ref(qf, kf, vf, lens)
+    got = ops.decode_attention(qf, kf, vf, lens, window=window)
+    want = ref.decode_attention_ref(qf, kf, vf, lens, window)
     torch.cuda.synchronize()
     f32_err = float((got - want).abs().max())
     max_err = max(max_err, f32_err)
     check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
-          f"f32 kernel != plain at the serve shape (max abs err {f32_err})")
-    print(f"  serve shape B={B} Hq={Hq} Hkv={Hkv} d={d} S={S}: bf16 within "
-          f"{worst_ulps:.2f} ulp of plain f32 (max abs err vs plain bf16 "
-          f"{max_err:.3g}), f32 max abs err {f32_err:.3g}; repeat calls "
-          f"bit-equal")
-    # Edge lengths: 0 reads zeros; past S_max clamps; tile edges.
-    edge = torch.as_tensor(DECODE_EDGE_LENS, dtype=torch.int32, device="cuda")
-    for dt in (torch.float32, torch.bfloat16):
-        q, k, v = _decode_inputs(B, Hq, Hkv, d, S, dt, gen, edge.clamp(max=S))
-        got = ops.decode_attention(q, k, v, edge)
-        want = ref.decode_attention_ref(q.float(), k.float(), v.float(), edge)
-        wide = ops.decode_attention(q, k, v, edge.long())
-        torch.cuda.synchronize()
-        check(torch.equal(got, wide), f"int64 lengths != int32 in {dt}")
-        check(not got[0].any(), "a row of length 0 is not zero")
-        if dt == torch.float32:
-            check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
-                  f"f32 kernel != plain at the edge lengths "
-                  f"(max abs err {float((got - want).abs().max())})")
-        else:
-            ulps = _bf16_ulps(got, want)
-            check(ulps <= 1.0, f"bf16 kernel {ulps} ulps off at the edge "
-                               f"lengths")
-            max_err = max(max_err, float((got.float() - ref.decode_attention_ref(
-                q, k, v, edge).float()).abs().max()))
-    print(f"  edge lengths {DECODE_EDGE_LENS}: f32 and bf16 pass, int64 == "
-          f"int32 lengths")
-    Bg, Hqg, Hkvg, dg, Sg = DECODE_GRID_BOUND
-    glen = torch.as_tensor(np.random.default_rng(7).integers(0, Sg + 1, Bg),
-                           dtype=torch.int32, device="cuda")
-    for dt in (torch.float32, torch.bfloat16):
-        q, k, v = _decode_inputs(Bg, Hqg, Hkvg, dg, Sg, dt, gen, glen)
-        got = ops.decode_attention(q, k, v, glen)
-        want = ref.decode_attention_ref(q.float(), k.float(), v.float(), glen)
-        torch.cuda.synchronize()
-        if dt == torch.float32:
-            check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
-                  f"f32 kernel != plain at {DECODE_GRID_BOUND}")
-        else:
-            ulps = _bf16_ulps(got, want)
-            check(ulps <= 1.0, f"bf16 kernel {ulps} ulps off at "
-                               f"{DECODE_GRID_BOUND}")
-    print(f"  grid-bound shape {DECODE_GRID_BOUND} (one block a pair, chunks "
-          f"past 32 tiles): f32 and bf16 pass")
-    for Bs, Hqs, Hkvs, ds, Ss in DECODE_SHAPES:
-        full = torch.full((Bs,), Ss, dtype=torch.int32, device="cuda")
-        for dt in (torch.float32, torch.bfloat16):
-            qs, ks, vs = _decode_inputs(Bs, Hqs, Hkvs, ds, Ss, dt, gen, full)
-            got = ops.decode_attention(qs, ks, vs, Ss)
-            f32 = ref.decode_attention_ref(qs.float(), ks.float(), vs.float(),
-                                           Ss)
-            same = ops.decode_attention(qs, ks, vs, full)
-            torch.cuda.synchronize()
-            check(torch.equal(got, same), "int and tensor lengths differ")
-            if dt == torch.float32:
-                err = float((got - f32).abs().max())
-                check(torch.allclose(got, f32, rtol=1e-5, atol=1e-6),
-                      f"f32 kernel != plain at {(Bs, Hqs, Hkvs, ds, Ss)}")
-            else:
-                ulps = _bf16_ulps(got, f32)
-                check(ulps <= 1.0, f"bf16 kernel {ulps} ulps off at "
-                                   f"{(Bs, Hqs, Hkvs, ds, Ss)}")
-                err = float((got.float() - ref.decode_attention_ref(
-                    qs, ks, vs, Ss).float()).abs().max())
-            max_err = max(max_err, err)
-    print(f"  reference test shapes {DECODE_SHAPES}: f32 and bf16 pass")
+          f"f32 kernel != plain on the rotating caches' first (max abs err "
+          f"{f32_err})")
     # A CUDA graph of one call replays the eager result twice over: the
     # arrival counters were left zero.
     q, k, v, lens = sets[1]
-    eager = ops.decode_attention(q, k, v, lens)
+    eager = ops.decode_attention(q, k, v, lens, window=window)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = ops.decode_attention(q, k, v, lens)
+        out = ops.decode_attention(q, k, v, lens, window=window)
     graph.replay()
     torch.cuda.synchronize()
     first = out.clone()
@@ -1422,27 +1468,53 @@ def _decode_checks(sets) -> float:
     torch.cuda.synchronize()
     check(torch.equal(first, eager) and torch.equal(out, first),
           "graph replay != eager call")
-    # One device kernel a call: every device op of 16 calls in a trace.
-    n = 16
-    it = iter(range(1 << 30))
-    dev_ops = device_kernels(
-        lambda: ops.decode_attention(*sets[next(it) % len(sets)]), n)
-    check(len(dev_ops) == 1 and sum(dev_ops.values()) == n
-          and "decode_attn_kernel" in next(iter(dev_ops)),
-          f"{n} calls ran {dev_ops} on the device")
-    print(f"  graph replays == eager; {n} calls ran {n} device kernels "
-          f"({next(iter(dev_ops))[:48]}...) and nothing else")
+    print(f"  rotating caches {tuple(sets[0][0].shape)} / "
+          f"{tuple(sets[0][1].shape)}{f', window {window}' if window else ''}"
+          f": bf16 within {worst_ulps:.2f} ulp of plain f32 (max abs err vs "
+          f"plain bf16 {max_err:.3g}), f32 max abs err {f32_err:.3g}; repeat "
+          f"calls and graph replays bit-equal")
     return max_err
 
 
+def _one_kernel_a_call(sets, window: int) -> None:
+    """Every device op of 16 calls in a trace, alternately without and with
+    a window: 16 decode-attention kernels and nothing else (the window's
+    lower bound is formed inside the kernel)."""
+    from repro_torch.kernels.decode_attention import ops
+
+    n = 16
+    it = iter(range(1 << 30))
+
+    def call():
+        i = next(it)
+        return ops.decode_attention(*sets[i % len(sets)],
+                                    window=window if i % 2 else None)
+
+    dev_ops = device_kernels(call, n)
+    check(sum(dev_ops.values()) == n
+          and all("decode_attn_kernel" in k for k in dev_ops),
+          f"{n} calls ran {dev_ops} on the device")
+    print(f"  {n} calls, half of them with a window of {window}, ran {n} "
+          f"device kernels ({next(iter(dev_ops))[:48]}...) and nothing else")
+
+
 def phase_decode_kernel():
-    """Kernel vs plain at the serve's shape (bf16 and f32), the edge lengths
-    and the reference test's shapes; then timed at the serve's, full and
-    short lengths.  Returns the serve row for the result line."""
+    """Kernel vs plain at the serve's shape (bf16 and f32), the edge lengths,
+    a grid-bound shape and the reference test's shapes; then timed at the
+    serve's, full and short lengths.  Returns the serve row for the result
+    line."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sets = decode_sets("serve")
     max_err = _decode_checks(sets)
+    _one_kernel_a_call(sets, 256)
+    glen = np.random.default_rng(7).integers(0, DECODE_GRID_BOUND[4] + 1,
+                                             DECODE_GRID_BOUND[0])
+    max_err = max(max_err, _check_cases(
+        [("edge lengths", DECODE_SERVE, DECODE_EDGE_LENS),
+         ("grid-bound shape (one block a pair, chunks past 32 tiles)",
+          DECODE_GRID_BOUND, glen)]
+        + [("reference test shape", s, s[4]) for s in DECODE_SHAPES]))
     rows = {"serve": decode_timing("serve", sets)}
     del sets
     for kind in ("full", "short"):
@@ -2661,19 +2733,99 @@ def _l2(theta, exact) -> float:
     return float(np.linalg.norm(np.ravel(theta) - np.ravel(exact)))
 
 
+def _copy(a):
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, dict):
+        return {k: _copy(v) for k, v in a.items()}
+    return a
+
+
+def record_calls(module, name: str):
+    """Route ``module.name`` through a recorder that keeps device copies of
+    each call's arguments and result (no sync), for :func:`hold_recorded`;
+    the wrapper itself still counts each launch.  Returns the list of calls
+    and the function that puts the wrapper back."""
+    launch, calls = getattr(module, name), []
+
+    def recorder(*args, **kw):
+        out = launch(*args, **kw)
+        calls.append((_copy(args), _copy(kw), _copy(out)))
+        return out
+
+    setattr(module, name, recorder)
+    return calls, lambda: setattr(module, name, launch)
+
+
+def _pb_same(got, want) -> float:
+    check(torch.equal(got, want), "Poisson bootstrap != plain")
+    return 0.0
+
+
+def _agg_same(got, want) -> float:
+    """Phase 4's tolerance: sums at rtol 1e-5, min and max exact."""
+    from repro_torch.kernels.segment_agg import ref
+
+    for k in ref.AGG_KEYS:
+        check(torch.allclose(got[k], want[k], rtol=1e-5, atol=0.0),
+              f"segment aggregate != plain on {k}")
+    for k in ("min", "max"):
+        check(torch.equal(got[k], want[k]), f"segment aggregate != plain on "
+                                            f"{k}")
+    return max(float((got[k] - want[k]).abs().max()) for k in want)
+
+
+def hold_recorded(name: str, calls, key, plain, same) -> float:
+    """One recorded call of each ``key`` (a shape) through the plain version,
+    held to the kernel's recorded result by ``same``; returns the largest
+    abs error."""
+    first = {}
+    for c in calls:
+        first.setdefault(key(c), c)
+    err = 0.0
+    for args, kw, out in first.values():
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(err, same(out, want))
+    print(f"  {name}: {len(calls)} calls recorded, one of each of the "
+          f"{len(first)} shapes {sorted(first)} held against the plain "
+          f"version (max abs err {err:.3g})")
+    return err
+
+
+def _pb_key(c):
+    args, kw, _ = c
+    return tuple(args[0].shape), args[3]
+
+
+def hold_pb(name: str, calls) -> float:
+    from repro_torch.kernels.poisson_bootstrap import ref
+
+    return hold_recorded(f"Poisson bootstrap, {name}", calls, _pb_key,
+                         ref.bootstrap_moments_masked_ref, _pb_same)
+
+
 def phase_baselines(data):
     """Fig. 3 on phase 6's table (GROUP BY SHIPINSTRUCT, avg at epsilon = 1 %
     of the exact answers' L2 norm, delta 0.05): L2Miss through the moments
     entry, BLK, SPS at epsilon_rel 1 % and MiniBatch (step 2000, B 200),
     scored against ``AQPEngine.exact``; Fig. 4 on lineitem SF10 GROUP BY
-    LINESTATUS with a 5 % group bias: OrderMiss against IFocus.  Returns
-    every kernel's launches in the phase."""
+    LINESTATUS with a 5 % group bias: OrderMiss against IFocus.  Every
+    Poisson-bootstrap and segment-aggregate call is recorded, and one of
+    each shape is held against its plain version after the counts are read.
+    Returns every kernel's launches in the phase and the largest abs error
+    of those replays."""
     from repro_torch.aqp import AQPEngine, Query
     from repro_torch.core import baselines as bl
     from repro_torch.core.extensions import run_ordermiss
     from repro_torch.core.l2miss import MissConfig, run_l2miss
     from repro_torch.data import add_group_bias
+    from repro_torch.kernels.poisson_bootstrap import ops as pb_ops
+    from repro_torch.kernels.segment_agg import ops as seg_ops
+    from repro_torch.kernels.segment_agg import ref as seg_ref
 
+    pb_calls, pb_stop = record_calls(pb_ops, "bootstrap_moments_masked")
+    agg_calls, agg_stop = record_calls(seg_ops, "segment_aggregate")
     reset_counts()
     t0 = time.perf_counter()
     exact = AQPEngine(data).exact(Query(func="avg", epsilon=1.0))[:, 0]
@@ -2738,11 +2890,18 @@ def phase_baselines(data):
           f"both order the groups as the exact answers")
     del biased
     counts = read_counts()
+    pb_stop()
+    agg_stop()
     check(counts["poisson_bootstrap"] > 0 and counts["segment_aggregate"] > 0,
           f"a kernel of the baselines' path never launched: {counts}")
     print(f"  phase 19 wall {time.perf_counter() - t0:.1f} s; launches "
           f"{counts}")
-    return counts
+    errs = {"poisson_bootstrap": hold_pb("phase 19", pb_calls),
+            "segment_aggregate": hold_recorded(
+                "segment aggregate, phase 19", agg_calls,
+                lambda c: (tuple(c[0][1].shape), c[0][3]),
+                seg_ref.segment_aggregate_ref, _agg_same)}
+    return counts, errs
 
 
 # ---------------------------------------------------------------------------
@@ -2774,13 +2933,17 @@ def phase_miss_lm():
     per-domain eval loss on the pipeline's ``eval_domains``, then the full
     eval; ``mixture_statistics`` on 3 lognormal domains of 4 M documents;
     ``estimate_router_load`` with the reference test's synthetic router.
-    Returns every kernel's launches in the phase."""
+    Every Poisson-bootstrap call is recorded, and one of each shape is held
+    against its plain version after the counts are read.  Returns every
+    kernel's launches in the phase and the largest abs error of those
+    replays."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import eval_domains
     from repro_torch.integration import (estimate_router_load,
                                          mixture_statistics)
     from repro_torch.integration.miss_eval import (MissEvalConfig,
                                                    MissEvaluator)
+    from repro_torch.kernels.poisson_bootstrap import ops as pb_ops
     from repro_torch.models import model as M
 
     cfg = get_config(EVAL_ARCH)
@@ -2801,6 +2964,7 @@ def phase_miss_lm():
           f"pooled std {sigma:.5f} -> eps = 2 sigma sqrt({EVAL_DOMAINS}/256)"
           f" = {eps:.5f} (sizes near 256 a domain: between n_max 64 and "
           f"{EVAL_PER})")
+    calls, stop = record_calls(pb_ops, "bootstrap_moments_masked")
     reset_counts()
     t0 = time.perf_counter()
     ev = MissEvaluator(loss, domains, MissEvalConfig(
@@ -2866,10 +3030,11 @@ def phase_miss_lm():
           f"rows, {rl.iterations} iterations, error {rl.error:.5f}, "
           f"|load - p|_2 = {rgap:.5f}, {rl_s:.3f} s")
     counts = read_counts()
+    stop()
     check(counts["poisson_bootstrap"] > 0,
           f"mixture_statistics never launched the Poisson kernel: {counts}")
     print(f"  launches in phase 20: {counts}")
-    return counts
+    return counts, hold_pb("phase 20", calls)
 
 
 # ---------------------------------------------------------------------------
@@ -2880,138 +3045,47 @@ H2O_ARCH, H2O_WINDOW = "h2o-danube-3-4b", 4096
 H2O_DECODE = (8, 32, 8, 120, 8192)          # B, Hq, Hkv, d, S (serve shape)
 H2O_EDGE_LENS = [H2O_WINDOW - 1, H2O_WINDOW, H2O_WINDOW + 1, 1, 5000, 8192,
                  6000, 4200]
-H2O_PROMPT = (3000, 6000)
+# Prompts whose decode crosses the window: every one longer than W - 32.
+H2O_PROMPT = (4100, 6000)
 H2O_F32_PROMPT, H2O_F32_STEPS = 4200, 16
 CR_ARCH, CR_LAYERS = "command-r-plus-104b", 4
-
-
-def _window_inputs(shape, dtype, gen, lens, W):
-    """q, and a cache poisoned outside each row's window [len - W, len)."""
-    B, Hq, Hkv, d, S = shape
-    q, k, v = _decode_inputs(B, Hq, Hkv, d, S, dtype, gen, lens)
-    for b, L in enumerate(lens.tolist()):
-        lo = max(L - W, 0)
-        k[b, :lo] = 100.0
-        v[b, :lo] = 1e4
-    return q, k, v
-
-
-def window_sets(seed: int = 21):
-    """``DECODE_ROT`` rotating bf16 caches at h2o-danube's decode shape with
-    lengths in the serve's range (prompts of 3 000-6 000 tokens plus 32 new
-    ones), poisoned outside each window."""
-    B, Hq, Hkv, d, S = H2O_DECODE
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    rng = np.random.default_rng(seed)
-    sets = []
-    for _ in range(DECODE_ROT):
-        lens = torch.as_tensor(rng.integers(H2O_PROMPT[0], H2O_PROMPT[1] +
-                                            LM_NEW + 1, B),
-                               dtype=torch.int32, device="cuda")
-        sets.append((*_window_inputs(H2O_DECODE, torch.bfloat16, gen, lens,
-                                     H2O_WINDOW), lens))
-    return sets
+CR_PROMPTS, CR_PROMPT_LEN, CR_NEW, CR_S_MAX = 8, 16, 16, 64
+CR_DECODE = (CR_PROMPTS, 96, 8, 128, CR_S_MAX)   # G = 12 query heads a KV head
+# The lengths the serve's decode steps pass: prompt + 1 .. prompt + new.
+CR_DECODE_LENS = list(range(CR_PROMPT_LEN + 1, CR_PROMPT_LEN + CR_NEW + 1, 2))
+CR_EDGE_LENS = [0, 1, 16, 17, 32, 63, 64, 65]
 
 
 def phase_window_kernel():
     """Row 4 with the window against its plain version at h2o-danube's
-    decode shape (d = 120, window 4096, S_max 8192) in bf16 and f32 at the
-    edge lengths (window - 1, window, window + 1 among them), and at d = 128;
-    then timed from a CUDA graph over rotating caches in the serve's range
-    against the byte bound over the windows' rows, the plain version and
-    SDPA with the window mask.  Returns the row of the result line."""
-    from repro_torch.kernels.decode_attention import ops, ref
-
+    decode shape (d = 120, window 4096, S_max 8192) on rotating caches in
+    the serve's range, at the edge lengths (window - 1, window, window + 1
+    among them) at d = 120 and 128, and at one int length; Command R+'s
+    decode shape (12 query heads a KV head) at its serve's lengths and at
+    the edge lengths, without a window; then the windowed kernel timed from
+    a CUDA graph against the byte bound over the windows' rows, the plain
+    version and SDPA with the window mask.  Returns the row of the result
+    line."""
     W = H2O_WINDOW
     B, Hq, Hkv, d, S = H2O_DECODE
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    edge = torch.as_tensor(H2O_EDGE_LENS, dtype=torch.int32, device="cuda")
-    max_err = 0.0
-    for dd in (120, 128):
-        shape = (B, Hq, Hkv, dd, S)
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v = _window_inputs(shape, dt, gen, edge, W)
-            got = ops.decode_attention(q, k, v, edge, window=W)
-            want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
-                                            edge, W)
-            wide = ops.decode_attention(q, k, v, edge.long(), window=W)
-            full = torch.full_like(edge, S)
-            qc, kc, vc = _decode_inputs(B, Hq, Hkv, dd, S, dt, gen, full)
-            one = ops.decode_attention(qc, kc, vc, W + 1, window=W)
-            one_t = ops.decode_attention(qc, kc, vc, full.clamp(max=W + 1),
-                                         window=W)
-            torch.cuda.synchronize()
-            check(torch.isfinite(got).all(), f"window d={dd} {dt}: "
-                                             f"non-finite output")
-            check(torch.equal(got, wide) and torch.equal(one, one_t)
-                  and bool(torch.isfinite(one).all()),
-                  f"window d={dd} {dt}: int64 / int lengths differ")
-            if dt == torch.float32:
-                err = float((got - want).abs().max())
-                check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
-                      f"window d={dd} f32 kernel != plain (max abs err "
-                      f"{err})")
-            else:
-                ulps = _bf16_ulps(got, want)
-                check(ulps <= 1.0, f"window d={dd} bf16 kernel {ulps} ulps "
-                                   f"off")
-                err = float((got.float() - ref.decode_attention_ref(
-                    q, k, v, edge, W).float()).abs().max())
-            max_err = max(max_err, err)
-    print(f"  window {W}, lengths {H2O_EDGE_LENS}, poisoned outside "
-          f"[len - W, len): d = 120 and 128, f32 (rtol 1e-5) and bf16 "
-          f"(1 ulp) pass; int32 == int64 == int lengths")
-    sets = window_sets()
-    for q, k, v, lens in sets[:2]:
-        got = ops.decode_attention(q, k, v, lens, window=W)
-        want = ref.decode_attention_ref(q.float(), k.float(), v.float(),
-                                        lens, W)
-        torch.cuda.synchronize()
-        check(_bf16_ulps(got, want) <= 1.0, "window serve set off")
-        check(torch.equal(got, ops.decode_attention(q, k, v, lens,
-                                                    window=W)),
-              "two windowed calls differ")
-    it = iter(range(1 << 30))
-    pos = torch.arange(S, device="cuda")[None, :]
-    masks = [((pos < s[3][:, None]) & (pos >= s[3][:, None] - W))[
-        :, None, None] for s in sets]
-
-    def library(i):
-        q, k, v, _ = sets[i]
-        return torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=masks[i], enable_gqa=True)
-
-    times = {}
-    for name, fn in (
-            ("ms", lambda i: ops.decode_attention(*sets[i], window=W)),
-            ("plain_ms", lambda i: ref.decode_attention_ref(*sets[i], W)),
-            ("library_ms", library)):
-        def call(fn=fn):
-            return fn(next(it) % len(sets))
-        times[name] = graph_ms(call, reps=64, rounds=5)
-        times["eager_" + name] = cuda_ms(call, reps=64, rounds=5)
-    rows = np.mean([float((s[3].clamp(max=S) - (s[3] - W).clamp(min=0))
-                          .sum()) for s in sets])
-    n_bytes = rows * Hkv * d * 2 * 2 + 2 * B * Hq * d * 2 + 4 * B
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = rows * Hq * d * 4 / F32_FLOPS * 1e3
-    row = dict(times, bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               mb=n_bytes / 1e6, window_rows=rows, max_abs_err=max_err,
-               shape=list(H2O_DECODE), window=W)
-    print(f"  h2o decode shape {H2O_DECODE}, window {W} (mean {rows:.0f} "
-          f"window rows a call, {row['mb']:.2f} MB), CUDA graph of 64 calls:"
-          f" kernel {row['ms']:.5f} ms  library (SDPA, window mask) "
-          f"{row['library_ms']:.5f} ms  plain {row['plain_ms']:.4f} ms  "
-          f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}; kernel at "
-          f"{row['bound_ms'] / row['ms']:.1%} of it); eager back to back: "
-          f"kernel {row['eager_ms']:.4f}  library "
-          f"{row['eager_library_ms']:.4f}  plain {row['eager_plain_ms']:.4f}"
-          f" ms")
-    del sets, masks
+    sets = decode_sets("serve", seed=21, shape=H2O_DECODE, prompt=H2O_PROMPT,
+                       window=W)
+    max_err = _decode_checks(sets, W)
+    d128 = (B, Hq, Hkv, 128, S)
+    max_err = max(max_err, _check_cases(
+        [("edge lengths", H2O_DECODE, H2O_EDGE_LENS),
+         ("edge lengths", d128, H2O_EDGE_LENS),
+         ("one int length", H2O_DECODE, W + 1),
+         ("one int length", d128, W + 1)], W, seed=5))
+    cr_err = _check_cases(
+        [("Command R+ serve lengths", CR_DECODE, CR_DECODE_LENS),
+         ("Command R+ edge lengths", CR_DECODE, CR_EDGE_LENS),
+         ("Command R+ one int length", CR_DECODE, CR_DECODE[4])], seed=6)
+    row = decode_timing("h2o", sets, W)
+    del sets
     torch.cuda.empty_cache()
-    return row
+    return dict(row, max_abs_err=max(max_err, cr_err), cr_max_abs_err=cr_err,
+                shape=list(H2O_DECODE), window=W)
 
 
 def phase_h2o_f32():
@@ -3071,7 +3145,7 @@ def phase_h2o_f32():
 def phase_dense_variants():
     """(a) row 4 with the window; (b) card == CPU for the three reduced
     archs; (c) h2o-danube f32 against teacher forcing; (d) the h2o-danube
-    bf16 serve (16 prompts of 3 000-6 000 tokens, 8 slots, S_max 8192);
+    bf16 serve (16 prompts of 4 100-6 000 tokens, 8 slots, S_max 8192);
     (e) Qwen3-1.7B bf16 at phase 12's serve shape; (f) command-r-plus-104b
     at full width cut to 4 of its 64 layers, 8 requests of 16 tokens.
     Returns the windowed kernel's row and the launches of (d)-(f)."""
@@ -3093,6 +3167,7 @@ def phase_dense_variants():
     past = int(np.sum(lens + LM_NEW > H2O_WINDOW))
     print(f"  prompts of {lens.min()}-{lens.max()} tokens: {past} of "
           f"{len(lens)} requests decode past the window")
+    check(past == len(lens), "a request never decodes past the window")
     h2o = phase_lm_serve(H2O_ARCH, prompts=prompts, warm=[p[:256] for p in
                                                           prompts[:2]],
                          s_max=H2O_DECODE[4])
@@ -3101,10 +3176,10 @@ def phase_dense_variants():
     print(f"  (f) {CR_ARCH} bf16, {CR_LAYERS} of 64 layers (a depth cut: "
           f"208 GB of weights at full depth)")
     cr_prompts = [np.random.default_rng(6 + i).integers(
-        0, get_config(CR_ARCH).vocab_size, 16).astype(np.int32)
-        for i in range(8)]
+        0, get_config(CR_ARCH).vocab_size, CR_PROMPT_LEN).astype(np.int32)
+        for i in range(CR_PROMPTS)]
     cr = phase_lm_serve(CR_ARCH, n_layers=CR_LAYERS, prompts=cr_prompts,
-                        s_max=64, new=16)
+                        s_max=CR_S_MAX, new=CR_NEW)
     counts = add_counts(add_counts(h2o, q3), cr)
     row["launches"] = h2o["decode_attention"]
     print(f"  launches on phase 21's serves (d-f): {counts}")
@@ -3241,14 +3316,14 @@ def main() -> None:
     # -- phase 19 --
     print("phase 19: the baselines at real size (paper Figures 3 and 4), "
           "lineitem SF10")
-    base_counts = phase_baselines(data)
+    base_counts, base_errs = phase_baselines(data)
     launches = add_counts(launches, base_counts)
     del data
     torch.cuda.empty_cache()
     # -- phase 20 --
     print(f"phase 20: MISS for the LM at full width ({EVAL_ARCH}), mixture "
           f"statistics, router load")
-    lm20_counts = phase_miss_lm()
+    lm20_counts, lm20_err = phase_miss_lm()
     launches = add_counts(launches, lm20_counts)
     # -- phase 21 --
     print("phase 21: the dense variants (sliding window, QK norm, untied "
@@ -3267,7 +3342,8 @@ def main() -> None:
         "name": "poisson_bootstrap", "route": "cuda",
         "source": "src/repro_torch/csrc/poisson_bootstrap.cu",
         "replaces": "src/repro/kernels/poisson_bootstrap/kernel.py:51",
-        "launches": launches["poisson_bootstrap"], "max_abs_err": pb_err,
+        "launches": launches["poisson_bootstrap"],
+        "max_abs_err": max(pb_err, base_errs["poisson_bootstrap"], lm20_err),
         "ms": r["ms"], "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None, "bound_30ops_ms": r["bound_30ops_ms"],
@@ -3304,7 +3380,8 @@ def main() -> None:
         "source": "src/repro_torch/csrc/segment_agg.cu",
         "replaces": "src/repro/kernels/segment_agg/kernel.py:37",
         "launches": launches["segment_aggregate"],
-        "max_abs_err": agg["max_abs_err"],
+        "max_abs_err": max(agg["max_abs_err"],
+                           base_errs["segment_aggregate"]),
         "ms": agg["ms"], "graph_ms": agg["graph_ms"],
         "plain_ms": agg["plain_ms"],
         "bound_ms": agg["bound_ms"], "bound_by": "bytes",
@@ -3321,7 +3398,8 @@ def main() -> None:
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:33",
         "launches": launches["decode_attention"],
-        "max_abs_err": da["max_abs_err"], "ms": da["ms"],
+        "max_abs_err": max(da["max_abs_err"], window_row["max_abs_err"]),
+        "ms": da["ms"],
         "plain_ms": da["plain_ms"], "bound_ms": da["bound_ms"],
         "bound_by": da["bound_by"], "library_ms": da["library_ms"],
         "dense_variant_launches": dense_counts["decode_attention"],

@@ -1,7 +1,8 @@
 """The port's decode-attention op against the JAX reference: its plain
 version against the reference's Pallas kernel (interpret mode, as the
 reference's own tests run it) on the four shapes of the reference's kernel
-test and on h2o-danube's head dimension (120) in f32 and bf16, a poisoned
+test, on h2o-danube's head dimension (120) and on 12 and 16 query heads a
+KV head (Command R+'s decode shape among them) in f32 and bf16, a poisoned
 tail, per-row lengths against the reference decode path's ``_sdpa`` under
 the decode mask, with and without a sliding window, the partition of each
 row's range, and, on a card, the CUDA kernel against its plain version.
@@ -25,6 +26,8 @@ SHAPES = [                      # tests/test_kernels.py's decode shapes
     (1, 16, 8, 128, 512, 128),
     (2, 8, 1, 128, 768, 256),   # MQA
     (2, 8, 2, 120, 300, 128),   # h2o-danube's head dimension
+    (8, 96, 8, 128, 64, 64),    # Command R+'s decode: 12 query heads a KV head
+    (2, 32, 2, 64, 200, 128),   # 16 query heads a KV head, the kernel's most
 ]
 
 
@@ -268,7 +271,8 @@ def test_partition_balances_the_serve(lens):
 def test_cuda_kernel_matches_plain_version(dtype):
     """On the card: the kernel against its plain version at the serve's
     shape with per-row lengths and a poisoned tail, at the edge lengths, at
-    a grid-bound shape, and at the reference test's shapes; one counted
+    a grid-bound shape, at Command R+'s decode shape (12 query heads a KV
+    head) with its serve's lengths, and at the shapes above; one counted
     launch per call; repeated
     calls and CUDA-graph replays equal bit for bit; int32, int64 and int
     lengths alike."""
@@ -280,7 +284,8 @@ def test_cuda_kernel_matches_plain_version(dtype):
     rng = np.random.default_rng(0)
     serve = (8, 12, 2, 128, 2048)
     cases = [(*serve, rng.integers(1, 1057, 8)), (*serve, np.array(EDGE_LENS)),
-             (*GRID_BOUND, GRID_LENS)]
+             (*GRID_BOUND, GRID_LENS),
+             (8, 96, 8, 128, 64, np.arange(17, 33, 2))]   # Command R+'s serve
     cases += [(B, Hq, Hkv, d, S, np.full(B, S)) for B, Hq, Hkv, d, S, _
               in SHAPES]
     for B, Hq, Hkv, d, S, lens in cases:
