@@ -176,11 +176,33 @@ non-zero and nothing falls back to the CPU:
    each (every one decodes past the window), through
    ``ContinuousBatcher(slots=8, s_max=8192)``; (e) Qwen3-1.7B bf16 at
    phase 12's serve shape; (f) command-r-plus-104b at full width cut to 4
-   of its 64 layers, 8 requests of 16 tokens; then the result lines: a
-   JSON object of kernel measurements, then ``{"ok": true, "device":
-   {...}}`` as the last line.
+   of its 64 layers, 8 requests of 16 tokens;
+22. the MoE, RWKV6 and Mamba-hybrid decoders: (a) the decode-attention
+   kernel against its plain version as in phase 9 at Granite-MoE's decode
+   shape (8 rows, 16 query over 8 KV heads, d = 64, S_max 2048) and
+   DeepSeek-MoE's (16 over 16, d = 128: one query head a KV head), timed
+   from a CUDA graph beside the byte bound and SDPA; (b) reduced
+   granite-moe-1b-a400m, deepseek-moe-16b, rwkv6-7b and
+   jamba-1.5-large-398b (f32) card == cpu as phase 10, teacher forcing
+   (aux at rtol 1e-5) and prefill states at phase 11's tolerance, two card
+   calls of ``moe`` bit-equal; (c) Granite-MoE (capacity factor E / k:
+   nothing drops) and RWKV6-7B in f32 at full width and depth, 32 greedy
+   steps after a 992-token prefill against teacher forcing, and one Mamba
+   mixer at Jamba's published widths (forward 1 024 + 128 decode steps
+   against a forward over 1 152); (d) bf16 serves at full width and depth,
+   16 requests of 32 new tokens through ``ContinuousBatcher(slots=8,
+   s_max=2048)``: Granite-MoE-1B-A400M, DeepSeek-MoE-16B, RWKV6-7B (prompts
+   multiples of 32 in 32-1 024), row 4 launched once per attention layer
+   and step (0 on RWKV6); (e) reduced Jamba (bf16) through the batcher on
+   the card, prompts of at most 16 tokens or multiples of 16; (f)
+   ``estimate_router_load`` over Granite's layer-0 router (the port's
+   ``route`` after layer 0's attention block) on a pool of 4 096 x 16
+   pipeline tokens, within 2 epsilon of the pool's exact load; then the
+   result lines: a JSON object of kernel measurements, then ``{"ok": true,
+   "device": {...}}`` as the last line.
 
-Phases 6, 7, 12, 14, 16, 18, 19, 20 and 21(d-f) are the main paths: every
+Phases 6, 7, 12, 14, 16, 18, 19, 20, 21(d-f) and 22(d-f) are the main
+paths: every
 kernel's launch count is set to 0 just before each and read just after; the launches of the
 other phases (the comparisons with the plain versions) count nowhere, but
 phase 15's and phase 17's are printed and kept in the kernels line.
@@ -190,6 +212,7 @@ phase 17's mesh; phase 17 starts them itself.
 """
 import collections
 import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -1538,6 +1561,13 @@ def _lm_small_serve(cfg, params, prompts, eos):
     return {r.rid: list(map(int, r.out_tokens)) for r in b.run()}
 
 
+def n_attn_layers(cfg) -> int:
+    """Layers that decode through row 4 (one launch a decode step each)."""
+    from repro_torch.models import model as M
+
+    return sum(M.parse_kind(k)[0] == "attn" for k in M.layer_kinds(cfg))
+
+
 def phase_lm_card_vs_cpu(arch: str = LM_ARCH, window=None):
     """The reduced LM on the card (kernel) against the CPU (plain version):
     the CPU serve test's weights and prompts (``window`` overrides the
@@ -1564,7 +1594,9 @@ def phase_lm_card_vs_cpu(arch: str = LM_ARCH, window=None):
     launched = da_ops.counter.launches - n0
     cpu = _lm_small_serve(cfg, ph, prompts, eos)
     check(card == cpu, f"batcher tokens card != cpu: {card} vs {cpu}")
-    check(launched > 0, "the card's batcher never launched the kernel")
+    check((launched > 0) == (n_attn_layers(cfg) > 0),
+          f"the card's batcher launched the kernel {launched} times with "
+          f"{n_attn_layers(cfg)} attention layers")
     tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 12))
     logs = []
     for p, dev in ((pc, "cuda"), (ph, "cpu")):
@@ -1678,15 +1710,17 @@ def run_lm_serve(cfg, params, prompts, *, slots: int = LM_SLOTS,
 
 def phase_lm_serve(arch: str = LM_ARCH, *, n_layers=None, prompts=None,
                    warm=None, slots: int = LM_SLOTS, s_max: int = LM_S_MAX,
-                   new: int = LM_NEW) -> dict:
-    """An LM in bf16 at full width (``n_layers`` cuts the depth): by default
-    phase 12's 16 requests through 8 slots; ``warm`` prompts (default the
-    first two) run first, outside the count.  Returns every kernel's
-    launches in the counted serve."""
+                   new: int = LM_NEW, cfg=None) -> dict:
+    """An LM in bf16 at full width (``n_layers`` cuts the depth; ``cfg``
+    replaces the arch's config): by default phase 12's 16 requests through
+    8 slots; ``warm`` prompts (default the first two) run first, outside
+    the count.  Row 4 must launch once per attention layer and decode step.
+    Returns every kernel's launches in the counted serve."""
     from repro_torch.configs import get_config
+    from repro_torch.models import flops
     from repro_torch.models import model as M
 
-    cfg = get_config(arch)
+    cfg = get_config(arch) if cfg is None else cfg
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t = time.perf_counter()
@@ -1712,8 +1746,9 @@ def phase_lm_serve(arch: str = LM_ARCH, *, n_layers=None, prompts=None,
               f"request {r.rid} has {len(r.out_tokens)} tokens")
         check(all(0 <= x < cfg.vocab_size for x in r.out_tokens),
               f"request {r.rid}: token out of the vocabulary")
-    check(n_da > 0 and n_da == cfg.n_layers * st["steps"],
-          f"decode-attention launches {n_da} != {cfg.n_layers} x "
+    n_attn = n_attn_layers(cfg)
+    check(n_da == n_attn * st["steps"] and (n_da > 0) == (n_attn > 0),
+          f"decode-attention launches {n_da} != {n_attn} attention layers x "
           f"{st['steps']} decode steps")
     tokens = sum(len(r.out_tokens) for r in done)
     lat = np.asarray(list(st["latency_s"].values())) * 1e3
@@ -1728,8 +1763,11 @@ def phase_lm_serve(arch: str = LM_ARCH, *, n_layers=None, prompts=None,
           f"latency (submit -> last token) p50 "
           f"{np.percentile(lat, 50):.2f} ms p99 {np.percentile(lat, 99):.2f} "
           f"ms; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB;"
-          f" decode-attention launches {n_da}")
-    del params
+          f" decode-attention launches {n_da} ({n_attn} attention layers); "
+          f"a decode step's byte bound (every weight read once) "
+          f"{flops.weight_bytes(cfg) / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    del params, st
+    gc.collect()                # the serve's batcher sits in a cycle
     torch.cuda.empty_cache()
     return counts
 
@@ -3088,32 +3126,24 @@ def phase_window_kernel():
                 shape=list(H2O_DECODE), window=W)
 
 
-def phase_h2o_f32():
-    """h2o-danube-3-4b in f32 at full width and depth: 16 greedy steps
-    past a 4 200-token prompt against teacher forcing's logits under the
-    window mask (one ``train_logits`` over the whole sequence)."""
-    from repro_torch.configs import get_config
+def f32_decode_vs_teacher_forcing(cfg, params, prompt: int, steps: int,
+                                  label: str) -> float:
+    """Prefill of ``prompt`` random tokens, then ``steps`` greedy
+    ``decode_step``s, against one ``train_logits`` over the whole sequence:
+    every step's logits at phase 11's tolerance, argmax equal where the
+    top-2 margin exceeds it; row 4 launched once per attention layer and
+    step.  Returns the largest abs error."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.models import model as M
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(H2O_ARCH), dtype="float32")
-    t = time.perf_counter()
-    params = M.init_model(cfg, seed=1, device="cuda")
-    torch.cuda.synchronize()
-    print(f"  {H2O_ARCH} f32: {M.count_params(params) / 1e9:.3f} B params "
-          f"(untied head), {torch.cuda.memory_allocated() / 1e9:.2f} GB on "
-          f"the card, built in {time.perf_counter() - t:.1f} s")
     seq = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (1, H2O_F32_PROMPT)), device="cuda")
+        0, cfg.vocab_size, (1, prompt)), device="cuda")
     n0 = da_ops.counter.launches
     last, raw, _ = M.prefill(cfg, params, {"tokens": seq})
-    caches = M.caches_from_prefill(cfg, raw, S_max=H2O_F32_PROMPT +
-                                   H2O_F32_STEPS + 8)
+    caches = M.caches_from_prefill(cfg, raw, S_max=prompt + steps + 8)
     del raw
     outs = [last[:, 0]]
-    for _ in range(H2O_F32_STEPS):
+    for _ in range(steps):
         nxt = last[:, -1].argmax(-1)[:, None]
         seq = torch.cat([seq, nxt], dim=1)
         last, caches = M.decode_step(cfg, params, nxt, caches)
@@ -3121,24 +3151,52 @@ def phase_h2o_f32():
     launched = da_ops.counter.launches - n0
     del caches
     full, _ = M.train_logits(cfg, params, {"tokens": seq})
-    want = full[0, H2O_F32_PROMPT - 1:]
+    want = full[0, prompt - 1:]
     got = torch.cat(outs)
     err = float((got - want).abs().max())
     check(torch.allclose(got, want, **LM_TOL),
-          f"h2o f32 decode != teacher forcing (max abs err {err})")
+          f"{label} f32 decode != teacher forcing (max abs err {err})")
     top2 = torch.topk(want, 2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > LM_TOL["atol"]
     check(torch.equal(got.argmax(-1)[clear], want.argmax(-1)[clear]),
-          "h2o f32 argmax differs")
-    check(launched == cfg.n_layers * H2O_F32_STEPS,
-          f"{launched} windowed decode launches")
-    print(f"  prefill({H2O_F32_PROMPT}) + {H2O_F32_STEPS} greedy steps "
-          f"(positions {H2O_F32_PROMPT}-{H2O_F32_PROMPT + H2O_F32_STEPS - 1},"
-          f" past the window {H2O_WINDOW}) vs train_logits over "
+          f"{label} f32 argmax differs")
+    check(launched == n_attn_layers(cfg) * steps,
+          f"{label}: {launched} decode-attention launches")
+    print(f"  prefill({prompt}) + {steps} greedy steps vs train_logits over "
           f"{seq.shape[1]} tokens: max abs err {err:.3g} (rtol/atol 2e-4), "
           f"argmax equal on {int(clear.sum())} of {len(clear)} clear rows; "
-          f"{launched} windowed kernel launches")
-    del params, full, last, outs
+          f"{launched} decode-attention launches")
+    return err
+
+
+def _build_f32(cfg, seed: int = 1):
+    """``cfg``'s model in f32 on the card (TF32 off), with a line on its
+    size."""
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    params = M.init_model(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  {cfg.name} f32: {M.count_params(params) / 1e9:.3f} B params"
+          f"{'' if cfg.tie_embeddings else ' (untied head)'}, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, built "
+          f"in {time.perf_counter() - t:.1f} s")
+    return params
+
+
+def phase_h2o_f32():
+    """h2o-danube-3-4b in f32 at full width and depth: 16 greedy steps
+    past a 4 200-token prompt (past the window) against teacher forcing's
+    logits under the window mask."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(H2O_ARCH), dtype="float32")
+    params = _build_f32(cfg)
+    f32_decode_vs_teacher_forcing(cfg, params, H2O_F32_PROMPT,
+                                  H2O_F32_STEPS, H2O_ARCH)
+    del params
     torch.cuda.empty_cache()
 
 
@@ -3184,6 +3242,275 @@ def phase_dense_variants():
     row["launches"] = h2o["decode_attention"]
     print(f"  launches on phase 21's serves (d-f): {counts}")
     return row, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the MoE, RWKV6 and Mamba-hybrid decoders
+# ---------------------------------------------------------------------------
+
+GRANITE, DEEPSEEK = "granite-moe-1b-a400m", "deepseek-moe-16b"
+RWKV, JAMBA = "rwkv6-7b", "jamba-1.5-large-398b"
+FAMILY_ARCHS = (GRANITE, DEEPSEEK, RWKV, JAMBA)
+GRANITE_DECODE = (LM_SLOTS, 16, 8, 64, LM_S_MAX)     # B, Hq, Hkv, d, S
+DEEPSEEK_DECODE = (LM_SLOTS, 16, 16, 128, LM_S_MAX)  # G = 1
+FAM_F32_PROMPT, FAM_F32_STEPS = 992, 32
+MAMBA_PROMPT, MAMBA_STEPS = 1024, 128
+ROUTER_POOL = (4096, 16)        # pipeline rows x tokens a row
+
+
+def phase_family_kernel():
+    """Row 4 against its plain version at Granite-MoE's decode shape (16
+    query over 8 KV heads, d 64) and DeepSeek-MoE's (16 over 16, d 128: G
+    = 1), as phase 9: rotating bf16 caches in the serve's range, f32 on
+    the first, repeat calls and graph replays, the edge lengths in both
+    types; then timed from a CUDA graph against the byte bound, the plain
+    version and SDPA.  Returns the two timing rows and the largest abs
+    error."""
+    rows, err = {}, 0.0
+    for label, shape, seed in (("granite", GRANITE_DECODE, 31),
+                               ("deepseek", DEEPSEEK_DECODE, 32)):
+        sets = decode_sets("serve", seed=seed, shape=shape)
+        err = max(err, _decode_checks(sets))
+        err = max(err, _check_cases(
+            [(f"{label} edge lengths", shape, DECODE_EDGE_LENS),
+             (f"{label} one int length", shape, 700)], seed=seed))
+        rows[label] = dict(decode_timing(label, sets), shape=list(shape))
+        del sets
+    torch.cuda.empty_cache()
+    return rows, err
+
+
+def _state_leaves(node):
+    """The tensors of a cache list (KV pairs, Mamba and RWKV states)."""
+    if isinstance(node, dict):
+        for key in sorted(node):
+            yield from _state_leaves(node[key])
+    elif isinstance(node, (tuple, list)):
+        for v in node:
+            yield from _state_leaves(v)
+    else:
+        yield node
+
+
+def phase_family_card_vs_cpu(arch: str):
+    """Phase 10 on a reduced MoE/SSM/hybrid arch (f32), then teacher
+    forcing over 32 tokens (logits at phase 11's tolerance, aux at rtol
+    1e-5) and a 16-token prefill's caches and states (phase 11's
+    tolerance) card == CPU; two card calls of ``moe`` bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy, lm_tree_from_seed
+    from repro_torch.models import mlp
+    from repro_torch.models import model as M
+    from repro_torch.models.config import reduced_for_smoke
+
+    phase_lm_card_vs_cpu(arch)
+    cfg = reduced_for_smoke(get_config(arch))
+    tree = lm_tree_from_seed(cfg, 2)
+    tokens = np.random.default_rng(10).integers(0, cfg.vocab_size, (2, 32))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p = lm_params_from_numpy(cfg, tree, device=dev)
+        seq = torch.as_tensor(tokens, device=dev)
+        logits, aux = M.train_logits(cfg, p, {"tokens": seq})
+        _, raw, _ = M.prefill(cfg, p, {"tokens": seq[:, :16]})
+        got[dev] = (logits.cpu(), float(aux),
+                    [t.float().cpu() for t in _state_leaves(raw)])
+        if dev == "cuda" and cfg.moe is not None:
+            j = next(i for i, k in enumerate(M.layer_kinds(cfg))
+                     if M.parse_kind(k)[1] == "moe")
+            x = torch.randn((4, 32, cfg.d_model), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(3))
+            a, _ = mlp.moe(p["layers"][j]["ff"], cfg, x)
+            b, _ = mlp.moe(p["layers"][j]["ff"], cfg, x)
+            check(torch.equal(a, b), f"{arch}: two card calls of moe differ")
+    (lc, ac, sc), (lh, ah, sh) = got["cuda"], got["cpu"]
+    err = float((lc - lh).abs().max())
+    check(torch.allclose(lc, lh, **LM_TOL),
+          f"{arch}: teacher forcing card != cpu (max abs err {err})")
+    check(abs(ac - ah) <= 1e-5 * abs(ah), f"{arch}: aux {ac} vs {ah}")
+    s_err = max(float((a - b).abs().max()) for a, b in zip(sc, sh))
+    check(len(sc) == len(sh) and all(
+        a.shape == b.shape and torch.allclose(a, b, **LM_TOL)
+        for a, b in zip(sc, sh)),
+        f"{arch}: prefill caches/states card != cpu (max abs err {s_err})")
+    print(f"  reduced {arch}: teacher forcing (2 x 32) max abs err "
+          f"{err:.3g}, aux {ac:.6g} vs {ah:.6g}, {len(sc)} cache/state "
+          f"tensors max abs err {s_err:.3g}"
+          f"{'; two card calls of moe bit-equal' if cfg.moe else ''}")
+
+
+def phase_mamba_full_width():
+    """One Mamba mixer at Jamba-1.5-Large's published widths (d 8192, d_in
+    16 384, 256 heads of 64, N 16, chunk 128) in f32: ``mamba_forward``
+    over 1 024 tokens, then 128 ``mamba_decode`` steps, against
+    ``mamba_forward`` over the 1 152 tokens (outputs and final SSM state at
+    phase 11's tolerance)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(get_config(JAMBA), dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    p = ssm.init_mamba(gen, cfg, torch.float32, "cuda")
+    n = MAMBA_PROMPT + MAMBA_STEPS
+    x = torch.randn((1, n, cfg.d_model), generator=gen, device="cuda")
+    t = time.perf_counter()
+    y, st = ssm.mamba_forward(p, cfg, x[:, :MAMBA_PROMPT])
+    outs = [y]
+    for i in range(MAMBA_PROMPT, n):
+        o, st = ssm.mamba_decode(p, cfg, x[:, i:i + 1], st)
+        outs.append(o)
+    whole, st_all = ssm.mamba_forward(p, cfg, x)
+    torch.cuda.synchronize()
+    got = torch.cat(outs, dim=1)
+    err = float((got - whole).abs().max())
+    s_err = float((st.ssm - st_all.ssm).abs().max())
+    check(torch.allclose(got, whole, **LM_TOL),
+          f"Mamba decode != forward at Jamba's widths (max abs err {err})")
+    check(torch.allclose(st.ssm, st_all.ssm, **LM_TOL),
+          f"Mamba final state differs (max abs err {s_err})")
+    d_in, H = cfg.ssm.expand * cfg.d_model, (cfg.ssm.expand * cfg.d_model
+                                             // cfg.ssm.head_dim)
+    print(f"  Mamba mixer (d {cfg.d_model}, d_in {d_in}, {H} heads of "
+          f"{cfg.ssm.head_dim}, N {cfg.ssm.d_state}) f32: forward "
+          f"{MAMBA_PROMPT} + {MAMBA_STEPS} decode steps vs forward over {n}:"
+          f" max abs err {err:.3g} (output scale "
+          f"{float(whole.abs().max()):.3g}), final state {s_err:.3g}; "
+          f"{time.perf_counter() - t:.1f} s")
+    del p, x, outs, whole
+    torch.cuda.empty_cache()
+
+
+def phase_router_load():
+    """``estimate_router_load`` over Granite-MoE's real layer-0 router (bf16,
+    phase 22(d)'s seeded weights): the port's own ``route`` after layer
+    0's attention block, on a pool of ``data.pipeline`` token rows; the
+    estimate within 2 epsilon of the exact load over the pool.  Every
+    Poisson-bootstrap call is recorded and one of each shape held against
+    its plain version.  Returns the kernels' launches and that error."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.integration import estimate_router_load
+    from repro_torch.kernels.poisson_bootstrap import ops as pb_ops
+    from repro_torch.models import attention, mlp, nn
+    from repro_torch.models import model as M
+
+    cfg = get_config(GRANITE)
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    params = M.init_model(cfg, seed=0, device="cuda")
+    lay = params["layers"][0]
+
+    def route_fn(tokens):
+        with torch.no_grad():
+            x = params["embed"][torch.as_tensor(tokens, device="cuda").long()]
+            h = nn.rms_norm(lay["ln1"], x, cfg.rms_eps)
+            x = x + attention.self_attention(lay["mixer"], cfg, h)[0]
+            h2 = nn.rms_norm(lay["ln2"], x, cfg.rms_eps)
+            _, _, choice = mlp.route(lay["ff"], cfg,
+                                     h2.reshape(-1, cfg.d_model))
+        return choice.reshape(-1).cpu().numpy()
+
+    rows, S = ROUTER_POOL
+    pool = batch_for_step(0, global_batch=rows, seq_len=S,
+                          vocab=cfg.vocab_size, device="cuda")[
+                              "tokens"].cpu().numpy()
+    exact = np.bincount(np.concatenate(
+        [route_fn(pool[i:i + 512]) for i in range(0, rows, 512)]),
+        minlength=E) / (rows * S * k)
+    rr = np.random.default_rng(11)
+
+    def token_source(n):
+        return pool[rr.integers(0, rows, n)]
+
+    calls, stop = record_calls(pb_ops, "bootstrap_moments_masked")
+    reset_counts()
+    t = time.perf_counter()
+    rl = estimate_router_load(route_fn, token_source, E, epsilon=0.01,
+                              delta=0.1, device="cuda")
+    rl_s = time.perf_counter() - t
+    counts = read_counts()
+    stop()
+    gap = float(np.linalg.norm(rl.load - exact))
+    check(rl.success and gap <= 0.02,
+          f"router load {rl.load} (|load - exact| {gap}, success "
+          f"{rl.success})")
+    print(f"  estimate_router_load over {GRANITE}'s layer-0 router (E = {E},"
+          f" top-{k}, eps 0.01) on a pool of {rows} x {S} pipeline tokens: "
+          f"exact load in [{exact.min():.4f}, {exact.max():.4f}], "
+          f"{rl.n_tokens} token rows, {rl.iterations} iterations, error "
+          f"{rl.error:.5f}, |load - exact|_2 = {gap:.5f}, {rl_s:.3f} s; "
+          f"launches {counts}")
+    err = hold_pb("phase 22(f)", calls) if calls else 0.0
+    if not calls:
+        print("  no Poisson-bootstrap call: the router load's ESTIMATE is "
+              "the generic bootstrap (threefry weights on the card)")
+    del params
+    torch.cuda.empty_cache()
+    return counts, err
+
+
+def phase_families():
+    """(a) row 4 at Granite-MoE's and DeepSeek-MoE's decode shapes; (b) the
+    four reduced archs card == CPU; (c) Granite-MoE and RWKV6-7B in f32 at
+    full width and depth, 32 greedy steps after a 992-token prefill against
+    teacher forcing, and one Mamba mixer at Jamba's widths; (d) bf16 serves
+    at full width and depth (16 requests, 8 slots, S_max 2048): Granite-MoE,
+    DeepSeek-MoE-16B, RWKV6-7B; (e) reduced Jamba through the batcher on
+    the card; (f) the router load over Granite's real router.  Returns row
+    4's timing rows, the launches of (d)-(f) and the largest abs errors."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import flops
+    from repro_torch.models.config import reduced_for_smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("  (a) decode attention vs plain at the MoE decoders' shapes")
+    rows, err = phase_family_kernel()
+    print("  (b) reduced archs, card vs cpu")
+    for arch in FAMILY_ARCHS:
+        phase_family_card_vs_cpu(arch)
+    print("  (c) full width in f32 against teacher forcing")
+    g = get_config(GRANITE)
+    g = dataclasses.replace(g, dtype="float32", moe=dataclasses.replace(
+        g.moe, capacity_factor=g.moe.num_experts / g.moe.top_k))
+    print(f"  {GRANITE}: capacity factor {g.moe.capacity_factor} (an expert "
+          f"receives at most one entry a token, so C >= T: nothing drops)")
+    for cfg in (g, dataclasses.replace(get_config(RWKV), dtype="float32")):
+        params = _build_f32(cfg)
+        f32_decode_vs_teacher_forcing(cfg, params, FAM_F32_PROMPT,
+                                      FAM_F32_STEPS, cfg.name)
+        del params
+        torch.cuda.empty_cache()
+    phase_mamba_full_width()
+    print("  (d) bf16 serves at full width and depth")
+    serve = {}
+    for arch in (GRANITE, DEEPSEEK, RWKV):
+        cfg = get_config(arch)
+        print(f"  {arch}: {flops.count_params_analytic(cfg) / 1e9:.3f} B "
+              f"params ({flops.count_active_analytic(cfg) / 1e9:.3f} B "
+              f"active), {flops.weight_bytes(cfg) / 1e9:.2f} GB of weights")
+        prompts = None
+        if arch == RWKV:        # multiples of the chunk (32) in 32-1024
+            rng = np.random.default_rng(12)
+            prompts = [rng.integers(0, cfg.vocab_size, 32 * n).astype(
+                np.int32) for n in rng.integers(1, 33, LM_REQUESTS)]
+        serve[arch] = phase_lm_serve(arch, prompts=prompts)
+    print(f"  (e) reduced {JAMBA} (bf16) through the batcher on the card")
+    jcfg = dataclasses.replace(reduced_for_smoke(get_config(JAMBA)),
+                               dtype="bfloat16")
+    rng = np.random.default_rng(13)
+    lens = [*rng.integers(1, 17, LM_REQUESTS // 2),
+            *(16 * rng.integers(2, 33, LM_REQUESTS // 2))]
+    serve[JAMBA] = phase_lm_serve(JAMBA, cfg=jcfg, prompts=[
+        rng.integers(0, jcfg.vocab_size, n).astype(np.int32) for n in lens])
+    print(f"  (f) router load over {GRANITE}'s layer-0 router")
+    serve["router"], pb_err = phase_router_load()
+    counts = serve[GRANITE]
+    for key in (DEEPSEEK, RWKV, JAMBA, "router"):
+        counts = add_counts(counts, serve[key])
+    print(f"  launches on phase 22's main paths (d-f): "
+          f"{ {k: v['decode_attention'] for k, v in serve.items()} } "
+          f"decode attention; all {counts}")
+    return rows, counts, err, pb_err
 
 
 def _lineitem(group_by: str):
@@ -3330,8 +3657,12 @@ def main() -> None:
           "head)")
     window_row, dense_counts = phase_dense_variants()
     launches = add_counts(launches, dense_counts)
+    # -- phase 22 --
+    print("phase 22: the MoE, RWKV6 and Mamba-hybrid decoders")
+    fam_rows, fam_counts, fam_err, fam_pb_err = phase_families()
+    launches = add_counts(launches, fam_counts)
     print(f"  launches on the main paths (phases 6 + 7 + 12 + 14 + 16 + 18 + "
-          f"19 + 20 + 21): {launches}")
+          f"19 + 20 + 21 + 22): {launches}")
     print(f"  result rows: Poisson bootstrap at the solo serve's most used "
           f"width w={w_main}; segment bootstrap at L={L_main}; aggregate over "
           f"the whole table GROUP BY TAX with a random mask (phase 4; its "
@@ -3343,7 +3674,8 @@ def main() -> None:
         "source": "src/repro_torch/csrc/poisson_bootstrap.cu",
         "replaces": "src/repro/kernels/poisson_bootstrap/kernel.py:51",
         "launches": launches["poisson_bootstrap"],
-        "max_abs_err": max(pb_err, base_errs["poisson_bootstrap"], lm20_err),
+        "max_abs_err": max(pb_err, base_errs["poisson_bootstrap"], lm20_err,
+                           fam_pb_err),
         "ms": r["ms"], "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None, "bound_30ops_ms": r["bound_30ops_ms"],
@@ -3352,6 +3684,7 @@ def main() -> None:
         "host_serve_launches": host_counts["poisson_bootstrap"],
         "baselines_launches": base_counts["poisson_bootstrap"],
         "miss_lm_launches": lm20_counts["poisson_bootstrap"],
+        "family_launches": fam_counts["poisson_bootstrap"],
         "warm_slo_launches": {
             "phase15": warm_cpu_counts["poisson_bootstrap"],
             "phase16": serve16["poisson_bootstrap"]},
@@ -3398,12 +3731,15 @@ def main() -> None:
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:33",
         "launches": launches["decode_attention"],
-        "max_abs_err": max(da["max_abs_err"], window_row["max_abs_err"]),
+        "max_abs_err": max(da["max_abs_err"], window_row["max_abs_err"],
+                           fam_err),
         "ms": da["ms"],
         "plain_ms": da["plain_ms"], "bound_ms": da["bound_ms"],
         "bound_by": da["bound_by"], "library_ms": da["library_ms"],
         "dense_variant_launches": dense_counts["decode_attention"],
-        "window_h2o": window_row}]}))
+        "family_launches": fam_counts["decode_attention"],
+        "window_h2o": window_row, "granite": fam_rows["granite"],
+        "deepseek": fam_rows["deepseek"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

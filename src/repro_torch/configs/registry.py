@@ -1,6 +1,8 @@
 """Architecture registry of the port: ``get_config(arch)`` for the archs it
-runs.  The reference registers ten; an arch whose layer kinds are not ported
-yet raises ``NotImplementedError`` naming it, an unknown one ``KeyError``.
+runs -- every decoder-only arch of the reference (dense, MoE, SSM and
+hybrid).  The reference registers ten; an arch whose layer kinds are not
+ported yet raises ``NotImplementedError`` naming it, an unknown one
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -13,14 +15,15 @@ _ARCH_MODULES = {
     "h2o-danube-3-4b": "h2o_danube_3_4b",
     "command-r-plus-104b": "command_r_plus_104b",
     "qwen3-1.7b": "qwen3_1_7b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "rwkv6-7b": "rwkv6_7b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
-# The reference's other archs: MoE, SSM/hybrid, cross-attention and
-# encoder-decoder layers wait for later slices.
-NOT_PORTED = (
-    "granite-moe-1b-a400m", "deepseek-moe-16b", "rwkv6-7b",
-    "jamba-1.5-large-398b", "seamless-m4t-large-v2", "llama-3.2-vision-90b",
-)
+# The reference's other archs: cross-attention and encoder-decoder layers
+# wait for later slices.
+NOT_PORTED = ("seamless-m4t-large-v2", "llama-3.2-vision-90b")
 
 ARCHS = tuple(_ARCH_MODULES)
 

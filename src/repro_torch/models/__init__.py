@@ -1,5 +1,6 @@
-"""Language-model side of the port: the dense decoder-only family (config,
-primitives, attention with the decode-attention kernel, assembly)."""
+"""Language-model side of the port: every decoder-only family (config,
+primitives, attention with the decode-attention kernel, MoE, the Mamba and
+RWKV6 scans, assembly, analytic counts)."""
 from .config import ModelConfig, MoEConfig, SSMConfig, reduced_for_smoke
 
 __all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "reduced_for_smoke"]

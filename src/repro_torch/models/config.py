@@ -1,8 +1,8 @@
 """Model configuration: the port's own copy of the reference's dataclasses.
 
 One frozen dataclass describes every architecture of the registry; the port
-runs the dense decoder-only family so far and raises on the others where a
-layer kind is built.  The fields, defaults, ``layer_pattern`` and
+runs every decoder-only family (dense, MoE, SSM, hybrid) and raises on
+cross-attention and encoder-decoder configs where a layer kind is built.  The fields, defaults, ``layer_pattern`` and
 ``reduced_for_smoke`` are those of the reference, so a configuration means
 the same model in both packages.
 """

@@ -19,12 +19,15 @@ def _trunc_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, dtype,
-               device, scale: Optional[float] = None) -> torch.Tensor:
+               device, scale: Optional[float] = None,
+               stack: Optional[int] = None) -> torch.Tensor:
     """Truncated normal on [-2, 2] times ``scale`` (default ``d_in**-0.5``),
-    drawn in f32 on ``device`` from ``generator`` (which lives there)."""
+    drawn in f32 on ``device`` from ``generator`` (which lives there);
+    ``stack`` experts' matrices stacked on a leading axis."""
     if scale is None:
         scale = d_in ** -0.5
-    return (_trunc_normal((d_in, d_out), generator, device) * scale).to(dtype)
+    shape = (d_in, d_out) if stack is None else (stack, d_in, d_out)
+    return (_trunc_normal(shape, generator, device) * scale).to(dtype)
 
 
 def embed_init(generator: torch.Generator, vocab: int, d: int, dtype,

@@ -2,14 +2,18 @@
 
 A fixed pool of slots decodes in lockstep (one ``decode_step`` per tick,
 every slot, idle ones too); a finished or empty slot is refilled from the
-request queue by prefilling the new prompt with batch 1 and splicing its KV
-rows into the slot.  EOS, ``max_new_tokens`` or a length of ``s_max - 1``
+request queue by prefilling the new prompt with batch 1 and splicing its
+caches into the slot.  EOS, ``max_new_tokens`` or a length of ``s_max - 1``
 retires a slot.  Greedy argmax, first maximum on ties, as the reference.
 
-The reference rebuilds the pool's cache with ``dynamic_update_slice``; here
-the splice writes the slot's rows of the cache tensors in place (the prompt's
-K/V, zeros past it), which is what the reference's padded row holds.  Each
-decode tick reads the new tokens on the host once, as the reference does.
+The reference rebuilds the pool's caches with ``dynamic_update_slice`` over
+every leaf of two or more dimensions; here the splice writes the slot's rows
+of every cache tensor in place on the device: an attention layer's K/V rows
+(the prompt's, zeros past it, which is what the reference's padded row
+holds) and length, a Mamba layer's SSM state and conv tail, an RWKV layer's
+wkv state, shift and channel-mix shift.  A prompt that breaks the chunk rule
+of the Mamba or RWKV scans is refused when it is submitted.  Each decode
+tick reads the new tokens on the host once, as the reference does.
 """
 from __future__ import annotations
 
@@ -50,6 +54,12 @@ class ContinuousBatcher:
         self.completed: List[Request] = []
 
     def submit(self, req: Request):
+        """Queue ``req``; ``ValueError`` for a prompt longer than ``s_max``
+        or one the recurrent layers' chunked scans refuse."""
+        if len(req.prompt) > self.s_max:
+            raise ValueError(f"prompt of {len(req.prompt)} tokens exceeds "
+                             f"s_max={self.s_max}")
+        M.check_prompt_length(self.cfg, len(req.prompt))
         self.queue.append(req)
 
     def _prefill1(self, prompt: np.ndarray):
@@ -62,17 +72,21 @@ class ContinuousBatcher:
 
     def _splice(self, slot: int, req: Request):
         """Prefill the prompt with batch 1 and write it into the slot's
-        cache rows."""
-        if len(req.prompt) > self.s_max:
-            raise ValueError(f"prompt of {len(req.prompt)} tokens exceeds "
-                             f"s_max={self.s_max}")
+        rows of every layer's cache."""
         logits, raw, _ = self._prefill1(req.prompt)
         S = len(req.prompt)
-        for c, (k, v) in zip(self.caches, raw):
-            for buf, new in ((c.k, k), (c.v, v)):
-                buf[slot, S:].zero_()
-                buf[slot, :S] = new[0].to(buf.dtype)
-            c.length[slot] = S
+        for kind, c, new in zip(M.layer_kinds(self.cfg), self.caches, raw):
+            mixer = M.parse_kind(kind)[0]
+            if mixer == "attn":
+                for buf, rows in ((c.k, new[0]), (c.v, new[1])):
+                    buf[slot, S:].zero_()
+                    buf[slot, :S] = rows[0].to(buf.dtype)
+                c.length[slot] = S
+                continue
+            pairs = (zip(c, new) if mixer == "mamba" else
+                     [*zip(c["tmix"], new["tmix"]), (c["cmix"], new["cmix"])])
+            for buf, state in pairs:
+                buf[slot] = state[0].to(buf.dtype)
         nxt = int(torch.argmax(logits[0, -1]))
         self.tokens[slot, 0] = nxt
         req.out_tokens.append(nxt)

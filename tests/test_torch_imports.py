@@ -44,9 +44,13 @@ def test_every_module_imports_without_jax_or_reference():
                  "kernels.segment_agg.ref", "kernels.decode_attention.ops",
                  "kernels.decode_attention.ref", "models.config",
                  "models.nn", "models.mlp", "models.attention",
-                 "models.model", "configs.registry", "configs.qwen2_1_5b",
+                 "models.model", "models.ssm", "models.flops",
+                 "configs.registry", "configs.qwen2_1_5b",
                  "configs.qwen3_1_7b", "configs.h2o_danube_3_4b",
-                 "configs.command_r_plus_104b", "serve.batching",
+                 "configs.command_r_plus_104b",
+                 "configs.granite_moe_1b_a400m", "configs.deepseek_moe_16b",
+                 "configs.rwkv6_7b", "configs.jamba_1_5_large_398b",
+                 "serve.batching",
                  "launch.serve", "core.baselines", "data.pipeline",
                  "integration", "integration.miss_eval",
                  "integration.miss_mixture", "integration.miss_router"):

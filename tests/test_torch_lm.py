@@ -62,15 +62,18 @@ def assert_same_greedy(got, want, tol=TOL["atol"]):
 
 def test_config_and_registry_match_reference(jx, cfg):
     """Every ported arch's config, full and reduced, equals the reference's;
-    the dense variants (sliding window, QK norm, untied head) build; MoE and
-    the archs still in ``NOT_PORTED`` raise."""
+    the dense variants (sliding window, QK norm, untied head) and a MoE
+    variant build; the archs still in ``NOT_PORTED`` and an
+    encoder-decoder config raise."""
     full = get_config("qwen2-1.5b")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jx["reduced"](jx["get_config"]("qwen2-1.5b")))
     assert (full.head_dim, full.n_heads // full.n_kv_heads) == (128, 6)
     assert cfg.n_heads // cfg.n_kv_heads == 4
     assert set(ARCHS) == {"qwen2-1.5b", "qwen3-1.7b", "h2o-danube-3-4b",
-                          "command-r-plus-104b"}
+                          "command-r-plus-104b", "granite-moe-1b-a400m",
+                          "deepseek-moe-16b", "rwkv6-7b",
+                          "jamba-1.5-large-398b"}
     for arch in ARCHS:
         want = jx["get_config"](arch)
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
@@ -86,8 +89,10 @@ def test_config_and_registry_match_reference(jx, cfg):
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     with pytest.raises(NotImplementedError, match="not ported"):
-        M.init_model(dataclasses.replace(
-            cfg, family="moe", moe=MoEConfig(8, 2, 64)), device="cpu")
+        M.init_model(dataclasses.replace(cfg, is_encdec=True), device="cpu")
+    moe = M.init_model(dataclasses.replace(
+        cfg, family="moe", moe=MoEConfig(8, 2, 64)), device="cpu")
+    assert moe["layers"][0]["ff"]["we_gate"].shape == (8, cfg.d_model, 64)
     for variant in (dict(sliding_window=16), dict(qk_norm=True),
                     dict(tie_embeddings=False)):
         params = M.init_model(dataclasses.replace(cfg, **variant),

@@ -21,6 +21,7 @@ from numpy.testing import assert_allclose
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_numpy, lm_tree_from_seed
 from repro_torch.models import attention as attn
+from repro_torch.models import flops
 from repro_torch.models import model as M
 from repro_torch.models.config import reduced_for_smoke
 from repro_torch.serve.batching import ContinuousBatcher, Request
@@ -205,7 +206,7 @@ def test_serve_entry_point_takes_the_variants(arch, capsys):
 
 
 def test_weight_bytes_counts_the_matrices():
-    """``weight_bytes`` (the entry point's fit check) is the parameter
+    """``flops.weight_bytes`` (the entry point's fit check) is the parameter
     count without norm gains and biases, times the dtype's size; full
     command-r-plus-104b needs ~214 GB, its 4-layer cut ~25 GB."""
     for arch in ARCHS:
@@ -216,8 +217,8 @@ def test_weight_bytes_counts_the_matrices():
                            (blk.values() if isinstance(blk, dict) else [blk])
                            if t.dim() == 1)
         small_leaves += params["final_norm"].numel()
-        assert M.weight_bytes(cfg) == 4 * (M.count_params(params)
+        assert flops.weight_bytes(cfg) == 4 * (M.count_params(params)
                                            - small_leaves)
     full = get_config("command-r-plus-104b")
-    assert 200e9 < M.weight_bytes(full) < 220e9
-    assert 20e9 < M.weight_bytes(dataclasses.replace(full, n_layers=4)) < 30e9
+    assert 200e9 < flops.weight_bytes(full) < 220e9
+    assert 20e9 < flops.weight_bytes(dataclasses.replace(full, n_layers=4)) < 30e9
