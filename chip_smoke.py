@@ -197,12 +197,34 @@ non-zero and nothing falls back to the CPU:
    the card, prompts of at most 16 tokens or multiples of 16; (f)
    ``estimate_router_load`` over Granite's layer-0 router (the port's
    ``route`` after layer 0's attention block) on a pool of 4 096 x 16
-   pipeline tokens, within 2 epsilon of the pool's exact load; then the
+   pipeline tokens, within 2 epsilon of the pool's exact load, and a zero
+   hidden row routed to experts 0..k-1 (``lax.top_k``'s order among tied
+   probabilities);
+23. cross-attention, the encoder-decoder stack and the vision layers: (a)
+   reduced seamless-m4t-large-v2 and llama-3.2-vision-90b card == cpu on
+   one seeded tree and memory, in f32 (phase 11's tolerance) and bf16
+   (2e-2 relative L2, 0.15 max abs): ``train_logits``, ``prefill`` (logits
+   and the returned memory) and 8 decode steps, the decode's self- and
+   cross-attention through the kernel on the card; (b) their f32 decode
+   after ``caches_from_prefill`` against teacher forcing (phase 11's
+   tolerance); (c) the decode-attention kernel against its plain version
+   as in phase 9 at SeamlessM4T's decode shapes (8 rows, 16 over 16 heads
+   of 64: self-attention at lengths 65-96, cross-attention over 4 096
+   frames) and Llama-3.2-Vision's (64 over 8 heads of 128: self-attention
+   at 17-96, cross-attention over 1 600 image tokens), the cross-attention
+   with an int length, timed from a CUDA graph beside the byte bound, the
+   plain version and SDPA; (d) SeamlessM4T-large-v2 in bf16 at full width
+   and depth (24 + 24 layers, d 1024, vocab 256 206) on 8 rows of 4 096
+   pipeline frames with decoder prompts of 16-64 tokens: each row's
+   prefill, then 32 greedy decode steps of the 8 rows, 48 kernel launches
+   a step; (e) Llama-3.2-Vision-90B at full width cut to two 5-layer units
+   (10 of 100 layers: 175 GB of weights at full depth) on 8 rows of 1 600
+   pipeline image embeddings, the same run, 10 launches a step; then the
    result lines: a JSON object of kernel measurements, then ``{"ok": true,
    "device": {...}}`` as the last line.
 
-Phases 6, 7, 12, 14, 16, 18, 19, 20, 21(d-f) and 22(d-f) are the main
-paths: every
+Phases 6, 7, 12, 14, 16, 18, 19, 20, 21(d-f), 22(d-f) and 23(d-e) are the
+main paths: every
 kernel's launch count is set to 0 just before each and read just after; the launches of the
 other phases (the comparisons with the plain versions) count nowhere, but
 phase 15's and phase 17's are printed and kept in the kernels line.
@@ -1338,12 +1360,15 @@ def _cache_rows(lens: torch.Tensor, S: int, window=None) -> int:
     return int((hi - lo).clamp(min=0).sum())
 
 
-def decode_timing(kind: str, sets, window=None) -> dict:
+def decode_timing(kind: str, sets, window=None, int_len: bool = False
+                  ) -> dict:
     """Kernel, plain and library (``scaled_dot_product_attention`` with the
     rows' range as its mask and ``enable_gqa``) times over the rotating
     ``sets``: from a CUDA graph of 64 calls (the device's time) and eagerly
     back to back (the host's enqueue rate included), beside the byte bound
-    of the rows the ranges hold."""
+    of the rows the ranges hold.  ``int_len``: every row's length is the
+    cache's S_max, passed to the kernel as an int (the cross-attention
+    decode's call)."""
     from repro_torch.kernels.decode_attention import ops, ref
 
     B, S, Hkv, d = sets[0][1].shape
@@ -1364,8 +1389,13 @@ def decode_timing(kind: str, sets, window=None) -> dict:
             attn_mask=masks[i], enable_gqa=True)
 
     times = {}
+    def kernel(i):
+        q, k, v, lens = sets[i]
+        return ops.decode_attention(q, k, v, S if int_len else lens,
+                                    window=window)
+
     for name, fn in (
-            ("ms", lambda i: ops.decode_attention(*sets[i], window=window)),
+            ("ms", kernel),
             ("plain_ms", lambda i: ref.decode_attention_ref(*sets[i],
                                                             window)),
             ("library_ms", library)):
@@ -1561,11 +1591,13 @@ def _lm_small_serve(cfg, params, prompts, eos):
     return {r.rid: list(map(int, r.out_tokens)) for r in b.run()}
 
 
-def n_attn_layers(cfg) -> int:
-    """Layers that decode through row 4 (one launch a decode step each)."""
+def row4_per_step(cfg) -> int:
+    """Row-4 launches a decode step: one an attention or xonly layer, two a
+    cross layer (its self- and cross-attention)."""
     from repro_torch.models import model as M
 
-    return sum(M.parse_kind(k)[0] == "attn" for k in M.layer_kinds(cfg))
+    per = {"attn": 1, "xonly": 1, "cross": 2}
+    return sum(per.get(M.parse_kind(k)[0], 0) for k in M.layer_kinds(cfg))
 
 
 def phase_lm_card_vs_cpu(arch: str = LM_ARCH, window=None):
@@ -1594,9 +1626,9 @@ def phase_lm_card_vs_cpu(arch: str = LM_ARCH, window=None):
     launched = da_ops.counter.launches - n0
     cpu = _lm_small_serve(cfg, ph, prompts, eos)
     check(card == cpu, f"batcher tokens card != cpu: {card} vs {cpu}")
-    check((launched > 0) == (n_attn_layers(cfg) > 0),
+    check((launched > 0) == (row4_per_step(cfg) > 0),
           f"the card's batcher launched the kernel {launched} times with "
-          f"{n_attn_layers(cfg)} attention layers")
+          f"{row4_per_step(cfg)} attention layers")
     tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 12))
     logs = []
     for p, dev in ((pc, "cuda"), (ph, "cpu")):
@@ -1746,7 +1778,7 @@ def phase_lm_serve(arch: str = LM_ARCH, *, n_layers=None, prompts=None,
               f"request {r.rid} has {len(r.out_tokens)} tokens")
         check(all(0 <= x < cfg.vocab_size for x in r.out_tokens),
               f"request {r.rid}: token out of the vocabulary")
-    n_attn = n_attn_layers(cfg)
+    n_attn = row4_per_step(cfg)
     check(n_da == n_attn * st["steps"] and (n_da > 0) == (n_attn > 0),
           f"decode-attention launches {n_da} != {n_attn} attention layers x "
           f"{st['steps']} decode steps")
@@ -3127,19 +3159,21 @@ def phase_window_kernel():
 
 
 def f32_decode_vs_teacher_forcing(cfg, params, prompt: int, steps: int,
-                                  label: str) -> float:
-    """Prefill of ``prompt`` random tokens, then ``steps`` greedy
+                                  label: str, extra=None) -> float:
+    """Prefill of ``prompt`` random tokens (with the ``extra`` batch
+    entries: a cross-attention memory), then ``steps`` greedy
     ``decode_step``s, against one ``train_logits`` over the whole sequence:
     every step's logits at phase 11's tolerance, argmax equal where the
-    top-2 margin exceeds it; row 4 launched once per attention layer and
+    top-2 margin exceeds it; row 4 launched :func:`row4_per_step` times a
     step.  Returns the largest abs error."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.models import model as M
 
+    extra = extra or {}
     seq = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (1, prompt)), device="cuda")
     n0 = da_ops.counter.launches
-    last, raw, _ = M.prefill(cfg, params, {"tokens": seq})
+    last, raw, _ = M.prefill(cfg, params, {"tokens": seq, **extra})
     caches = M.caches_from_prefill(cfg, raw, S_max=prompt + steps + 8)
     del raw
     outs = [last[:, 0]]
@@ -3150,7 +3184,7 @@ def f32_decode_vs_teacher_forcing(cfg, params, prompt: int, steps: int,
         outs.append(last[:, 0])
     launched = da_ops.counter.launches - n0
     del caches
-    full, _ = M.train_logits(cfg, params, {"tokens": seq})
+    full, _ = M.train_logits(cfg, params, {"tokens": seq, **extra})
     want = full[0, prompt - 1:]
     got = torch.cat(outs)
     err = float((got - want).abs().max())
@@ -3160,7 +3194,7 @@ def f32_decode_vs_teacher_forcing(cfg, params, prompt: int, steps: int,
     clear = (top2[:, 0] - top2[:, 1]) > LM_TOL["atol"]
     check(torch.equal(got.argmax(-1)[clear], want.argmax(-1)[clear]),
           f"{label} f32 argmax differs")
-    check(launched == n_attn_layers(cfg) * steps,
+    check(launched == row4_per_step(cfg) * steps,
           f"{label}: {launched} decode-attention launches")
     print(f"  prefill({prompt}) + {steps} greedy steps vs train_logits over "
           f"{seq.shape[1]} tokens: max abs err {err:.3g} (rtol/atol 2e-4), "
@@ -3384,7 +3418,8 @@ def phase_router_load():
     """``estimate_router_load`` over Granite-MoE's real layer-0 router (bf16,
     phase 22(d)'s seeded weights): the port's own ``route`` after layer
     0's attention block, on a pool of ``data.pipeline`` token rows; the
-    estimate within 2 epsilon of the exact load over the pool.  Every
+    estimate within 2 epsilon of the exact load over the pool; a zero
+    hidden row (every probability tied) routed to experts 0..k-1.  Every
     Poisson-bootstrap call is recorded and one of each shape held against
     its plain version.  Returns the kernels' launches and that error."""
     from repro_torch.configs import get_config
@@ -3439,6 +3474,13 @@ def phase_router_load():
           f"{rl.n_tokens} token rows, {rl.iterations} iterations, error "
           f"{rl.error:.5f}, |load - exact|_2 = {gap:.5f}, {rl_s:.3f} s; "
           f"launches {counts}")
+    tied = mlp.route(lay["ff"], cfg, torch.zeros((2, cfg.d_model),
+                                                 device="cuda"))[2]
+    check(torch.equal(tied.cpu(), torch.arange(k).expand(2, k)),
+          f"a zero hidden row (all {E} probabilities tied) routed to "
+          f"{tied.tolist()}, not experts 0..{k - 1}")
+    print(f"  a zero hidden row (all {E} probabilities tied) routes to "
+          f"experts 0..{k - 1}, as lax.top_k orders ties")
     err = hold_pb("phase 22(f)", calls) if calls else 0.0
     if not calls:
         print("  no Poisson-bootstrap call: the router load's ESTIMATE is "
@@ -3511,6 +3553,283 @@ def phase_families():
           f"{ {k: v['decode_attention'] for k, v in serve.items()} } "
           f"decode attention; all {counts}")
     return rows, counts, err, pb_err
+
+
+# ---------------------------------------------------------------------------
+# phase 23: cross-attention, the encoder-decoder stack and the vision layers
+# ---------------------------------------------------------------------------
+
+SEAMLESS, VISION = "seamless-m4t-large-v2", "llama-3.2-vision-90b"
+VISION_LAYERS = 10              # two whole 5-layer units (four dense, xonly)
+X_ROWS, X_PROMPT, X_NEW, X_S_MAX = 8, (16, 64), 32, 128
+X_CPU_PROMPT, X_CPU_STEPS, X_MEM = 12, 8, 16
+X_F32_PROMPT, X_F32_STEPS = 16, 16
+# bf16 card == CPU: logits within 2e-2 relative L2 and 0.15 max abs, about
+# the reduced models' own bf16-vs-f32 gap on the CPU (1.35e-2, 0.073).
+X_BF16_REL, X_BF16_ABS = 2e-2, 0.15
+# Row 4 at the new decode shapes, (B, Hq, Hkv, d, S): self-attention caches
+# and the cross-attention memories (every row reads all S positions).
+X_DECODE = {
+    "seamless_self": ((X_ROWS, 16, 16, 64, X_S_MAX), (64, 64)),
+    "seamless_cross": ((X_ROWS, 16, 16, 64, 4096), None),
+    "vision_self": ((X_ROWS, 64, 8, 128, X_S_MAX), X_PROMPT),
+    "vision_cross": ((X_ROWS, 64, 8, 128, 1600), None),
+}
+
+
+def _mem_key(cfg) -> str:
+    return "frames" if cfg.is_encdec else "image_embeds"
+
+
+def phase_cross_kernel():
+    """Row 4 against its plain version at the cross decoders' four decode
+    shapes, as phase 9: rotating bf16 caches (self-attention: lengths in
+    the serve's range, poisoned past them; cross-attention: every row at
+    the memory's length), f32 on the first, repeat calls and graph
+    replays, int / int32 / int64 lengths alike; then timed from a CUDA
+    graph beside the byte bound, the plain version and SDPA (the
+    cross-attention's kernel calls take the int length, as the model's).
+    Returns the four timing rows and the largest abs error."""
+    rows, err = {}, 0.0
+    for seed, (label, (shape, prompt)) in enumerate(X_DECODE.items(), 41):
+        cross = prompt is None
+        sets = decode_sets("full" if cross else "serve", seed=seed,
+                           shape=shape, prompt=prompt)
+        err = max(err, _decode_checks(sets))
+        cases = [(f"{label} one int length", shape, shape[4])]
+        if not cross:
+            cases.append((f"{label} edge lengths", shape,
+                          [0, 1, 63, 64, 65, 96, shape[4], shape[4] + 1]))
+        err = max(err, _check_cases(cases, seed=seed))
+        rows[label] = dict(decode_timing(label, sets, int_len=cross),
+                           shape=list(shape))
+        del sets
+        torch.cuda.empty_cache()
+    return rows, err
+
+
+def _cross_batch(cfg, tokens, mem, dev):
+    return {"tokens": torch.as_tensor(tokens, device=dev),
+            _mem_key(cfg): torch.as_tensor(mem, device=dev)}
+
+
+def phase_cross_card_vs_cpu(arch: str):
+    """(a) reduced ``arch`` in f32 and bf16 on the same seeded tree, card
+    (row 4) against CPU (plain version): ``train_logits`` over 20 tokens,
+    ``prefill`` of 12 (logits and memory), 8 decode steps; f32 at phase
+    11's tolerance, bf16 within ``X_BF16_REL``/``X_BF16_ABS``.  (b) f32
+    decode against teacher forcing on the card after ``caches_from_prefill``
+    (phase 11's tolerance)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy, lm_tree_from_seed
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.models import model as M
+    from repro_torch.models.config import reduced_for_smoke
+
+    base = reduced_for_smoke(get_config(arch))
+    rng = np.random.default_rng(23)
+    n = X_CPU_PROMPT + X_CPU_STEPS
+    tokens = rng.integers(0, base.vocab_size, (2, n))
+    mem = rng.standard_normal((2, X_MEM, base.d_model)).astype(np.float32)
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        tree = lm_tree_from_seed(cfg, 3)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            p = lm_params_from_numpy(cfg, tree, device=dev)
+            full, _ = M.train_logits(cfg, p, _cross_batch(cfg, tokens, mem,
+                                                          dev))
+            batch = _cross_batch(cfg, tokens[:, :X_CPU_PROMPT], mem, dev)
+            last, raw, memory = M.prefill(cfg, p, batch)
+            caches = M.caches_from_prefill(cfg, raw, S_max=n + 4)
+            outs = [last]
+            n0 = da_ops.counter.launches
+            for t in range(X_CPU_PROMPT, n):
+                last, caches = M.decode_step(
+                    cfg, p, torch.as_tensor(tokens[:, t:t + 1], device=dev),
+                    caches)
+                outs.append(last)
+            launched = da_ops.counter.launches - n0
+            check(launched == (row4_per_step(cfg) * X_CPU_STEPS
+                               if dev == "cuda" else 0),
+                  f"reduced {arch} on {dev}: {launched} kernel launches")
+            out[dev] = [x.float().cpu() for x in
+                        (full, torch.cat(outs, dim=1), memory)]
+        errs = []
+        for what, a, b in zip(("teacher forcing", "prefill + decode",
+                               "memory"), out["cuda"], out["cpu"]):
+            e = float((a - b).abs().max())
+            rel = float((a - b).norm() / b.norm())
+            errs.append(f"{what} {e:.3g}" + (f" (rel {rel:.3g})"
+                                             if dtype != "float32" else ""))
+            ok = (torch.allclose(a, b, **LM_TOL) if dtype == "float32" else
+                  rel <= X_BF16_REL and e <= X_BF16_ABS)
+            check(ok, f"reduced {arch} {dtype}: {what} card != cpu (max abs "
+                      f"err {e}, rel {rel})")
+        print(f"  reduced {arch} {dtype}: card == cpu, max abs err "
+              f"{', '.join(errs)}")
+    cfg = dataclasses.replace(base, dtype="float32")
+    params = lm_params_from_numpy(cfg, lm_tree_from_seed(cfg, 4),
+                                  device="cuda")
+    extra = {_mem_key(cfg): torch.as_tensor(
+        rng.standard_normal((1, X_MEM, cfg.d_model)).astype(np.float32),
+        device="cuda")}
+    f32_decode_vs_teacher_forcing(cfg, params, X_F32_PROMPT, X_F32_STEPS,
+                                  f"reduced {arch}", extra)
+
+
+def _cat_caches(nodes):
+    """One batch of decode caches from rows' caches of batch 1: every
+    tensor (K/V, lengths, cross-KV) concatenated along its row axis."""
+    first = nodes[0]
+    if isinstance(first, dict):
+        return {k: _cat_caches([n[k] for n in nodes]) for k in first}
+    if isinstance(first, (tuple, list)):
+        parts = [_cat_caches(list(x)) for x in zip(*nodes)]
+        return (type(first)(*parts) if hasattr(first, "_fields")
+                else type(first)(parts))
+    return torch.cat(nodes, dim=0)
+
+
+def _step_bytes(cfg, params, caches) -> int:
+    """Bytes a decode step must read at the least: the decoder's weight
+    matrices and the head once (``flops.weight_bytes`` without the
+    encoder), every cross-KV and the self K/V rows below each length."""
+    from repro_torch.models import model as M
+
+    layers = params["dec"] if cfg.is_encdec else params["layers"]
+    head = params["unembed"] if "unembed" in params else params["tied_head"]
+    n = head.numel() * head.element_size() + sum(
+        t.numel() * t.element_size() for _, t in M._leaves(layers)
+        if t.dim() > 1)
+    for c in caches:
+        kv = c.get("mixer") if isinstance(c, dict) else c
+        if kv is not None:
+            row = kv.k[0, 0].numel() * kv.k.element_size()
+            n += 2 * row * int(kv.length.clamp(max=kv.k.shape[1]).sum())
+        if isinstance(c, dict):
+            n += sum(t.numel() * t.element_size() for t in c["xkv"])
+    return n
+
+
+def phase_cross_serve(arch: str, n_layers=None) -> dict:
+    """``arch`` in bf16 at full width (``n_layers`` cuts the depth), seeded
+    weights on the card: 8 rows of the pipeline's memory extra (frames or
+    image embeddings, the config's ``n_frontend_tokens`` each) and decoder
+    prompts of 16-64 tokens; each row's ``prefill`` (batch 1, its own
+    memory; the encoder's f32 scores stay at one row's), the rows' caches
+    stacked, then 32 greedy ``decode_step``s of all 8 rows.  Every row its
+    32 tokens, logits finite, row 4 launched ``row4_per_step`` times a
+    step.  Returns the kernels' launches over the decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_step, batch_kwargs_for
+    from repro_torch.models import flops
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    t = time.perf_counter()
+    params = M.init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  {arch} bf16, {cfg.n_layers} of {get_config(arch).n_layers} "
+          f"layers{' a stack' if cfg.is_encdec else ''}: "
+          f"{M.count_params(params) / 1e9:.3f} B params "
+          f"({flops.count_params_analytic(cfg) / 1e9:.3f} B analytic), "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, built "
+          f"in {time.perf_counter() - t:.1f} s")
+    kw = batch_kwargs_for(cfg, cfg.n_frontend_tokens)
+    mem = batch_for_step(0, global_batch=X_ROWS, seq_len=1,
+                         vocab=cfg.vocab_size, device="cuda", **kw)[kw["extra"]]
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in
+               rng.integers(X_PROMPT[0], X_PROMPT[1] + 1, X_ROWS)]
+    key = _mem_key(cfg)
+
+    def prefill_rows():
+        lasts, raws = [], []
+        for i, p in enumerate(prompts):
+            last, raw, _ = M.prefill(cfg, params, {
+                "tokens": torch.as_tensor(p[None], device="cuda"),
+                key: mem[i:i + 1]})
+            lasts.append(last)
+            raws.append(M.caches_from_prefill(cfg, raw, X_S_MAX))
+        return torch.cat(lasts), _cat_caches(raws)
+
+    prefill_rows()                              # warm: allocator, kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    last, caches = prefill_rows()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    step_bytes = _step_bytes(cfg, params, caches)
+    reset_counts()
+    step_s, toks = [], []
+    t0 = time.perf_counter()
+    for _ in range(X_NEW):
+        nxt = last[:, -1].argmax(-1)[:, None]
+        toks.append(nxt)
+        t = time.perf_counter()
+        last, caches = M.decode_step(cfg, params, nxt, caches)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    decode_s = time.perf_counter() - t0
+    counts = read_counts()
+    out = torch.cat(toks, dim=1).cpu().numpy()
+    check(out.shape == (X_ROWS, X_NEW) and bool(
+        ((out >= 0) & (out < cfg.vocab_size)).all()),
+        f"{arch}: tokens {out.shape} out of the vocabulary")
+    check(bool(torch.isfinite(last).all()), f"{arch}: non-finite logits")
+    per = row4_per_step(cfg)
+    n_da = counts["decode_attention"]
+    check(n_da == per * X_NEW and n_da > 0,
+          f"{arch}: {n_da} decode-attention launches != {per} x {X_NEW}")
+    step_ms = np.asarray(step_s) * 1e3
+    kinds = [M.parse_kind(k)[0] for k in M.layer_kinds(cfg)]
+    n_cross = sum(k in ("cross", "xonly") for k in kinds)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  {X_ROWS} rows x {cfg.n_frontend_tokens} memory tokens, "
+          f"prompts of {min(map(len, prompts))}-{max(map(len, prompts))}: "
+          f"prefill {prefill_s * 1e3:.2f} ms ({prefill_s * 1e3 / X_ROWS:.2f} "
+          f"ms a row); {X_NEW} decode steps mean {step_ms.mean():.2f} ms p50 "
+          f"{np.percentile(step_ms, 50):.2f} ms = {X_ROWS / step_ms.mean() * 1e3:.1f} "
+          f"tokens/s ({X_ROWS * X_NEW / (prefill_s + decode_s):.1f} with the "
+          f"prefill); peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"a step's byte bound {bound_ms:.3f} ms ({step_bytes / 1e9:.3f} GB:"
+          f" decoder weights and head, {n_cross} cross-KV, self K/V; all "
+          f"weights {flops.weight_bytes(cfg) / 1e9:.3f} GB); decode-attention "
+          f"launches {n_da} ({per} a step: {per - n_cross} self, {n_cross} "
+          f"cross); first row's tokens {out[0, :8].tolist()}")
+    del params, caches, last, mem
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_cross():
+    """(a)-(b) the reduced archs card == CPU and f32 decode == teacher
+    forcing; (c) row 4 at the new decode shapes; (d) SeamlessM4T-large-v2
+    at full width and depth; (e) Llama-3.2-Vision-90B cut to two 5-layer
+    units.  Returns row 4's timing rows, the launches of (d)-(e) and the
+    largest abs error."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("  (a)-(b) reduced archs: card vs cpu (f32, bf16), f32 decode vs "
+          "teacher forcing")
+    for arch in (SEAMLESS, VISION):
+        phase_cross_card_vs_cpu(arch)
+    print("  (c) decode attention vs plain at the cross decoders' shapes")
+    rows, err = phase_cross_kernel()
+    print(f"  (d) {SEAMLESS} bf16 at full width and depth")
+    seam = phase_cross_serve(SEAMLESS)
+    print(f"  (e) {VISION} bf16, {VISION_LAYERS} of 100 layers (a depth cut: "
+          f"175 GB of weights at full depth)")
+    vis = phase_cross_serve(VISION, VISION_LAYERS)
+    counts = add_counts(seam, vis)
+    print(f"  launches on phase 23's main paths (d-e): {counts}")
+    return rows, counts, err, {SEAMLESS: seam["decode_attention"],
+                               VISION: vis["decode_attention"]}
 
 
 def _lineitem(group_by: str):
@@ -3661,8 +3980,13 @@ def main() -> None:
     print("phase 22: the MoE, RWKV6 and Mamba-hybrid decoders")
     fam_rows, fam_counts, fam_err, fam_pb_err = phase_families()
     launches = add_counts(launches, fam_counts)
+    # -- phase 23 --
+    print("phase 23: cross-attention, the encoder-decoder stack and the "
+          "vision layers")
+    x_rows, x_counts, x_err, x_launches = phase_cross()
+    launches = add_counts(launches, x_counts)
     print(f"  launches on the main paths (phases 6 + 7 + 12 + 14 + 16 + 18 + "
-          f"19 + 20 + 21 + 22): {launches}")
+          f"19 + 20 + 21 + 22 + 23): {launches}")
     print(f"  result rows: Poisson bootstrap at the solo serve's most used "
           f"width w={w_main}; segment bootstrap at L={L_main}; aggregate over "
           f"the whole table GROUP BY TAX with a random mask (phase 4; its "
@@ -3732,14 +4056,15 @@ def main() -> None:
         "replaces": "src/repro/kernels/decode_attention/kernel.py:33",
         "launches": launches["decode_attention"],
         "max_abs_err": max(da["max_abs_err"], window_row["max_abs_err"],
-                           fam_err),
+                           fam_err, x_err),
         "ms": da["ms"],
         "plain_ms": da["plain_ms"], "bound_ms": da["bound_ms"],
         "bound_by": da["bound_by"], "library_ms": da["library_ms"],
         "dense_variant_launches": dense_counts["decode_attention"],
         "family_launches": fam_counts["decode_attention"],
         "window_h2o": window_row, "granite": fam_rows["granite"],
-        "deepseek": fam_rows["deepseek"]}]}))
+        "deepseek": fam_rows["deepseek"],
+        "cross_decoder_launches": x_launches, **x_rows}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

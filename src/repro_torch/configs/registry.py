@@ -1,8 +1,6 @@
-"""Architecture registry of the port: ``get_config(arch)`` for the archs it
-runs -- every decoder-only arch of the reference (dense, MoE, SSM and
-hybrid).  The reference registers ten; an arch whose layer kinds are not
-ported yet raises ``NotImplementedError`` naming it, an unknown one
-``KeyError``.
+"""Architecture registry of the port: ``get_config(arch)`` for the ten
+archs of the reference -- dense, MoE, SSM, hybrid, encoder-decoder and
+vision; an unknown arch raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -19,19 +17,17 @@ _ARCH_MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "rwkv6-7b": "rwkv6_7b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
 }
 
-# The reference's other archs: cross-attention and encoder-decoder layers
-# wait for later slices.
-NOT_PORTED = ("seamless-m4t-large-v2", "llama-3.2-vision-90b")
+# Archs of the reference the port does not register: none is left.
+NOT_PORTED = ()
 
 ARCHS = tuple(_ARCH_MODULES)
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not yet ported to repro_torch; have {ARCHS}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; have {ARCHS}")
     mod = importlib.import_module(f".{_ARCH_MODULES[arch]}", __package__)

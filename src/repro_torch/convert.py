@@ -74,9 +74,11 @@ def lane_params_from_numpy(leaves: Mapping[str, np.ndarray],
 OUT_GAIN = 8.0              # lm_tree_from_seed's output-projection gain
 
 # Leaves the reference keeps in f32 whatever the model's dtype: norm gains,
-# the MoE router, the Mamba per-head scalars, RWKV's mix, decay and bonus.
+# the MoE router, the Mamba per-head scalars, RWKV's mix, decay and bonus,
+# the cross-attention gate.
 _F32_LEAVES = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "router",
-               "dt_bias", "A_log", "D", "mu", "w0", "u", "ln_out")
+               "dt_bias", "A_log", "D", "mu", "w0", "u", "ln_out", "ln_x",
+               "enc_norm", "xgate")
 
 
 def _lm_leaf(name: str, a, dtype, device) -> torch.Tensor:
@@ -93,12 +95,13 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
     ``tree["blocks"]`` holds one dict per pattern position whose leaves
     carry a leading ``n_pattern_repeats`` axis (the reference's scan
     stack); layer ``r * len(pattern) + j`` is repeat ``r`` of position
-    ``j``, so each pattern position of a hybrid keeps its own leaf set.
-    Weights take the config's dtype; norm gains and the MoE/SSM leaves of
-    ``_F32_LEAVES`` stay f32, as the reference initialises them.  A tied
-    head is formed from the embedding, an untied one is the tree's
-    ``unembed``."""
-    lm.check_supported(cfg)
+    ``j``, so each pattern position of a hybrid keeps its own leaf set.  An
+    encoder-decoder's ``enc`` and ``dec`` stacks each hold one position
+    with ``n_layers`` repeats.  Weights take the config's dtype; norm
+    gains, the cross gate and the MoE/SSM leaves of ``_F32_LEAVES`` stay
+    f32, as the reference initialises them.  A tied head is formed from
+    the embedding, an untied one is the tree's ``unembed``."""
+    cfg.validate()
     dtype = lm._dtype(cfg)
 
     def conv(node, name=""):
@@ -106,14 +109,22 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
             return {k: conv(v, k) for k, v in node.items()}
         return _lm_leaf(name, node, dtype, device)
 
+    def unstack(stack, repeats):
+        layers = [conv(_take(blk, r)) for r in range(repeats)
+                  for blk in stack]
+        if len(layers) != cfg.n_layers:
+            raise ValueError(f"{len(layers)} layers in the tree, config has "
+                             f"{cfg.n_layers}")
+        return layers
+
+    stacks = ("enc", "dec") if cfg.is_encdec else ("blocks",)
     params: Dict[str, Any] = {k: conv(v, k) for k, v in tree.items()
-                              if k != "blocks"}
-    layers = [conv(_take(blk, r)) for r in range(cfg.n_pattern_repeats)
-              for blk in tree["blocks"]]
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"{len(layers)} layers in the tree, config has "
-                         f"{cfg.n_layers}")
-    params["layers"] = layers
+                              if k not in stacks}
+    if cfg.is_encdec:
+        params["enc"] = unstack(tree["enc"], cfg.n_layers)
+        params["dec"] = unstack(tree["dec"], cfg.n_layers)
+    else:
+        params["layers"] = unstack(tree["blocks"], cfg.n_pattern_repeats)
     if cfg.tie_embeddings:
         lm.attach_tied_head(cfg, params)
     return params
@@ -141,12 +152,18 @@ def lm_tree_from_seed(cfg: ModelConfig, seed: int) -> Dict[str, Any]:
     the f32 range argument of ``models/ssm.py`` hold.  Attention weights
     are drawn first, QK norm gains and an untied head (at its fan-in scale)
     after every other leaf, so a dense config without them keeps its
-    weights."""
-    lm.check_supported(cfg)
+    weights.  The cross-attention leaves (``ln_x``, ``xattn``, ``xgate``)
+    and an encoder stack come after all of those, so no earlier arch's
+    weights move; ``xgate`` is drawn near ``atanh(0.5)`` (the reference's
+    is 0, where a cross branch adds nothing)."""
+    cfg.validate()
     rng = np.random.default_rng(seed)
     d, dh, H, Hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    nr = cfg.n_pattern_repeats
-    kinds = [lm.parse_kind(k) for k in cfg.layer_pattern]
+    if cfg.is_encdec:               # the decoder: n_layers cross layers
+        pattern, nr = ("cross",), cfg.n_layers
+    else:
+        pattern, nr = cfg.layer_pattern, cfg.n_pattern_repeats
+    kinds = [lm.parse_kind(k) for k in pattern]
 
     def w(*shape, scale):
         return (np.clip(rng.standard_normal(shape), -2, 2)
@@ -206,19 +223,20 @@ def lm_tree_from_seed(cfg: ModelConfig, seed: int) -> Dict[str, Any]:
                 "wk": w(nr, d, cfg.d_ff, scale=d ** -0.5),
                 "wv": w(nr, cfg.d_ff, d, scale=OUT_GAIN * cfg.d_ff ** -0.5)}
 
-    attn_mixers = {}
-    for j, (mixer, _) in enumerate(kinds):
-        if mixer != "attn":
-            continue
+    def projections(bias):
         m = {"wq": w(nr, d, H * dh, scale=d ** -0.5),
              "wk": w(nr, d, Hkv * dh, scale=d ** -0.5),
              "wv": w(nr, d, Hkv * dh, scale=d ** -0.5),
              "wo": w(nr, H * dh, d, scale=OUT_GAIN * (H * dh) ** -0.5)}
-        if cfg.qkv_bias:
+        if bias:
             m.update(bq=w(nr, H * dh, scale=0.1),
                      bk=w(nr, Hkv * dh, scale=0.1),
                      bv=w(nr, Hkv * dh, scale=0.1))
-        attn_mixers[j] = m
+        return m
+
+    attn_mixers = {j: projections(cfg.qkv_bias)
+                   for j, (mixer, _) in enumerate(kinds)
+                   if mixer in ("attn", "cross")}
     tree: Dict[str, Any] = {"embed": w(cfg.vocab_size, d, scale=1.0),
                             "final_norm": gain(d), "blocks": []}
     for j, (mixer, ff) in enumerate(kinds):
@@ -228,7 +246,10 @@ def lm_tree_from_seed(cfg: ModelConfig, seed: int) -> Dict[str, Any]:
             blk["ln2"] = gain(nr, d)
             blk["cmix"] = cmix()
         else:
-            blk["mixer"] = attn_mixers[j] if mixer == "attn" else mamba()
+            if mixer in ("attn", "cross"):
+                blk["mixer"] = attn_mixers[j]
+            elif mixer == "mamba":
+                blk["mixer"] = mamba()
             blk["ln2"] = gain(nr, d)
             blk["ff"] = moe() if ff == "moe" else swiglu(cfg.d_ff)
         tree["blocks"].append(blk)
@@ -237,4 +258,18 @@ def lm_tree_from_seed(cfg: ModelConfig, seed: int) -> Dict[str, Any]:
             m.update(q_norm=gain(nr, dh), k_norm=gain(nr, dh))
     if not cfg.tie_embeddings:
         tree["unembed"] = w(d, cfg.vocab_size, scale=d ** -0.5)
+    for blk, (mixer, _) in zip(tree["blocks"], kinds):
+        if mixer in ("cross", "xonly"):
+            blk["ln_x"] = gain(nr, d)
+            blk["xattn"] = projections(False)
+            if cfg.qk_norm:
+                blk["xattn"].update(q_norm=gain(nr, dh), k_norm=gain(nr, dh))
+            blk["xgate"] = (np.arctanh(0.5) + w(nr, 1, scale=0.1)).astype(
+                np.float32)
+    if cfg.is_encdec:
+        enc = {"ln1": gain(nr, d), "mixer": projections(cfg.qkv_bias),
+               "ln2": gain(nr, d), "ff": swiglu(cfg.d_ff)}
+        if cfg.qk_norm:
+            enc["mixer"].update(q_norm=gain(nr, dh), k_norm=gain(nr, dh))
+        tree.update(enc=[enc], enc_norm=gain(d), dec=tree.pop("blocks"))
     return tree

@@ -129,6 +129,12 @@ def predict_optimal_n(beta: torch.Tensor, log_eps: torch.Tensor,
     return ratio * torch.exp(log_lambda)[..., None]
 
 
+def model_value(beta: torch.Tensor, n_vec: torch.Tensor) -> torch.Tensor:
+    """H(n; beta) = beta0 - sum_i beta_i log n_i (predicted log error)."""
+    return beta[..., 0] - tree_sum(beta[..., 1:] * torch.log(
+        n_vec.to(torch.float32)), -1)
+
+
 def fit_and_predict(profile_n: torch.Tensor, profile_loge: torch.Tensor,
                     row_valid: torch.Tensor, log_eps: torch.Tensor,
                     tau: float, cost_weights: Optional[torch.Tensor] = None

@@ -80,6 +80,14 @@ def get(name: str) -> Estimator:
         raise KeyError(f"unknown estimator {name!r}; have {sorted(REGISTRY)}")
 
 
+def get_by_id(eid: int) -> Estimator:
+    try:
+        return REGISTRY_BY_ID[eid]
+    except IndexError:
+        raise KeyError(f"unknown estimator id {eid}; have "
+                       f"0..{len(REGISTRY_BY_ID) - 1}")
+
+
 def est_id(name: str) -> int:
     return get(name).eid
 

@@ -1079,15 +1079,31 @@ def fused_grouped(values: torch.Tensor, offsets, scale, key, epsilon, delta,
 def fused_l2miss_batch(values_batch: torch.Tensor, offsets, scale_batch, keys,
                        epsilons, delta, sample_keys=None, **static_kwargs
                        ) -> FusedResult:
-    """Batch entry point over SHARED-OPERAND lanes: one resident ``(N, c)``
-    table; ``scale_batch (q, m)``, ``keys (q, 2)``, ``epsilons (q,)``,
-    ``delta`` (scalar or ``(q,)``) and ``sample_keys`` carry the lane axis.
-    The reference's legacy ``(q, N, c)`` per-lane tables are not ported."""
-    if values_batch.dim() != 2:
-        raise NotImplementedError(
-            "per-lane (q, N, c) tables are not ported; pass one (N, c) table")
+    """Batch entry point: shared-operand lanes or legacy per-lane tables.
+
+    * ``values_batch (N, c)``: SHARED-OPERAND lanes over one resident
+      table; ``scale_batch (q, m)``, ``keys (q, 2)``, ``epsilons (q,)``,
+      ``delta`` (scalar or ``(q,)``) and ``sample_keys`` carry the lane
+      axis (:func:`fused_l2miss_lanes`).
+    * ``values_batch (q, N, c)``: the legacy per-lane tables.  Lane i is
+      the solo run :func:`fused_l2miss` on table i at full width
+      (``adaptive=False``, as the reference's vmap forces), the lanes run
+      one after another and their results stacked on a leading axis.  A
+      single ``(2,)`` sample key is shared by every lane."""
     epsilons = _host(epsilons, np.float32)
     q = epsilons.shape[0]
     deltas = np.broadcast_to(_host(delta, np.float32), (q,))
-    return fused_l2miss_lanes(values_batch, offsets, scale_batch, keys,
-                              epsilons, deltas, sample_keys, **static_kwargs)
+    if values_batch.dim() == 2:
+        return fused_l2miss_lanes(values_batch, offsets, scale_batch, keys,
+                                  epsilons, deltas, sample_keys,
+                                  **static_kwargs)
+    kw = dict(static_kwargs, adaptive=False)
+    keys = _host(keys, np.uint32)
+    scale_batch = _host(scale_batch, np.float32)
+    if sample_keys is not None:
+        sample_keys = np.broadcast_to(_host(sample_keys, np.uint32), (q, 2))
+    runs = [fused_l2miss(values_batch[i], offsets, scale_batch[i], keys[i],
+                         epsilons[i], deltas[i],
+                         None if sample_keys is None else sample_keys[i],
+                         **kw) for i in range(q)]
+    return FusedResult(*(torch.stack(x) for x in zip(*runs)))

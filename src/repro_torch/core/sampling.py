@@ -380,6 +380,21 @@ def stratified_sample_host(rng: np.random.Generator, data: GroupedData,
             torch.as_tensor(mask, device=dev))
 
 
+def gap_sample_indices(rng: np.random.Generator, n_rows: int,
+                       p: float) -> np.ndarray:
+    """Bernoulli(p) row subset without a coin per row (paper SS4.1, gap
+    sampling): gaps between kept rows are Geometric(p), drawn on the host
+    with numpy (the reference's draws for the same generator)."""
+    if p <= 0.0:
+        return np.empty((0,), dtype=np.int64)
+    if p >= 1.0:
+        return np.arange(n_rows, dtype=np.int64)
+    # E[#kept] = n p; oversample the geometric draws and trim.
+    est = int(n_rows * p + 10 * np.sqrt(n_rows * p + 1)) + 16
+    pos = np.cumsum(rng.geometric(p, size=est)) - 1
+    return pos[pos < n_rows].astype(np.int64)
+
+
 def two_point_init_sizes(key, m: int, l: int, n_min: int,
                          n_max: int) -> np.ndarray:
     """Initial ``(l, m)`` sample-size matrix from the Bhatia-Davis optimal

@@ -5,6 +5,12 @@ from __future__ import annotations
 import torch
 
 
+def kernel_backend_available() -> bool:
+    """Whether the hand-written kernels are the right default: a CUDA card
+    is present."""
+    return torch.cuda.is_available()
+
+
 def resolve_use_kernel(mode: "bool | str", device) -> bool:
     """Resolve a tri-state kernel switch for tensors on ``device``.
 

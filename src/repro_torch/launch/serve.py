@@ -6,7 +6,10 @@
 
 ``--arch`` is any arch of ``configs.ARCHS``: dense (qwen2-1.5b, qwen3-1.7b,
 h2o-danube-3-4b, command-r-plus-104b), MoE (granite-moe-1b-a400m,
-deepseek-moe-16b), SSM (rwkv6-7b) and hybrid (jamba-1.5-large-398b).  Runs
+deepseek-moe-16b), SSM (rwkv6-7b) and hybrid (jamba-1.5-large-398b); the
+encoder-decoder and vision archs (seamless-m4t-large-v2,
+llama-3.2-vision-90b) are refused, as the reference's serve demo refuses
+them: the batcher carries no cross-attention memory.  Runs
 on the card unless ``--device cpu`` is given; ``--smoke`` serves the reduced
 same-family config, ``--layers N`` the full width cut to N layers (a
 multiple of the layer pattern's length: 8 for Jamba).  A model whose
@@ -52,6 +55,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced_for_smoke(cfg)
+    if cfg.is_encdec or cfg.family == "vision":
+        raise SystemExit("serve demo targets decoder-only archs")
     if args.layers is not None:
         pat = len(cfg.layer_pattern)
         if args.layers < 1 or args.layers % pat:

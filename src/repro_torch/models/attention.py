@@ -16,8 +16,14 @@ averages every position; no request reads it.
 QK norm (the Qwen3 signature) is an RMS norm of each head's q and k, in
 f32, before RoPE.  Unlike the reference, which returns a new cache, decode
 writes the new K/V row into the cache tensors in place (the returned cache
-shares them) and returns a new length tensor.  Cross-attention is not ported
-yet (``models.model.check_supported`` raises).
+shares them) and returns a new length tensor.
+
+Cross-attention (the encoder-decoder's decoder, the vision model's image
+layers) attends over a fixed memory whose K/V are projected once
+(:func:`cross_kv`, no RoPE).  Prefill and teacher forcing run ``_sdpa``
+over the whole memory, as the reference does; a decode step (one query a
+row) goes through the decode-attention op at ``kv_len = T``, an int, so
+the kernel reads no lengths.
 """
 from __future__ import annotations
 
@@ -38,7 +44,10 @@ class KVCache(NamedTuple):
     length: torch.Tensor     # (B,) int32 per-sequence fill (continuous batching)
 
 
-def init_attn(generator: torch.Generator, cfg: ModelConfig, dtype, device):
+def init_attn(generator: torch.Generator, cfg: ModelConfig, dtype, device,
+              *, cross: bool = False):
+    """Projections (and the config's QKV biases and QK norm gains); a cross
+    projection takes no bias."""
     dh, H, Hkv, d = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
     p = {
         "wq": nn.dense_init(generator, d, H * dh, dtype, device),
@@ -47,7 +56,7 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig, dtype, device):
         "wo": nn.dense_init(generator, H * dh, d, dtype, device,
                             scale=(H * dh) ** -0.5),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((H * dh,), dtype=dtype, device=device)
         p["bk"] = torch.zeros((Hkv * dh,), dtype=dtype, device=device)
         p["bv"] = torch.zeros((Hkv * dh,), dtype=dtype, device=device)
@@ -59,13 +68,13 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig, dtype, device):
 
 def _project_q(p, cfg: ModelConfig, x, rope):
     """(B, S, H, dh) queries; ``rope`` the (cos, sin) of the positions,
-    computed once per call for both projections."""
+    computed once per call for both projections, or None (no RoPE)."""
     B, S, _ = x.shape
     q = nn.dense(p["wq"], x, p.get("bq")).reshape(B, S, cfg.n_heads,
                                                   cfg.head_dim)
     if cfg.qk_norm:
         q = nn.rms_norm(p["q_norm"], q, cfg.rms_eps)
-    return nn.apply_rope(q, *rope)
+    return q if rope is None else nn.apply_rope(q, *rope)
 
 
 def _project_kv(p, cfg: ModelConfig, x, rope):
@@ -75,17 +84,19 @@ def _project_kv(p, cfg: ModelConfig, x, rope):
     v = nn.dense(p["wv"], x, p.get("bv")).reshape(B, S, Hkv, dh)
     if cfg.qk_norm:
         k = nn.rms_norm(p["k_norm"], k, cfg.rms_eps)
-    return nn.apply_rope(k, *rope), v
+    return (k if rope is None else nn.apply_rope(k, *rope)), v
 
 
 def _sdpa(q, k, v, mask):
-    """q (B,S,H,dh), k/v (B,T,Hkv,dh), mask (S,T) bool; f32."""
+    """q (B,S,H,dh), k/v (B,T,Hkv,dh), mask (S,T) bool or None (every key,
+    the reference's all-ones mask: the same values); f32."""
     B, S, H, dh = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, S, Hkv, H // Hkv, dh)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
                           k.float()) * (dh ** -0.5)
-    scores = torch.where(mask, scores, NEG_INF)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
     return out.reshape(B, S, H, dh).to(q.dtype)
@@ -150,6 +161,31 @@ def decode_self_attention(p, cfg: ModelConfig, x, cache: KVCache):
                                   window=cfg.sliding_window)
     out = nn.dense(p["wo"], out.reshape(B, 1, -1))
     return out, KVCache(cache.k, cache.v, new_len)
+
+
+def cross_kv(p, cfg: ModelConfig, memory):
+    """The fixed memory's (k, v) ``(B, T, Hkv, dh)``, projected once (no
+    RoPE)."""
+    return _project_kv(p, cfg, memory, None)
+
+
+def cross_attention(p, cfg: ModelConfig, x, kv, mem_mask=None):
+    """Cross-attention of ``x`` (B, S, d) over precomputed memory ``kv``.
+
+    S > 1 (prefill, teacher forcing) runs ``_sdpa`` over every memory
+    position; S == 1 (decode) runs the decode-attention op over all ``T``
+    positions (int ``kv_len``).  ``mem_mask`` (B, T) bool, which no caller
+    passes, takes the plain ``_sdpa`` path at any S."""
+    B, S, _ = x.shape
+    k, v = kv
+    q = _project_q(p, cfg, x, None)
+    if mem_mask is not None:
+        out = _sdpa(q, k, v, mem_mask[:, None, None, None, :])
+    elif S == 1:
+        out = da_ops.decode_attention(q[:, 0], k, v, k.shape[1])
+    else:
+        out = _sdpa(q, k, v, None)
+    return nn.dense(p["wo"], out.reshape(B, S, -1))
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype,

@@ -1,10 +1,9 @@
 """Model configuration: the port's own copy of the reference's dataclasses.
 
-One frozen dataclass describes every architecture of the registry; the port
-runs every decoder-only family (dense, MoE, SSM, hybrid) and raises on
-cross-attention and encoder-decoder configs where a layer kind is built.  The fields, defaults, ``layer_pattern`` and
-``reduced_for_smoke`` are those of the reference, so a configuration means
-the same model in both packages.
+One frozen dataclass describes every architecture of the registry: dense,
+MoE, SSM, hybrid, encoder-decoder and vision.  The fields, defaults,
+``layer_pattern`` and ``reduced_for_smoke`` are those of the reference, so
+a configuration means the same model in both packages.
 """
 from __future__ import annotations
 

@@ -133,20 +133,22 @@ def summary(cfg: ModelConfig) -> Dict[str, float]:
 
 
 def _small_params(cfg: ModelConfig, kind: str) -> int:
-    """1-D leaves of a block: norm gains, biases, per-head SSM scalars and
-    RWKV's decay offsets."""
+    """1-D leaves of a block: norm gains, biases, per-head SSM scalars,
+    RWKV's decay offsets and the cross-attention gate."""
     mixer, _ = parse_kind(kind)
     d = cfg.d_model
     if mixer == "rwkv":
         return 2 * d + 3 * d                    # ln1, ln2; w0, ln_out, mu
     n = 2 * d
+    qk = 2 * cfg.head_dim if cfg.qk_norm else 0
     if mixer == "mamba":
         s = cfg.ssm
         n += 3 * (s.expand * d // s.head_dim)   # dt_bias, A_log, D
-    else:
+    elif mixer in ("attn", "cross"):
         Hq, Hkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-        n += (Hq + 2 * Hkv if cfg.qkv_bias else 0)
-        n += 2 * cfg.head_dim if cfg.qk_norm else 0
+        n += (Hq + 2 * Hkv if cfg.qkv_bias else 0) + qk
+    if mixer in ("cross", "xonly"):
+        n += d + 1 + qk                         # ln_x, xgate, xattn norms
     return n
 
 
@@ -160,13 +162,18 @@ def _f32_matrix_params(cfg: ModelConfig, kind: str) -> int:
 
 
 def weight_bytes(cfg: ModelConfig) -> int:
-    """Bytes of a decoder's weight matrices (the f32 ones at 4 bytes, the
-    rest in the model's dtype); the 1-D leaves are left out.  A decode step
-    reads all of them: the MoE layers' stacked expert product reads every
-    expert's weights, whatever the routing."""
-    pattern = cfg.layer_pattern
-    nr = cfg.n_pattern_repeats
-    small = cfg.d_model + nr * sum(_small_params(cfg, k) for k in pattern)
-    f32 = nr * sum(_f32_matrix_params(cfg, k) for k in pattern)
+    """Bytes of a model's weight matrices (the f32 ones at 4 bytes, the
+    rest in the model's dtype); the 1-D leaves are left out.  A decoder's
+    decode step reads all of them: the MoE layers' stacked expert product
+    reads every expert's weights, whatever the routing.  An
+    encoder-decoder's count holds both stacks."""
+    if cfg.is_encdec:
+        stacks = ((("dense",), cfg.n_layers), (("cross",), cfg.n_layers))
+    else:
+        stacks = ((cfg.layer_pattern, cfg.n_pattern_repeats),)
+    small = cfg.d_model * (1 + cfg.is_encdec) + sum(
+        nr * sum(_small_params(cfg, k) for k in pat) for pat, nr in stacks)
+    f32 = sum(nr * sum(_f32_matrix_params(cfg, k) for k in pat)
+              for pat, nr in stacks)
     rest = count_params_analytic(cfg) - small - f32
     return rest * _dtype(cfg).itemsize + 4 * f32

@@ -82,12 +82,22 @@ def capacity(T: int, mo: MoEConfig) -> int:
     return max(8, ((cap + 7) // 8) * 8)
 
 
+def top_k(x: torch.Tensor, k: int):
+    """The k largest entries of each row and their indices, in
+    ``jax.lax.top_k``'s order: descending, the lower index first among
+    equal values (the first k columns of a stable sort; ``torch.topk``
+    leaves ties in no stated order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def route(p, cfg: ModelConfig, xt: torch.Tensor):
     """The router on ``xt`` (T, d): softmax probabilities (T, E) in f32 and
-    the top-k gates, renormalised to sum to 1, with their experts (T, k)."""
+    the top-k gates, renormalised to sum to 1, with their experts (T, k)
+    (:func:`top_k`)."""
     logits = nn.dense(p["router"], xt.float())
     probs = torch.softmax(logits, dim=-1)
-    gate, choice = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    gate, choice = top_k(probs, cfg.moe.top_k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     return probs, gate, choice
 

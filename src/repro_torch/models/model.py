@@ -1,29 +1,40 @@
-"""Model assembly for every decoder-only layer kind of the reference:
+"""Model assembly for every layer kind of the reference:
 
   dense        self-attn (causal / SWA / GQA / qk_norm / bias) + SwiGLU
   moe          self-attn + token-choice top-k MoE (opt. shared experts)
   attn+dense / attn+moe / mamba+dense / mamba+moe      (Jamba hybrid unit)
   rwkv         RWKV6 time-mix + channel-mix
+  xonly        cross-attn + SwiGLU (Llama-3.2-Vision image layers)
+  cross        self-attn + cross-attn + SwiGLU (encoder-decoder decoder)
 
 Parameters are a dict of tensors with one entry per layer (``"layers"``, a
 list), where the reference stacks each pattern position over repeats and
 runs ``lax.scan``; a Python loop over the layers takes its place, and layer
-``j`` has kind ``cfg.layer_pattern[j % len(pattern)]``.  Cross-attention
-(``xonly``/``cross``) and encoder-decoder configs raise
-``NotImplementedError``.
+``j`` has kind ``cfg.layer_pattern[j % len(pattern)]``.  An
+encoder-decoder config (``is_encdec``) holds ``"enc"`` (n_layers ``dense``
+layers run bidirectionally over the frames), ``"enc_norm"`` and ``"dec"``
+(n_layers ``cross`` layers) in place of ``"layers"``.  The cross-attention
+memory is the encoded frames (enc-dec) or ``batch["image_embeds"]``
+(vision), cast to the model's dtype (the reference passes the embeddings
+as they come; a torch product takes one dtype).  A cross branch adds
+``tanh(xgate) * y`` to the residual.
 
 Entry points (functions of a params dict):
   init_model(cfg, seed, device)            -> params
   train_logits(cfg, params, batch)         -> (logits, aux)   forward only
-  prefill(cfg, params, batch)              -> (last logits, raw caches, None)
+  prefill(cfg, params, batch)              -> (last logits, raw caches,
+                                               memory or None)
   decode_step(cfg, params, token, caches)  -> (logits, caches)
-  init_caches(cfg, B, S_max, device=...)   -> decode caches
+  init_caches(cfg, B, S_max, mem_len, device=...) -> decode caches
   caches_from_prefill(cfg, raw, S_max)     -> decode caches
 
-Caches hold one entry per layer: a :class:`~.attention.KVCache` for an
-attention layer (raw prefill caches: a ``(k, v)`` pair), a
-:class:`~.ssm.MambaState` for a Mamba layer and ``{"tmix": RWKVState,
-"cmix": shift}`` for an RWKV layer (raw and decode alike).  ``aux`` is the
+Caches hold one entry per decoder layer: a :class:`~.attention.KVCache` for
+an attention layer (raw prefill caches: a ``(k, v)`` pair), a
+:class:`~.ssm.MambaState` for a Mamba layer, ``{"tmix": RWKVState, "cmix":
+shift}`` for an RWKV layer (raw and decode alike), ``{"mixer": KVCache,
+"xkv": (k, v)}`` for a cross layer (raw: ``{"mixer": (k, v), "xkv": (k,
+v)}``) and ``{"xkv": (k, v)}`` for an xonly layer, the memory's projected
+K/V ``(B, T, Hkv, dh)`` passing through decode unchanged.  ``aux`` is the
 MoE layers' load-balance losses summed in layer order.  A tied head
 (``embed.T * d_model**-0.5`` in the parameter dtype) is formed once and
 kept as ``params["tied_head"]``; elementwise scaling gives the same bits
@@ -32,7 +43,7 @@ head is ``params["unembed"]`` (d, V), applied as ``x @ unembed``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -63,22 +74,21 @@ def parse_kind(kind: str) -> Tuple[str, str]:
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
-    """The kind of each layer: layer ``j`` is pattern position ``j % len``."""
+    """The kind of each decoder layer: layer ``j`` is pattern position ``j %
+    len``; every layer of an encoder-decoder's decoder is ``cross``."""
+    if cfg.is_encdec:
+        return ["cross"] * cfg.n_layers
     pat = cfg.layer_pattern
     return [pat[j % len(pat)] for j in range(cfg.n_layers)]
 
 
-def check_supported(cfg: ModelConfig) -> ModelConfig:
-    """``cfg`` validated, or ``NotImplementedError`` for what the port does
-    not run yet (encoder-decoder and cross-attention layers)."""
+def check_servable(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` validated, or ``ValueError`` for an encoder-decoder or vision
+    config: the batcher carries no memory, as in the reference, whose serve
+    demo refuses them."""
     cfg.validate()
-    bad = [k for k in cfg.layer_pattern if parse_kind(k)[0] in
-           ("xonly", "cross")]
-    if cfg.is_encdec or bad:
-        raise NotImplementedError(
-            f"{cfg.name}: layer pattern {cfg.layer_pattern} (family "
-            f"{cfg.family}) is not ported yet: cross-attention and "
-            f"encoder-decoder stacks")
+    if cfg.is_encdec or cfg.family == "vision":
+        raise ValueError(f"{cfg.name}: serve demo targets decoder-only archs")
     return cfg
 
 
@@ -116,8 +126,12 @@ def _init_block(gen, kind: str, cfg: ModelConfig, dtype, device):
         return p
     if mixer == "mamba":
         p["mixer"] = ssm.init_mamba(gen, cfg, dtype, device)
-    else:
+    elif mixer != "xonly":
         p["mixer"] = attn.init_attn(gen, cfg, dtype, device)
+    if mixer in ("cross", "xonly"):
+        p["ln_x"] = nn.rms_norm_init(d, device)
+        p["xattn"] = attn.init_attn(gen, cfg, dtype, device, cross=True)
+        p["xgate"] = torch.zeros((1,), dtype=torch.float32, device=device)
     p["ln2"] = nn.rms_norm_init(d, device)
     if ff == "moe":
         p["ff"] = mlp_mod.init_moe(gen, cfg, dtype, device)
@@ -130,7 +144,7 @@ def init_model(cfg: ModelConfig, seed: int = 0,
                device="cuda") -> Dict[str, Any]:
     """Random weights drawn on ``device`` from a ``torch.Generator`` seeded
     with ``seed`` (the reference's initialisers; other random numbers)."""
-    check_supported(cfg)
+    cfg.validate()
     dtype = _dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     d = cfg.d_model
@@ -138,8 +152,15 @@ def init_model(cfg: ModelConfig, seed: int = 0,
         "embed": nn.embed_init(gen, cfg.vocab_size, d, dtype, device),
         "final_norm": nn.rms_norm_init(d, device),
     }
-    params["layers"] = [_init_block(gen, kind, cfg, dtype, device)
-                        for kind in layer_kinds(cfg)]
+    if cfg.is_encdec:
+        params["enc"] = [_init_block(gen, "dense", cfg, dtype, device)
+                         for _ in range(cfg.n_layers)]
+        params["enc_norm"] = nn.rms_norm_init(d, device)
+        params["dec"] = [_init_block(gen, kind, cfg, dtype, device)
+                         for kind in layer_kinds(cfg)]
+    else:
+        params["layers"] = [_init_block(gen, kind, cfg, dtype, device)
+                            for kind in layer_kinds(cfg)]
     if cfg.tie_embeddings:
         attach_tied_head(cfg, params)
     else:
@@ -148,9 +169,10 @@ def init_model(cfg: ModelConfig, seed: int = 0,
     return params
 
 
-def _apply_block(p, kind: str, cfg: ModelConfig, x, *, cache):
-    """Prefill/train (``cache`` None) or decode; returns (x, layer cache,
-    the MoE aux loss or None)."""
+def _apply_block(p, kind: str, cfg: ModelConfig, x, *, cache, memory=None,
+                 bidirectional: bool = False):
+    """Prefill/train (``cache`` None; ``memory`` the cross layers' memory)
+    or decode; returns (x, layer cache, the MoE aux loss or None)."""
     mixer, ff = parse_kind(kind)
     aux = None
     h = nn.rms_norm(p["ln1"], x, cfg.rms_eps)
@@ -166,16 +188,22 @@ def _apply_block(p, kind: str, cfg: ModelConfig, x, *, cache):
         h2 = nn.rms_norm(p["ln2"], x, cfg.rms_eps)
         y2, new_shift = ssm.rwkv_cmix(p["cmix"], cfg, h2, shift)
         return x + y2, {"tmix": tstate, "cmix": new_shift}, aux
-    if mixer == "mamba":
-        if cache is None:
-            y, new_cache = ssm.mamba_forward(p["mixer"], cfg, h, None)
-        else:
-            y, new_cache = ssm.mamba_decode(p["mixer"], cfg, h, cache)
-    elif cache is None:
-        y, new_cache = attn.self_attention(p["mixer"], cfg, h)
+    if mixer in ("cross", "xonly"):
+        x, new_cache = _cross_block(p, cfg, x, h, mixer, cache, memory)
     else:
-        y, new_cache = attn.decode_self_attention(p["mixer"], cfg, h, cache)
-    x = x + y
+        if mixer == "mamba":
+            if cache is None:
+                y, new_cache = ssm.mamba_forward(p["mixer"], cfg, h, None)
+            else:
+                y, new_cache = ssm.mamba_decode(p["mixer"], cfg, h, cache)
+        elif cache is not None:
+            y, new_cache = attn.decode_self_attention(p["mixer"], cfg, h,
+                                                      cache)
+        elif bidirectional:
+            y, new_cache = _bidir_attention(p["mixer"], cfg, h)
+        else:
+            y, new_cache = attn.self_attention(p["mixer"], cfg, h)
+        x = x + y
     h2 = nn.rms_norm(p["ln2"], x, cfg.rms_eps)
     if ff == "moe":
         y2, aux = mlp_mod.moe(p["ff"], cfg, h2)
@@ -184,16 +212,71 @@ def _apply_block(p, kind: str, cfg: ModelConfig, x, *, cache):
     return x + y2, new_cache, aux
 
 
-def _run_stack(cfg, params, x, caches=None):
-    """(x, new caches, the MoE layers' aux losses in layer order)."""
+def _cross_block(p, cfg: ModelConfig, x, h, mixer: str, cache, memory):
+    """A cross or xonly layer's mixers (``h`` is ``ln1(x)``): self-attention
+    first for ``cross``, then the gated cross-attention over the memory (its
+    K/V projected here in prefill, read from the cache in decode).  Returns
+    (x, the layer's cache dict)."""
+    new_cache: Dict[str, Any] = {}
+    if mixer == "cross":
+        if cache is None:
+            y, new_cache["mixer"] = attn.self_attention(p["mixer"], cfg, h)
+        else:
+            y, new_cache["mixer"] = attn.decode_self_attention(
+                p["mixer"], cfg, h, cache["mixer"])
+        x = x + y
+    hx = nn.rms_norm(p["ln_x"], x, cfg.rms_eps)
+    xkv = (attn.cross_kv(p["xattn"], cfg, memory) if cache is None
+           else cache["xkv"])
+    yx = attn.cross_attention(p["xattn"], cfg, hx, xkv)
+    new_cache["xkv"] = xkv
+    return x + torch.tanh(p["xgate"]).to(x.dtype) * yx, new_cache
+
+
+def _bidir_attention(p, cfg: ModelConfig, x):
+    """Full bidirectional self-attention (the encoder stack): RoPE at
+    positions ``arange(S)``, every key attended."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    rope = nn.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    q = attn._project_q(p, cfg, x, rope)
+    k, v = attn._project_kv(p, cfg, x, rope)
+    out = attn._sdpa(q, k, v, None)
+    return nn.dense(p["wo"], out.reshape(B, S, -1)), (k, v)
+
+
+def _run_stack(cfg, params, x, caches=None, memory=None):
+    """The decoder stack: (x, new caches, the MoE layers' aux losses in
+    layer order)."""
     new_caches, auxes = [], []
-    for i, (p, kind) in enumerate(zip(params["layers"], layer_kinds(cfg))):
-        x, c, a = _apply_block(p, kind, cfg, x,
+    layers = params["dec"] if cfg.is_encdec else params["layers"]
+    for i, (p, kind) in enumerate(zip(layers, layer_kinds(cfg))):
+        x, c, a = _apply_block(p, kind, cfg, x, memory=memory,
                                cache=None if caches is None else caches[i])
         new_caches.append(c)
         if a is not None:
             auxes.append(a)
     return x, new_caches, auxes
+
+
+def _encode(cfg, params, batch):
+    """The encoder over ``batch["frames"]`` (B, T, d): n_layers dense
+    layers run bidirectionally, then ``enc_norm``."""
+    h = batch["frames"].to(_dtype(cfg))
+    for p in params["enc"]:
+        h, _, _ = _apply_block(p, "dense", cfg, h, cache=None,
+                               bidirectional=True)
+    return nn.rms_norm(params["enc_norm"], h, cfg.rms_eps)
+
+
+def _memory(cfg, params, batch):
+    """The cross layers' memory: the encoded frames, the image embeddings
+    in the model's dtype, or None."""
+    if cfg.is_encdec:
+        return _encode(cfg, params, batch)
+    if cfg.family == "vision":
+        return batch["image_embeds"].to(_dtype(cfg))
+    return None
 
 
 def _embed(cfg, params, tokens):
@@ -209,10 +292,10 @@ def _unembed(cfg, params, x):
 def train_logits(cfg: ModelConfig, params, batch):
     """Full teacher-forcing forward (no gradient).  Returns (logits, aux);
     aux is the MoE layers' summed load-balance loss (0 without MoE)."""
-    check_supported(cfg)
     with torch.no_grad():
+        memory = _memory(cfg, params, batch)
         x = _embed(cfg, params, batch["tokens"])
-        x, _, auxes = _run_stack(cfg, params, x)
+        x, _, auxes = _run_stack(cfg, params, x, memory=memory)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for a in auxes:
             aux = aux + a
@@ -222,15 +305,17 @@ def train_logits(cfg: ModelConfig, params, batch):
 
 def prefill(cfg: ModelConfig, params, batch):
     """Full forward returning (last logits (B, 1, V), raw caches, memory);
-    raw caches hold one entry per layer (a (k, v) pair (B, S, Hkv, dh) for
-    attention, the final state for Mamba and RWKV), memory is None (no
-    cross-attention)."""
-    check_supported(cfg)
+    raw caches hold one entry per decoder layer (a (k, v) pair (B, S, Hkv,
+    dh) for attention, the final state for Mamba and RWKV, the dicts of
+    the module docstring for cross and xonly layers); memory is the
+    encoder's output or the image embeddings, None without cross
+    layers."""
     with torch.no_grad():
+        memory = _memory(cfg, params, batch)
         x = _embed(cfg, params, batch["tokens"])
-        x, caches, _ = _run_stack(cfg, params, x)
+        x, caches, _ = _run_stack(cfg, params, x, memory=memory)
         x = nn.rms_norm(params["final_norm"], x[:, -1:], cfg.rms_eps)
-        return _unembed(cfg, params, x), caches, None
+        return _unembed(cfg, params, x), caches, memory
 
 
 def decode_step(cfg: ModelConfig, params, token, caches):
@@ -244,12 +329,21 @@ def decode_step(cfg: ModelConfig, params, token, caches):
         return _unembed(cfg, params, x), new_caches
 
 
-def init_caches(cfg: ModelConfig, B: int, S_max: int, *, length: int = 0,
+def init_caches(cfg: ModelConfig, B: int, S_max: int,
+                mem_len: Optional[int] = None, *, length: int = 0,
                 device="cuda") -> List[Any]:
-    """Decode caches, one per layer; attention layers' lengths set to
-    ``length``, recurrent states zero."""
-    check_supported(cfg)
+    """Decode caches, one per decoder layer; attention layers' lengths set
+    to ``length``, recurrent states and cross-KV zero (the cross-KV of
+    length ``mem_len or n_frontend_tokens or 1``)."""
     dtype = _dtype(cfg)
+    T = mem_len or cfg.n_frontend_tokens or 1
+    xkv_shape = (B, T, cfg.n_kv_heads, cfg.head_dim)
+
+    def kv_cache():
+        c = attn.init_cache(cfg, B, S_max, dtype, device)
+        return c._replace(length=torch.full((B,), length, dtype=torch.int32,
+                                            device=device))
+
     out: List[Any] = []
     for kind in layer_kinds(cfg):
         mixer, _ = parse_kind(kind)
@@ -259,27 +353,37 @@ def init_caches(cfg: ModelConfig, B: int, S_max: int, *, length: int = 0,
                                             dtype=dtype, device=device)})
         elif mixer == "mamba":
             out.append(ssm.init_mamba_state(cfg, B, dtype, device))
+        elif mixer == "attn":
+            out.append(kv_cache())
         else:
-            c = attn.init_cache(cfg, B, S_max, dtype, device)
-            out.append(c._replace(length=torch.full(
-                (B,), length, dtype=torch.int32, device=device)))
+            c = {"xkv": tuple(torch.zeros(xkv_shape, dtype=dtype,
+                                          device=device) for _ in range(2))}
+            if mixer == "cross":
+                c["mixer"] = kv_cache()
+            out.append(c)
     return out
+
+
+def _padded(kv, S_max: int) -> attn.KVCache:
+    k, v = kv
+    B, S = k.shape[:2]
+    pad = (0, 0, 0, 0, 0, S_max - S)
+    return attn.KVCache(
+        torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad),
+        torch.full((B,), S, dtype=torch.int32, device=k.device))
 
 
 def caches_from_prefill(cfg: ModelConfig, raw_caches, S_max: int):
     """Prefill's (k, v) pairs of length S zero-padded to S_max, length S;
-    recurrent states pass through unchanged."""
+    recurrent states and cross-KV pass through unchanged."""
     out = []
     for kind, c in zip(layer_kinds(cfg), raw_caches):
-        if parse_kind(kind)[0] != "attn":
-            out.append(c)
-            continue
-        k, v = c
-        B, S = k.shape[:2]
-        pad = (0, 0, 0, 0, 0, S_max - S)
-        out.append(attn.KVCache(
-            torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad),
-            torch.full((B,), S, dtype=torch.int32, device=k.device)))
+        mixer = parse_kind(kind)[0]
+        if mixer == "attn":
+            c = _padded(c, S_max)
+        elif mixer == "cross":
+            c = dict(c, mixer=_padded(c["mixer"], S_max))
+        out.append(c)
     return out
 
 

@@ -12,8 +12,10 @@ of every cache tensor in place on the device: an attention layer's K/V rows
 (the prompt's, zeros past it, which is what the reference's padded row
 holds) and length, a Mamba layer's SSM state and conv tail, an RWKV layer's
 wkv state, shift and channel-mix shift.  A prompt that breaks the chunk rule
-of the Mamba or RWKV scans is refused when it is submitted.  Each decode
-tick reads the new tokens on the host once, as the reference does.
+of the Mamba or RWKV scans is refused when it is submitted.  The slots
+carry no cross-attention memory, so an encoder-decoder or vision config is
+refused (``ValueError``), as the reference's serve demo refuses it.  Each
+decode tick reads the new tokens on the host once, as the reference does.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ class Request:
 class ContinuousBatcher:
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  s_max: int = 256):
-        self.cfg = M.check_supported(cfg)
+        self.cfg = M.check_servable(cfg)
         self.params = params
         self.slots = slots
         self.s_max = s_max

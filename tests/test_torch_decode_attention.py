@@ -29,6 +29,18 @@ SHAPES = [                      # tests/test_kernels.py's decode shapes
     (8, 96, 8, 128, 64, 64),    # Command R+'s decode: 12 query heads a KV head
     (2, 32, 2, 64, 200, 128),   # 16 query heads a KV head, the kernel's most
 ]
+# The cross-attention decoders' decode shapes on the card, (B, Hq, Hkv, d,
+# S, lengths): SeamlessM4T's self-attention (16 over 16 heads of 64, G = 1)
+# and its cross-attention over 4 096 frames, Llama-3.2-Vision's
+# self-attention (64 over 8 heads of 128) and its cross-attention over 1 600
+# image tokens; a cross-attention reads the whole memory.
+_rng = np.random.default_rng(21)
+CROSS_DECODER_SHAPES = [
+    (8, 16, 16, 64, 128, _rng.integers(65, 97, 8)),
+    (8, 16, 16, 64, 4096, np.full(8, 4096)),
+    (8, 64, 8, 128, 128, _rng.integers(17, 97, 8)),
+    (8, 64, 8, 128, 1600, np.full(8, 1600)),
+]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -272,7 +284,8 @@ def test_cuda_kernel_matches_plain_version(dtype):
     """On the card: the kernel against its plain version at the serve's
     shape with per-row lengths and a poisoned tail, at the edge lengths, at
     a grid-bound shape, at Command R+'s decode shape (12 query heads a KV
-    head) with its serve's lengths, and at the shapes above; one counted
+    head) with its serve's lengths, at the cross-attention decoders'
+    shapes, and at the shapes above; one counted
     launch per call; repeated
     calls and CUDA-graph replays equal bit for bit; int32, int64 and int
     lengths alike."""
@@ -286,6 +299,7 @@ def test_cuda_kernel_matches_plain_version(dtype):
     cases = [(*serve, rng.integers(1, 1057, 8)), (*serve, np.array(EDGE_LENS)),
              (*GRID_BOUND, GRID_LENS),
              (8, 96, 8, 128, 64, np.arange(17, 33, 2))]   # Command R+'s serve
+    cases += CROSS_DECODER_SHAPES
     cases += [(B, Hq, Hkv, d, S, np.full(B, S)) for B, Hq, Hkv, d, S, _
               in SHAPES]
     for B, Hq, Hkv, d, S, lens in cases:

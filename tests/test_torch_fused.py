@@ -177,7 +177,9 @@ def test_gated_gather_bit_exact(tdata):
 
 
 def test_step_matches_closed_loop(tdata):
-    """Host-ticked ``fused_step`` and the closed loop run the same body."""
+    """Host-ticked ``fused_step`` and the closed loop run the same body; a
+    legacy per-lane ``(q, N, c)`` table runs its lane's solo run at full
+    width."""
     q = 3
     keys = np.asarray(jax.random.split(jax.random.PRNGKey(1), q))
     eps = np.asarray([0.15, 0.08, 0.2], np.float32)
@@ -196,6 +198,10 @@ def test_step_matches_closed_loop(tdata):
                               **KW)
     for a, b in zip(r_loop, tf.lanes_result(state)):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
-        tf.fused_l2miss_batch(tdata.values[None], tdata.offsets, scale[:1],
-                              keys[:1], eps[:1], 0.05)
+    legacy = tf.fused_l2miss_batch(tdata.values[None], tdata.offsets,
+                                   scale[:1], keys[:1], eps[:1], 0.05, skey,
+                                   **KW)
+    solo = tf.fused_l2miss(tdata.values, tdata.offsets, scale[0], keys[0],
+                           eps[0], 0.05, skey, adaptive=False, **KW)
+    for a, b in zip(legacy, solo):
+        assert torch.equal(a[0], b)

@@ -50,7 +50,8 @@ def test_every_module_imports_without_jax_or_reference():
                  "configs.command_r_plus_104b",
                  "configs.granite_moe_1b_a400m", "configs.deepseek_moe_16b",
                  "configs.rwkv6_7b", "configs.jamba_1_5_large_398b",
-                 "serve.batching",
+                 "configs.seamless_m4t_large_v2",
+                 "configs.llama_3_2_vision_90b", "serve.batching",
                  "launch.serve", "core.baselines", "data.pipeline",
                  "integration", "integration.miss_eval",
                  "integration.miss_mixture", "integration.miss_router"):

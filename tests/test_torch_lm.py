@@ -61,10 +61,14 @@ def assert_same_greedy(got, want, tol=TOL["atol"]):
 
 
 def test_config_and_registry_match_reference(jx, cfg):
-    """Every ported arch's config, full and reduced, equals the reference's;
-    the dense variants (sliding window, QK norm, untied head) and a MoE
-    variant build; the archs still in ``NOT_PORTED`` and an
-    encoder-decoder config raise."""
+    """All ten archs' configs, full and reduced, equal the reference's;
+    the dense variants (sliding window, QK norm, untied head), a MoE
+    variant and an encoder-decoder config build; both serve entry points
+    refuse the encoder-decoder and vision archs, as the reference's
+    does."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.batching import ContinuousBatcher
+
     full = get_config("qwen2-1.5b")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jx["reduced"](jx["get_config"]("qwen2-1.5b")))
@@ -73,7 +77,9 @@ def test_config_and_registry_match_reference(jx, cfg):
     assert set(ARCHS) == {"qwen2-1.5b", "qwen3-1.7b", "h2o-danube-3-4b",
                           "command-r-plus-104b", "granite-moe-1b-a400m",
                           "deepseek-moe-16b", "rwkv6-7b",
-                          "jamba-1.5-large-398b"}
+                          "jamba-1.5-large-398b", "seamless-m4t-large-v2",
+                          "llama-3.2-vision-90b"}
+    assert NOT_PORTED == ()
     for arch in ARCHS:
         want = jx["get_config"](arch)
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
@@ -83,13 +89,18 @@ def test_config_and_registry_match_reference(jx, cfg):
     assert get_config("qwen3-1.7b").qk_norm
     assert get_config("h2o-danube-3-4b").sliding_window == 4096
     assert not get_config("command-r-plus-104b").tie_embeddings
-    for arch in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match=arch):
-            get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        M.init_model(dataclasses.replace(cfg, is_encdec=True), device="cpu")
+    encdec = M.init_model(dataclasses.replace(cfg, is_encdec=True),
+                          device="cpu")
+    assert len(encdec["enc"]) == len(encdec["dec"]) == cfg.n_layers
+    assert "xattn" in encdec["dec"][0] and "layers" not in encdec
+    for arch in ("seamless-m4t-large-v2", "llama-3.2-vision-90b"):
+        small = reduced_for_smoke(get_config(arch))
+        with pytest.raises(ValueError, match="decoder-only archs"):
+            ContinuousBatcher(small, M.init_model(small, device="cpu"))
+        with pytest.raises(SystemExit, match="decoder-only archs"):
+            serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
     moe = M.init_model(dataclasses.replace(
         cfg, family="moe", moe=MoEConfig(8, 2, 64)), device="cpu")
     assert moe["layers"][0]["ff"]["we_gate"].shape == (8, cfg.d_model, 64)

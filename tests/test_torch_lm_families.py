@@ -239,13 +239,22 @@ def test_batcher_refuses_prompts_that_break_the_chunk_rule():
 
 
 def test_check_supported_refuses_only_cross_attention_and_encdec():
+    """Every arch's config is valid; only the cross-attention (vision) and
+    encoder-decoder configs are refused for serving, and they build."""
     for arch in ARCHS:
-        M.check_supported(get_config(arch))
+        cfg = get_config(arch)
+        if cfg.is_encdec or cfg.family == "vision":
+            with pytest.raises(ValueError, match="decoder-only"):
+                M.check_servable(cfg)
+        else:
+            M.check_servable(cfg)
     cfg = small("qwen2-1.5b")
     for bad in (dict(family="vision", cross_attn_stride=5, n_layers=5),
                 dict(is_encdec=True)):
-        with pytest.raises(NotImplementedError, match="cross-attention"):
-            M.init_model(dataclasses.replace(cfg, **bad), device="cpu")
+        bad_cfg = dataclasses.replace(cfg, **bad)
+        M.init_model(bad_cfg, device="cpu")
+        with pytest.raises(ValueError, match="decoder-only"):
+            M.check_servable(bad_cfg)
 
 
 def test_analytic_counts_match_reference(jx):

@@ -132,6 +132,68 @@ def test_moe_without_drops_matches_reference(jx, arch):
     assert_allclose(aux, jaux, rtol=1e-5)
 
 
+def _tied_rows(case: str):
+    """Rows whose probabilities tie: one row of 8 equal ones, or 2 000 rows
+    of 64 values in {0, 1/4, 1/2, 3/4}; with the k to take."""
+    if case == "eight_equal_k3":
+        return np.full((1, 8), 0.125, np.float32), 3
+    x = np.random.default_rng(20).integers(0, 4, (2000, 64)) / 4
+    return x.astype(np.float32), int(case[-1])
+
+
+TIED = ["eight_equal_k3", "quarters_k2", "quarters_k8"]
+
+
+@pytest.mark.parametrize("case", TIED)
+def test_top_k_breaks_ties_as_lax_top_k(jx, case):
+    """Among equal values the lower index comes first, as in
+    ``jax.lax.top_k``: the values (the gates) and the indices (the
+    experts) equal its own."""
+    x, k = _tied_rows(case)
+    jv, ji = jx["jax"].lax.top_k(jx["jnp"].asarray(x), k)
+    v, i = mlp.top_k(torch.from_numpy(x), k)
+    assert np.array_equal(i.numpy(), np.asarray(ji))
+    assert np.array_equal(v.numpy(), np.asarray(jv))
+
+
+def test_zero_router_rows_route_as_the_reference(jx):
+    """Zero token rows give zero router logits, so all E probabilities
+    tie: ``route`` picks experts 0..k-1 with equal gates, as ``lax.top_k``
+    does, and ``moe`` over a batch holding such rows equals the
+    reference's (outputs, choices and the aux loss)."""
+    cfg = small("granite-moe-1b-a400m")
+    ff_np, ff_t = ff_params(cfg, 10)
+    x = np.random.default_rng(11).standard_normal(
+        (2, 16, cfg.d_model)).astype(np.float32)
+    x[0, 3] = x[1, :5] = 0.0
+    y, aux, jy, jaux, probs, jgate, jchoice = run_both(jx, cfg, ff_np, ff_t,
+                                                       x)
+    _, gate, choice = mlp.route(ff_t, cfg, torch.from_numpy(
+        x.reshape(-1, cfg.d_model)))
+    zero = ~x.reshape(-1, cfg.d_model).any(-1)
+    k = cfg.moe.top_k
+    assert zero.sum() == 6 and (clear_tokens(probs, k) | zero).all()
+    assert np.array_equal(choice.numpy()[zero],
+                          np.broadcast_to(np.arange(k), (6, k)))
+    assert np.array_equal(choice.numpy(), jchoice)
+    assert_allclose(gate.numpy(), jgate, rtol=1e-5, atol=1e-7)
+    assert_allclose(y, jy, **TOL)
+    assert_allclose(aux, jaux, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TIED)
+def test_cuda_top_k_breaks_ties_as_the_cpu(case):
+    """On the card: the tied rows' values and indices equal the CPU's (the
+    lower index first)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, k = _tied_rows(case)
+    v, i = mlp.top_k(torch.from_numpy(x).cuda(), k)
+    want_v, want_i = mlp.top_k(torch.from_numpy(x), k)
+    assert torch.equal(i.cpu(), want_i) and torch.equal(v.cpu(), want_v)
+
+
 def test_moe_with_drops_matches_reference(jx):
     """The default capacity factor 1.25 over 96 tokens: the reference drops
     entries (full experts drop the later tokens in sorted order), and the
