@@ -116,7 +116,9 @@ non-zero and nothing falls back to the CPU:
    cold and at epsilon / 1.1 (warm blocks); (b) one session with degrade,
    fair queueing (tenants dash 3 : batch 1) and migration sends 8 priming
    requests, then a burst of 32 with deadlines at 4x, 0.5x and 0.05x the
-   priming wave's median latency: every error within its delivered
+   priming wave's median latency (the 4x ones plus the time the burst's
+   20 tight requests take to be answered by pilot at submit, measured
+   just before on the same requests): every error within its delivered
    epsilon, shed answers without an iteration, the 4x requests neither
    shed nor degraded;
 17. the sharded path at the CPU tests' size (tests/test_torch_shard.py's
@@ -219,18 +221,42 @@ non-zero and nothing falls back to the CPU:
    prefill, then 32 greedy decode steps of the 8 rows, 48 kernel launches
    a step; (e) Llama-3.2-Vision-90B at full width cut to two 5-layer units
    (10 of 100 layers: 175 GB of weights at full depth) on 8 rows of 1 600
-   pipeline image embeddings, the same run, 10 launches a step; then the
-   result lines: a JSON object of kernel measurements, then ``{"ok": true,
-   "device": {...}}`` as the last line.
+   pipeline image embeddings, the same run, 10 launches a step;
+24. training (no kernel lies on its path: it attends through the f32
+   einsums, as the reference does): (a) one train step (remat "dots", lr
+   1e-5) of every arch at ``reduced_for_smoke`` size in f32, card against
+   CPU from one seeded tree and pipeline batch: loss and params within
+   rtol 2e-4 / atol 2e-5 (the reference's microbatch tolerance), the AdamW
+   moments within 2e-4 of each leaf's largest magnitude, TF32 off; (b) Qwen2-1.5B in bf16 at full width and depth
+   (28 layers, d 1536, vocab 151 936, tied head) trained through
+   ``launch.train.run``: 10 steps of 8 x 512 pipeline tokens under remat
+   "dots", every loss finite and the last below the first, step time
+   (median of steps 2-9, each ended by its loss's host read), tokens/s,
+   peak memory, ``model_flops(kind="train")`` over the step time as a
+   share of the 989 TFLOP/s dense bf16 peak, then the MISS-certified eval
+   (the generic bootstrap: no kernel) against a full eval's forwards; (c) at
+   ``--smoke`` size, ``--steps 8`` against ``--steps 6`` with checkpoints
+   every 3 then ``--steps 8`` resumed at step 6, within (a)'s tolerance,
+   bit equality reported, the checkpoint directory deleted; (d) 4
+   microbatches against 1 at lr 1e-5 within (a)'s tolerances; (e) ``quantize_int8`` /
+   ``ef_quantize`` card == CPU bit for bit, and ``compressed_psum`` over 4
+   gloo ranks sharing the card (this script with ``--compress-rank``)
+   bit-equal to a numpy transcription of the reference's; then the result
+   lines: a JSON object of phase 24's training numbers, a JSON object of
+   kernel measurements, then ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 Phases 6, 7, 12, 14, 16, 18, 19, 20, 21(d-f), 22(d-f) and 23(d-e) are the
 main paths: every
 kernel's launch count is set to 0 just before each and read just after; the launches of the
 other phases (the comparisons with the plain versions) count nowhere, but
-phase 15's and phase 17's are printed and kept in the kernels line.
+phase 15's and phase 17's are printed and kept in the kernels line.  Phase
+24(b), the training path, is read the same way and its counts printed: no
+kernel lies on it.
 
 ``python3 chip_smoke.py --mesh-rank RANK WORLD STORE OUT`` runs one rank of
-phase 17's mesh; phase 17 starts them itself.
+phase 17's mesh; phase 17 starts them itself.  ``--compress-rank RANK WORLD
+STORE OUT`` runs one rank of phase 24(e).
 """
 import collections
 import dataclasses
@@ -2438,7 +2464,12 @@ def phase_overload_serve(data):
     """(b) one session with degrade, wfq and migrate on, tenants dash
     (weight 3) and batch (1): 8 priming requests with no deadline, then a
     burst of 32, 16 a tenant, with deadlines at 4x (12), 0.5x (12) and
-    0.05x (8) the priming wave's median latency.  Every answer's error <=
+    0.05x (8) the priming wave's median latency.  The tight 20 are shed at
+    submit, each answered there by a pilot on the card before the next
+    submit, so the 4x requests pay that time before the last of them can
+    take a lane: it is measured first, on the same 20 requests with blown
+    deadlines (a third tenant, so the two tenants' fair-queue tags are
+    untouched), and added to the 4x deadlines.  Every answer's error <=
     its delivered epsilon, shed answers took no iteration, the 4x requests
     were neither shed nor degraded.  Returns the burst's launches."""
     from repro_torch.aqp.query import Query, Request
@@ -2459,11 +2490,23 @@ def phase_overload_serve(data):
         f, e = reqs[i % 16]
         mult = 4.0 if i < 12 else (0.5 if i < 24 else 0.05)
         burst.append((f, e, mult, "dash" if i % 2 else "batch"))
+    t0 = time.perf_counter()
+    for f, e, mult, _ in burst:
+        if mult < 4.0:
+            sess.submit(Request(query=Query(func=f, epsilon=e),
+                                deadline_s=1e-9, tenant="pilots"))
+    pilots = sess.drain()
+    pilots_s = time.perf_counter() - t0
+    check(len(pilots) == 20 and all(r.shed for r in pilots),
+          "the 20 pilot answers were not all shed at submit")
+    pool = sess._pool
+    shed0, degraded0 = pool.shed, pool.degraded
     reset_counts()
     t0 = time.perf_counter()
-    tickets = [sess.submit(Request(query=Query(func=f, epsilon=e),
-                                   deadline_s=mult * med, tenant=t))
-               for f, e, mult, t in burst]
+    tickets = [sess.submit(Request(
+        query=Query(func=f, epsilon=e), tenant=t,
+        deadline_s=mult * med + (pilots_s if mult == 4.0 else 0.0)))
+        for f, e, mult, t in burst]
     res = {r.rid: r for r in sess.drain()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2484,9 +2527,10 @@ def phase_overload_serve(data):
             <= r.delivered_epsilon
         admitted[t] += not r.shed
         met[t] += bool(r.slo_met)
-    pool = sess._pool
-    print(f"  burst of 32 (deadlines 4x/0.5x/0.05x of {med * 1e3:.2f} ms): "
-          f"wall {wall:.3f} s, shed {pool.shed}, degraded {pool.degraded}, "
+    print(f"  burst of 32 (deadlines 4x/0.5x/0.05x of {med * 1e3:.2f} ms, "
+          f"the 4x ones plus {pilots_s * 1e3:.2f} ms for the 20 pilot "
+          f"answers): wall {wall:.3f} s, shed {pool.shed - shed0}, degraded "
+          f"{pool.degraded - degraded0}, "
           f"migrations {pool.migrations}; slo_met dash "
           f"{met['dash']}/16 batch {met['batch']}/16; admitted to a lane "
           f"dash {admitted['dash']} batch {admitted['batch']}; "
@@ -3832,6 +3876,323 @@ def phase_cross():
                                VISION: vis["decode_attention"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 8, 512
+TRAIN_MAIN = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--remat", "dots",
+              "--eval-every", str(TRAIN_STEPS), "--seed", "0"]
+TRAIN_SMOKE = ["--arch", TRAIN_ARCH, "--smoke", "--batch", "8", "--seq",
+               "64", "--seed", "0"]
+TRAIN_TOL = dict(rtol=2e-4, atol=2e-5)    # the reference's microbatch test
+# Adam's first steps move each element by about lr * sign(g), so an element
+# whose gradient lies within f32 noise of zero may move either way: params
+# are compared after steps at TRAIN_LR (a move of ~1e-5, inside TRAIN_TOL
+# even when its sign flips), the gradients through the first moment
+# mu = (1 - b1) g, each leaf within MOMENT_TOL of its largest magnitude.
+TRAIN_LR = 1e-5
+MOMENT_TOL = 2e-4
+# One H100 SXM's dense bf16 tensor-core peak (NVIDIA's data sheet, at the
+# 700 W limit): the yardstick of the step's share of peak.
+BF16_PEAK_FLOPS = 989e12
+COMPRESS_N = 1 << 22                      # a 4 M-element gradient leaf
+COMPRESS_RANKS = 4
+
+
+def _trees_close(got, want, what: str, leaf_tol=None) -> float:
+    """Every leaf of ``got`` within ``TRAIN_TOL`` of ``want``'s, or with
+    ``leaf_tol`` within that fraction of the leaf's largest magnitude;
+    returns the largest abs difference."""
+    from repro_torch.train import pytree
+    a, b = pytree.leaves(got), pytree.leaves(want)
+    check(len(a) == len(b), f"{what}: {len(a)} leaves against {len(b)}")
+    worst = 0.0
+    for x, y in zip(a, b):
+        x, y = x.detach().float().cpu(), y.detach().float().cpu()
+        d = float((x - y).abs().max())
+        ok = (d <= leaf_tol * float(y.abs().max()) if leaf_tol is not None
+              else torch.allclose(x, y, **TRAIN_TOL))
+        check(x.shape == y.shape and ok, f"{what}: max abs err {d}")
+        worst = max(worst, d)
+    return worst
+
+
+def _trees_bits_equal(got, want) -> bool:
+    from repro_torch.train import pytree
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in
+               zip(pytree.leaves(got), pytree.leaves(want)))
+
+
+def phase_train_card_vs_cpu() -> float:
+    """(a) One ``step_fn`` (remat "dots", lr ``TRAIN_LR``) of every arch
+    at ``reduced_for_smoke`` size in f32 on the card against the CPU, from
+    one seeded tree and pipeline batch 0: loss and params within
+    ``TRAIN_TOL``, the moments (the gradients) within ``MOMENT_TOL``, TF32
+    off.  Returns the largest abs difference."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.convert import lm_params_from_numpy, lm_tree_from_seed
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as M
+    from repro_torch.models.config import reduced_for_smoke
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import TrainConfig, build_train_step
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr_peak=TRAIN_LR,
+                                             warmup_steps=1), remat="dots")
+    worst = 0.0
+    for arch in ARCHS:
+        cfg = reduced_for_smoke(get_config(arch))
+        tree = lm_tree_from_seed(cfg, 0)
+        _, step = build_train_step(cfg, tcfg)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = lm_params_from_numpy(cfg, tree, device=dev)
+            opt = adamw_init(tcfg.optimizer, M.trainable(params))
+            batch = pipeline.batch_for_step(
+                0, global_batch=4, seq_len=32, vocab=cfg.vocab_size, seed=0,
+                device=dev, **pipeline.batch_kwargs_for(cfg, 32))
+            out[dev] = step(params, opt, batch)
+        (pc, oc, mc), (pg, og, mg) = out["cpu"], out["cuda"]
+        lc, lg = float(mc["loss"]), float(mg["loss"])
+        check(abs(lg - lc) <= 2e-4 * abs(lc),
+              f"{arch}: train loss card {lg} != cpu {lc}")
+        err = max(_trees_close(pg, pc, f"{arch} params"),
+                  _trees_close(og["mu"], oc["mu"], f"{arch} mu", MOMENT_TOL),
+                  _trees_close(og["nu"], oc["nu"], f"{arch} nu", MOMENT_TOL))
+        worst = max(worst, err)
+        print(f"  (a) {arch}: loss card {lg:.6f} cpu {lc:.6f}; params and "
+              f"moments max abs err {err:.3e}")
+    return worst
+
+
+def phase_train_full_width(card: str) -> dict:
+    """(b) Qwen2-1.5B (bf16, 28 layers, d 1536, vocab 151 936, tied head)
+    trained through ``launch.train.run``: 10 steps of 8 x 512 pipeline
+    tokens under remat "dots", then the MISS-certified eval.  Every loss
+    finite, the last below the first; step time (median of steps 2-9, each
+    ended by its loss's host read), tokens/s, peak memory and the share of
+    the bf16 peak that ``model_flops(kind="train")`` over the step time
+    gives.  The launch counts are set to 0 just before and read just after
+    and printed: no kernel lies on this path (the forward and backward
+    attend through ``_sdpa``'s einsums, the eval's ESTIMATE is the generic
+    bootstrap)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.models import flops
+
+    cfg = get_config(TRAIN_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    reset_counts()
+    out = T.run(TRAIN_MAIN)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"full-width training losses {losses}")
+    check(losses[-1] < losses[0],
+          f"full-width training loss did not fall: {losses}")
+    step_s = statistics.median(out["step_s"][1:TRAIN_STEPS - 1])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    fl = flops.model_flops(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                           kind="train")
+    (tr,) = out["evals"]
+    check(tr.theta is not None and np.all(np.isfinite(tr.theta))
+          and np.isfinite(tr.error), "full-width eval gave no finite loss")
+    row = {"step_ms": step_s * 1e3,
+           "step_ms_all": [s * 1e3 for s in out["step_s"]],
+           "tokens_per_s": tokens / step_s, "model_flops": fl,
+           "bound_ms": fl / BF16_PEAK_FLOPS * 1e3,
+           "bf16_peak_share": fl / step_s / BF16_PEAK_FLOPS,
+           "peak_gb": peak / 1e9, "losses": losses,
+           "eval_forwards": tr.info["model_forwards"],
+           "full_eval_forwards": tr.info["full_eval_forwards"],
+           "eval_success": bool(tr.success), "eval_error": float(tr.error),
+           "wall_s": wall, "card": card}
+    print(f"  (b) {TRAIN_ARCH} bf16 full width, {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+          f"{[round(x, 4) for x in losses]}; step {row['step_ms']:.1f} ms "
+          f"(median of steps 2-{TRAIN_STEPS - 1}), {row['tokens_per_s']:.0f} "
+          f"tokens/s, model flops {fl:.3e} a step = "
+          f"{100 * row['bf16_peak_share']:.1f} % of the {BF16_PEAK_FLOPS:.3g} "
+          f"FLOP/s dense bf16 peak (bound {row['bound_ms']:.1f} ms), peak "
+          f"memory {row['peak_gb']:.1f} GB; MISS eval {tr.status} in "
+          f"{row['eval_forwards']} of {row['full_eval_forwards']} forwards "
+          f"(err {tr.error:.4f}); launches {counts}; {wall:.1f} s on {card}")
+    row["launches"] = counts
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_train_resume_and_micro() -> dict:
+    """(c) ``--steps 8`` uninterrupted against ``--steps 6 --ckpt D
+    --ckpt-every 3`` then ``--steps 8 --ckpt D`` (resumes at step 6), at
+    ``--smoke`` size on the card: losses and params within ``TRAIN_TOL``,
+    bit equality reported; D deleted.  (d) ``--microbatches 4`` against 1
+    for one step at ``--lr TRAIN_LR``: loss and params within
+    ``TRAIN_TOL``, the moments within ``MOMENT_TOL``."""
+    import tempfile
+
+    from repro_torch.launch import train as T
+
+    full = T.run(TRAIN_SMOKE + ["--steps", "8"])
+    with tempfile.TemporaryDirectory() as d:
+        first = T.run(TRAIN_SMOKE + ["--steps", "6", "--ckpt", d,
+                                     "--ckpt-every", "3"])
+        again = T.run(TRAIN_SMOKE + ["--steps", "8", "--ckpt", d])
+    check(again["start_step"] == 6, f"resumed at {again['start_step']}")
+    got = first["losses"] + again["losses"]
+    check(np.allclose(got, full["losses"], rtol=2e-4, atol=0),
+          f"resumed losses {got} != {full['losses']}")
+    err = _trees_close(again["params"], full["params"], "resumed params")
+    bits = got == full["losses"] and _trees_bits_equal(again["params"],
+                                                        full["params"])
+    print(f"  (c) resume at step 6: losses {[round(x, 5) for x in got]}, "
+          f"params max abs err {err:.3e}, bit-equal: {bits}")
+    lr = ["--steps", "1", "--lr", str(TRAIN_LR)]
+    one = T.run(TRAIN_SMOKE + lr)
+    four = T.run(TRAIN_SMOKE + lr + ["--microbatches", "4"])
+    check(abs(one["loss"] - four["loss"]) <= 2e-4 * abs(one["loss"]),
+          f"microbatched loss {four['loss']} != {one['loss']}")
+    merr = max(_trees_close(four["params"], one["params"],
+                            "microbatch params"),
+               _trees_close(four["opt_state"]["mu"], one["opt_state"]["mu"],
+                            "microbatch mu", MOMENT_TOL))
+    print(f"  (d) 4 microbatches vs 1: loss {four['loss']:.6f} vs "
+          f"{one['loss']:.6f}, params max abs err {merr:.3e}")
+    return {"resume_bits_equal": bits, "resume_max_abs_err": err,
+            "micro_max_abs_err": merr}
+
+
+def _compress_inputs(rank: int):
+    """Rank ``rank``'s gradient and residual (f32, mixed magnitudes across
+    ranks, so the shared scale is another rank's)."""
+    g = np.random.default_rng(300 + rank)
+    x = (g.standard_normal(COMPRESS_N) * 10.0 ** (rank - 2)).astype(
+        np.float32)
+    r = (g.standard_normal(COMPRESS_N) * 10.0 ** (rank - 4)).astype(
+        np.float32)
+    return x, r
+
+
+def _numpy_compressed_psum(xs, rs):
+    """The reference's ``compressed_psum`` (train/compression.py), in numpy
+    for every rank at once (``np.round`` rounds half to even, as
+    ``jnp.round``): (sum, residual of each rank)."""
+    f32 = np.float32
+    tgt = [x + r for x, r in zip(xs, rs)]
+    scale = np.max(np.asarray([np.maximum(np.max(np.abs(t)) / f32(127.0),
+                                          f32(1e-12)) for t in tgt], f32))
+    qs = [np.clip(np.round(t / scale), -127, 127).astype(np.int8)
+          for t in tgt]
+    resid = [t - q.astype(f32) * scale for t, q in zip(tgt, qs)]
+    total = np.sum([q.astype(np.int32) for q in qs], axis=0, dtype=np.int32)
+    return total.astype(f32) * scale, resid
+
+
+def compress_rank_main(argv) -> None:
+    """One rank of phase 24(e): a gloo group of ``COMPRESS_RANKS``
+    processes sharing the card runs ``compressed_psum`` on card tensors and
+    writes the sum and its residual to an ``.npz``."""
+    import torch.distributed as dist
+    from repro_torch.core.mesh import make_data_mesh
+    from repro_torch.train import compression as comp
+
+    rank, world, store, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    mesh = make_data_mesh(world, device="cuda")
+    x, r = _compress_inputs(rank)
+    s, nr = comp.compressed_psum(torch.from_numpy(x).cuda(),
+                                 torch.from_numpy(r).cuda(), mesh)
+    check(s.is_cuda and nr.is_cuda, "compressed_psum left the card")
+    np.savez(out, sum=s.cpu().numpy(), resid=nr.cpu().numpy(),
+             reduces=mesh.reduces)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_train_compression() -> None:
+    """(e) ``quantize_int8`` / ``ef_quantize`` on a card tensor equal to the
+    CPU's bit for bit; ``compressed_psum`` over 4 gloo ranks sharing the
+    card bit-equal to the numpy transcription of the reference's."""
+    import os
+    import tempfile
+
+    from repro_torch.train import compression as comp
+
+    x, r = _compress_inputs(0)
+    for name, fn, args in (
+            ("quantize_int8", comp.quantize_int8, (x,)),
+            ("ef_quantize", comp.ef_quantize, (x, r))):
+        cpu = fn(*(torch.from_numpy(a) for a in args))
+        card = fn(*(torch.from_numpy(a).cuda() for a in args))
+        for a, b in zip(cpu, card):
+            check(a.dtype == b.dtype and
+                  a.numpy().tobytes() == b.cpu().numpy().tobytes(),
+                  f"{name}: card != cpu")
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--compress-rank", str(k), str(COMPRESS_RANKS),
+             str(tmp / "store"), str(tmp / f"c{k}.npz")],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for k in range(COMPRESS_RANKS)]
+        errs = []
+        try:
+            for p in procs:
+                errs.append(p.communicate(timeout=300)[1])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for k, p in enumerate(procs):
+            check(p.returncode == 0,
+                  f"compression rank {k} failed: {errs[k][-3000:]}")
+        ranks = [dict(np.load(tmp / f"c{k}.npz"))
+                 for k in range(COMPRESS_RANKS)]
+    xs, rs = zip(*(_compress_inputs(k) for k in range(COMPRESS_RANKS)))
+    want, want_r = _numpy_compressed_psum(xs, rs)
+    for k, got in enumerate(ranks):
+        check(got["sum"].tobytes() == want.tobytes(),
+              f"compressed_psum rank {k}: sum != numpy")
+        check(got["resid"].tobytes() == want_r[k].tobytes(),
+              f"compressed_psum rank {k}: residual != numpy")
+        check(int(got["reduces"]) == 2, f"rank {k}: {got['reduces']} "
+              f"all-reduces, expected 2")
+    print(f"  (e) quantize_int8 / ef_quantize card == cpu bit for bit on "
+          f"{COMPRESS_N} elements; compressed_psum over {COMPRESS_RANKS} "
+          f"gloo ranks sharing the card bit-equal to numpy, 2 all-reduces "
+          f"a rank")
+
+
+def phase_train(card: str) -> dict:
+    """Phase 24: (a)-(e); returns (b)'s row with (a), (c) and (d)'s
+    errors."""
+    t = time.perf_counter()
+    a_err = phase_train_card_vs_cpu()
+    row = phase_train_full_width(card)
+    row.update(phase_train_resume_and_micro(), card_vs_cpu_max_abs_err=a_err)
+    phase_train_compression()
+    row["phase_s"] = time.perf_counter() - t
+    print(f"  phase 24: {row['phase_s']:.1f} s")
+    return row
+
+
 def _lineitem(group_by: str):
     from repro_torch.data import make_lineitem
 
@@ -3850,6 +4211,9 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: a CUDA card is required")
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
         mesh_rank_main(sys.argv[2:])
+        return
+    if len(sys.argv) > 1 and sys.argv[1] == "--compress-rank":
+        compress_rank_main(sys.argv[2:])
         return
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.poisson_bootstrap import ops as pb_ops
@@ -3985,6 +4349,12 @@ def main() -> None:
           "vision layers")
     x_rows, x_counts, x_err, x_launches = phase_cross()
     launches = add_counts(launches, x_counts)
+    # -- phase 24 --
+    print(f"phase 24: training: every arch's train step card vs cpu, "
+          f"{TRAIN_ARCH} at full width through launch.train, checkpoint "
+          f"resume, microbatches, int8 gradient compression")
+    train_row = phase_train(card)
+    print(json.dumps({"train": train_row}))
     print(f"  launches on the main paths (phases 6 + 7 + 12 + 14 + 16 + 18 + "
           f"19 + 20 + 21 + 22 + 23): {launches}")
     print(f"  result rows: Poisson bootstrap at the solo serve's most used "

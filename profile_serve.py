@@ -31,6 +31,12 @@ ops.  The phases (TPC-H lineitem SF10 resident on the card, a forced-POOL
   the byte bound), once for each checkout TREE in the order given (this one
   by default), each in its own process with its own build: to compare two
   versions of the kernel on one card, list them as A B B A.
+* ``--train``: ``chip_smoke.py`` phase 24(b)'s training step (Qwen2-1.5B
+  bf16 at full width, 8 x 512 pipeline tokens): the step time under each
+  remat policy (none, "dots", "full"), the "dots" step split into its
+  forward and backward and its AdamW update (CUDA events), then one step
+  under the profiler (device busy share, kernels, top ops); no kernel of
+  the port lies on this path.
 * ``--boot [TREE ...]``: the two bootstrap kernels alone, on
   ``chip_smoke.py``'s phase 2 and phase 3 sets (every width rung and the
   stacked init probes; every stream-length rung, phase 8's L = 9000 stream
@@ -40,7 +46,8 @@ ops.  The phases (TPC-H lineitem SF10 resident on the card, a forced-POOL
 The solo and grouped profiles print each bootstrap kernel's share of the
 device time.  Run from the root of a checkout on a machine with a CUDA
 card: ``python3 profile_serve.py [--grouped | --sharded | --host | --warm |
---lm | --decode [TREE ...] | --boot [TREE ...]] [TRACE.json]``; with a path,
+--lm | --train | --decode [TREE ...] | --boot [TREE ...]] [TRACE.json]``;
+with a path,
 the Chrome trace is written there.
 """
 import argparse
@@ -58,8 +65,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from chip_smoke import (LM_ARCH, LM_S_MAX, LM_SLOTS, N_CAP,  # noqa: E402
-                        N_MAX, SERVE, fail, grouped_requests, host_requests,
-                        lm_requests, nvidia_smi, run_lm_serve, serve_requests)
+                        N_MAX, SERVE, TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ,
+                        fail, grouped_requests, host_requests, lm_requests,
+                        nvidia_smi, run_lm_serve, serve_requests)
 
 
 def serve_once(data, reqs, data_shards: int = 1) -> float:
@@ -210,6 +218,78 @@ def profile_lm(trace) -> None:
           f"busy {step_us / n / 1e3:.3f} ms, wall {wall / n * 1e3:.3f} ms")
 
 
+def _events_ms(fn, n: int) -> float:
+    """Mean CUDA-event milliseconds of ``n`` calls of ``fn`` (after
+    one)."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def profile_train(trace) -> None:
+    """Phase 24(b)'s step: remat policies, its parts, one profiled step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as M
+    from repro_torch.train import pytree
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update
+    from repro_torch.train.train_step import TrainConfig, build_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    opt = AdamWConfig(lr_peak=1e-3, warmup_steps=5, total_steps=10)
+    batch = pipeline.batch_for_step(0, global_batch=TRAIN_BATCH,
+                                    seq_len=TRAIN_SEQ, vocab=cfg.vocab_size,
+                                    device="cuda")
+    init_fn, _ = build_train_step(cfg, TrainConfig(optimizer=opt))
+    state = list(init_fn(0, "cuda"))
+    for remat in (None, "full", "dots"):
+        _, step = build_train_step(cfg, TrainConfig(optimizer=opt,
+                                                    remat=remat))
+
+        def one():
+            state[:2] = step(state[0], state[1], batch)[:2]
+        torch.cuda.reset_peak_memory_stats()
+        ms = _events_ms(one, 3)
+        print(f"  remat {remat}: step {ms:.1f} ms, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    params, opt_state = state
+    flat, skel = pytree.flatten(M.trainable(params))
+    grads = []
+
+    def fwd_bwd():
+        leaves = [t.detach().requires_grad_(True) for t in flat]
+        loss = M.loss_fn(cfg, pytree.unflatten(skel, leaves), batch,
+                         remat="dots")
+        grads[:] = torch.autograd.grad(loss, leaves)
+    fb = _events_ms(fwd_bwd, 3)
+    g = pytree.unflatten(skel, grads)
+    up = _events_ms(lambda: adamw_update(opt, g, opt_state,
+                                         M.trainable(params)), 3)
+    print(f"  \"dots\" step parts: forward + backward {fb:.1f} ms, AdamW "
+          f"update {up:.1f} ms ({len(flat)} leaves)")
+    del grads[:], g
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events, cuda, dev_us, _ = device_summary(prof, wall, "one step")
+    print(events.table(sort_by="self_device_time_total", row_limit=15))
+    print(events.table(sort_by="self_cpu_time_total", row_limit=10))
+    if trace:
+        trace = Path(trace)
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace))
+
+
 def decode_one(tree: str) -> None:
     """Time the decode-attention kernel of checkout ``tree`` (run in a
     process of its own, so that its ``repro_torch`` is the one imported).
@@ -336,6 +416,8 @@ def main() -> None:
                     help="profile the warm waves (phase 16(a)'s repeats)")
     ap.add_argument("--lm", action="store_true",
                     help="profile the LM serve (Qwen2-1.5B bf16, 8 slots)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the training step (Qwen2-1.5B bf16)")
     ap.add_argument("--decode", nargs="*", metavar="TREE",
                     help="time the decode-attention kernel of each checkout "
                          "(default: this one)")
@@ -363,6 +445,9 @@ def main() -> None:
         return
     if args.lm:
         profile_lm(args.trace)
+        return
+    if args.train:
+        profile_train(args.trace)
         return
     from repro_torch.data import make_lineitem
 

@@ -1,3 +1,5 @@
-from .registry import ARCHS, NOT_PORTED, get_config
+from .registry import (ARCHS, NOT_PORTED, SHAPES, get_config, get_shape,
+                       list_archs)
 
-__all__ = ["ARCHS", "NOT_PORTED", "get_config"]
+__all__ = ["ARCHS", "NOT_PORTED", "SHAPES", "get_config", "get_shape",
+           "list_archs"]

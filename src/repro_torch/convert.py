@@ -101,13 +101,23 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
     gains, the cross gate and the MoE/SSM leaves of ``_F32_LEAVES`` stay
     f32, as the reference initialises them.  A tied head is formed from
     the embedding, an untied one is the tree's ``unembed``."""
+    dtype = lm._dtype(cfg.validate())
+    params = _lm_layout(cfg, tree,
+                        lambda name, a: _lm_leaf(name, a, dtype, device))
+    if cfg.tie_embeddings:
+        lm.attach_tied_head(cfg, params)
+    return params
+
+
+def _lm_layout(cfg: ModelConfig, tree: Mapping[str, Any], leaf):
+    """The reference's stacked LM tree in the port's per-layer layout,
+    each leaf converted by ``leaf(name, array)``."""
     cfg.validate()
-    dtype = lm._dtype(cfg)
 
     def conv(node, name=""):
         if isinstance(node, Mapping):
             return {k: conv(v, k) for k, v in node.items()}
-        return _lm_leaf(name, node, dtype, device)
+        return leaf(name, node)
 
     def unstack(stack, repeats):
         layers = [conv(_take(blk, r)) for r in range(repeats)
@@ -125,9 +135,29 @@ def lm_params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
         params["dec"] = unstack(tree["dec"], cfg.n_layers)
     else:
         params["layers"] = unstack(tree["blocks"], cfg.n_pattern_repeats)
-    if cfg.tie_embeddings:
-        lm.attach_tied_head(cfg, params)
     return params
+
+
+def adamw_state_from_numpy(cfg: ModelConfig, state: Mapping[str, Any],
+                           device="cuda") -> Dict[str, Any]:
+    """The port's AdamW state from the reference's ``{step, mu, nu[,
+    master]}`` as numpy: the moment and master trees through the layout
+    mapping of :func:`lm_params_from_numpy` (no tied head: it is no
+    trainable leaf), each leaf keeping its dtype (bf16 moments stay
+    bf16), ``step`` an int32 scalar tensor."""
+
+    def leaf(name, a):
+        a = np.asarray(a)
+        dt = torch.bfloat16 if a.dtype.name == "bfloat16" else torch.float32
+        return torch.from_numpy(np.array(a, np.float32)).to(device=device,
+                                                            dtype=dt)
+
+    out = {"step": torch.tensor(int(np.asarray(state["step"])),
+                                dtype=torch.int32, device=device)}
+    for key in ("mu", "nu", "master"):
+        if key in state:
+            out[key] = _lm_layout(cfg, state[key], leaf)
+    return out
 
 
 def _take(node, r: int):

@@ -43,8 +43,8 @@ class DataMesh:
     ``group`` is an initialised process group (None: the default group).
     With the gloo backend the collectives move host tensors, so a tensor on
     a CUDA device is staged through host memory for the transport only; with
-    NCCL it stays on its device.  ``gathers`` and ``broadcasts`` count the
-    collectives this object issued.
+    NCCL it stays on its device.  ``gathers``, ``broadcasts`` and
+    ``reduces`` count the collectives this object issued.
     """
 
     def __init__(self, group=None, device=None):
@@ -60,6 +60,7 @@ class DataMesh:
         self._host_transport = dist.get_backend(group) == "gloo"
         self.gathers = 0
         self.broadcasts = 0
+        self.reduces = 0
 
     def _wire(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous()
@@ -80,6 +81,16 @@ class DataMesh:
             p = p.to(x.device)
             out = out + p if fold is None else fold(out, p)
         return out
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``x`` reduced over the ranks (``op`` "sum" or "max"), on ``x``'s
+        device.  The backend picks the order of a sum: exact for integers,
+        not bit-stable for floats (use :meth:`all_gather_fold` there)."""
+        ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+        w = self._wire(x).clone()
+        dist.all_reduce(w, op=ops[op], group=self.group)
+        self.reduces += 1
+        return w.to(x.device)
 
     def broadcast_from0(self, x: torch.Tensor) -> torch.Tensor:
         """Rank 0's ``x`` on every rank (on ``x``'s device): the value every

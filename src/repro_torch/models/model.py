@@ -21,12 +21,20 @@ as they come; a torch product takes one dtype).  A cross branch adds
 
 Entry points (functions of a params dict):
   init_model(cfg, seed, device)            -> params
-  train_logits(cfg, params, batch)         -> (logits, aux)   forward only
+  train_logits(cfg, params, batch, remat)  -> (logits, aux)
+  loss_fn(cfg, params, batch, remat)       -> scalar loss (+ the aux loss)
   prefill(cfg, params, batch)              -> (last logits, raw caches,
                                                memory or None)
   decode_step(cfg, params, token, caches)  -> (logits, caches)
   init_caches(cfg, B, S_max, mem_len, device=...) -> decode caches
   caches_from_prefill(cfg, raw, S_max)     -> decode caches
+
+``train_logits`` and ``loss_fn`` record a graph when the caller's leaves
+require grad (the train step's do; served weights do not); ``prefill`` and
+``decode_step`` never do.  ``remat`` recomputes each layer in the backward
+pass (``torch.utils.checkpoint``): ``"full"`` saves nothing of a layer,
+``"dots"`` saves its matmul outputs, ``"dots_no_batch"`` those without a
+batch dimension (the reference's ``REMAT_POLICIES``); it changes no value.
 
 Caches hold one entry per decoder layer: a :class:`~.attention.KVCache` for
 an attention layer (raw prefill caches: a ``(k, v)`` pair), a
@@ -36,16 +44,22 @@ shift}`` for an RWKV layer (raw and decode alike), ``{"mixer": KVCache,
 v)}``) and ``{"xkv": (k, v)}`` for an xonly layer, the memory's projected
 K/V ``(B, T, Hkv, dh)`` passing through decode unchanged.  ``aux`` is the
 MoE layers' load-balance losses summed in layer order.  A tied head
-(``embed.T * d_model**-0.5`` in the parameter dtype) is formed once and
-kept as ``params["tied_head"]``; elementwise scaling gives the same bits
-every time, so this equals the reference's per-call product.  An untied
-head is ``params["unembed"]`` (d, V), applied as ``x @ unembed``.
+(``embed.T * d_model**-0.5`` in the parameter dtype) is kept as
+``params["tied_head"]`` for serving: elementwise scaling gives the same
+bits every time, so this equals the reference's per-call product.  It is
+derived, never a trainable leaf: a differentiable forward forms it from
+``embed`` in the graph, as the reference does, so the embedding receives
+the head's gradient, and the train step re-attaches it after each update.
+An untied head is ``params["unembed"]`` (d, V), applied as ``x @
+unembed``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt_util
 
 from . import attention as attn
 from . import mlp as mlp_mod
@@ -105,14 +119,24 @@ def check_prompt_length(cfg: ModelConfig, S: int) -> None:
         ssm.rwkv_chunk(cfg, S)
 
 
-def attach_tied_head(cfg: ModelConfig, params: Dict[str, Any]) -> None:
-    """Form ``params["tied_head"]`` (V, d): the reference's ``embed.T *
-    d_model**-0.5`` in the parameter dtype (a bf16 scale times bf16
-    weights, rounded once)."""
-    emb = params["embed"]
+def _tied_head(cfg: ModelConfig, emb: torch.Tensor) -> torch.Tensor:
+    """The reference's ``embed.T * d_model**-0.5`` as (V, d), in the
+    parameter dtype (a bf16 scale times bf16 weights, rounded once)."""
     scale = torch.tensor(cfg.d_model ** -0.5, dtype=emb.dtype,
                          device=emb.device)
-    params["tied_head"] = emb * scale
+    return emb * scale
+
+
+def attach_tied_head(cfg: ModelConfig, params: Dict[str, Any]) -> None:
+    """Form ``params["tied_head"]`` from ``params["embed"]`` (no graph)."""
+    with torch.no_grad():
+        params["tied_head"] = _tied_head(cfg, params["embed"])
+
+
+def trainable(params: Dict[str, Any]) -> Dict[str, Any]:
+    """``params`` without its derived tensors: the tree an optimizer
+    updates."""
+    return {k: v for k, v in params.items() if k not in DERIVED}
 
 
 def _init_block(gen, kind: str, cfg: ModelConfig, dtype, device):
@@ -245,6 +269,47 @@ def _bidir_attention(p, cfg: ModelConfig, x):
     return nn.dense(p["wo"], out.reshape(B, S, -1)), (k, v)
 
 
+# Ops whose outputs each remat policy saves (aten names; the port's
+# matmuls lower to ``mm``/``addmm``, its einsums to ``bmm``).  None: save
+# nothing, recompute the whole layer.
+REMAT_POLICIES = {
+    "full": None,
+    "dots": ("mm", "addmm", "bmm"),
+    "dots_no_batch": ("mm", "addmm"),
+}
+
+
+def _remat_context(remat: str):
+    """``context_fn`` of ``torch.utils.checkpoint`` for a policy name."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}; have "
+                         f"{sorted(REMAT_POLICIES)}")
+    names = REMAT_POLICIES[remat]
+    if names is None:
+        return ckpt_util.noop_context_fn
+    saved = tuple(getattr(torch.ops.aten, n).default for n in names)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt_util.CheckpointPolicy.MUST_SAVE if op in saved
+                else ckpt_util.CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(ckpt_util.create_selective_checkpoint_contexts,
+                             policy)
+
+
+def _train_block(p, kind: str, cfg: ModelConfig, x, memory, remat,
+                 bidirectional: bool = False):
+    """One layer of a teacher-forcing forward, recomputed in the backward
+    pass under ``remat``; returns (x, the MoE aux loss or None)."""
+    def body(x_, memory_):
+        y, _, aux = _apply_block(p, kind, cfg, x_, cache=None,
+                                 memory=memory_, bidirectional=bidirectional)
+        return y, aux
+    if remat is None or not torch.is_grad_enabled():
+        return body(x, memory)
+    return ckpt_util.checkpoint(body, x, memory, use_reentrant=False,
+                                context_fn=_remat_context(remat))
+
+
 def _run_stack(cfg, params, x, caches=None, memory=None):
     """The decoder stack: (x, new caches, the MoE layers' aux losses in
     layer order)."""
@@ -259,21 +324,21 @@ def _run_stack(cfg, params, x, caches=None, memory=None):
     return x, new_caches, auxes
 
 
-def _encode(cfg, params, batch):
+def _encode(cfg, params, batch, remat=None):
     """The encoder over ``batch["frames"]`` (B, T, d): n_layers dense
     layers run bidirectionally, then ``enc_norm``."""
     h = batch["frames"].to(_dtype(cfg))
     for p in params["enc"]:
-        h, _, _ = _apply_block(p, "dense", cfg, h, cache=None,
-                               bidirectional=True)
+        h, _ = _train_block(p, "dense", cfg, h, None, remat,
+                            bidirectional=True)
     return nn.rms_norm(params["enc_norm"], h, cfg.rms_eps)
 
 
-def _memory(cfg, params, batch):
+def _memory(cfg, params, batch, remat=None):
     """The cross layers' memory: the encoded frames, the image embeddings
     in the model's dtype, or None."""
     if cfg.is_encdec:
-        return _encode(cfg, params, batch)
+        return _encode(cfg, params, batch, remat)
     if cfg.family == "vision":
         return batch["image_embeds"].to(_dtype(cfg))
     return None
@@ -285,22 +350,35 @@ def _embed(cfg, params, tokens):
 
 def _unembed(cfg, params, x):
     if cfg.tie_embeddings:
-        return torch.nn.functional.linear(x, params["tied_head"])
+        emb = params["embed"]
+        head = params.get("tied_head")
+        if head is None or (emb.requires_grad and torch.is_grad_enabled()):
+            head = _tied_head(cfg, emb)
+        return torch.nn.functional.linear(x, head)
     return torch.matmul(x, params["unembed"])
 
 
-def train_logits(cfg: ModelConfig, params, batch):
-    """Full teacher-forcing forward (no gradient).  Returns (logits, aux);
-    aux is the MoE layers' summed load-balance loss (0 without MoE)."""
-    with torch.no_grad():
-        memory = _memory(cfg, params, batch)
-        x = _embed(cfg, params, batch["tokens"])
-        x, _, auxes = _run_stack(cfg, params, x, memory=memory)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for a in auxes:
+def train_logits(cfg: ModelConfig, params, batch, remat=None):
+    """Full teacher-forcing forward.  Returns (logits, aux); aux is the MoE
+    layers' summed load-balance loss (0 without MoE)."""
+    memory = _memory(cfg, params, batch, remat)
+    x = _embed(cfg, params, batch["tokens"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = params["dec"] if cfg.is_encdec else params["layers"]
+    for p, kind in zip(layers, layer_kinds(cfg)):
+        x, a = _train_block(p, kind, cfg, x, memory, remat)
+        if a is not None:
             aux = aux + a
-        x = nn.rms_norm(params["final_norm"], x, cfg.rms_eps)
-        return _unembed(cfg, params, x), aux
+    x = nn.rms_norm(params["final_norm"], x, cfg.rms_eps)
+    return _unembed(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch, remat=None) -> torch.Tensor:
+    """Mean cross entropy of ``batch["labels"]`` (under
+    ``batch["loss_mask"]`` when given) plus the MoE aux loss."""
+    logits, aux = train_logits(cfg, params, batch, remat)
+    loss = nn.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    return loss + aux
 
 
 def prefill(cfg: ModelConfig, params, batch):
@@ -414,3 +492,30 @@ def count_active_params(cfg: ModelConfig, params) -> int:
                        if k.endswith(("we_gate", "we_up", "we_down")))
     active_frac = cfg.moe.top_k / cfg.moe.num_experts
     return int(total - expert_total * (1.0 - active_frac))
+
+
+class Model:
+    """Thin OO veneer used by examples and the launcher."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg.validate()
+
+    def init(self, seed: int = 0, device="cuda"):
+        return init_model(self.cfg, seed, device)
+
+    def loss(self, params, batch):
+        return loss_fn(self.cfg, params, batch)
+
+    def logits(self, params, batch):
+        return train_logits(self.cfg, params, batch)
+
+    def prefill(self, params, batch):
+        return prefill(self.cfg, params, batch)
+
+    def decode(self, params, token, caches):
+        return decode_step(self.cfg, params, token, caches)
+
+    def init_caches(self, B, S_max, mem_len=None, length: int = 0,
+                    device="cuda"):
+        return init_caches(self.cfg, B, S_max, mem_len, length=length,
+                           device=device)

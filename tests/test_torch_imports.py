@@ -54,7 +54,10 @@ def test_every_module_imports_without_jax_or_reference():
                  "configs.llama_3_2_vision_90b", "serve.batching",
                  "launch.serve", "core.baselines", "data.pipeline",
                  "integration", "integration.miss_eval",
-                 "integration.miss_mixture", "integration.miss_router"):
+                 "integration.miss_mixture", "integration.miss_router",
+                 "train", "train.optimizer", "train.train_step",
+                 "train.checkpoint", "train.compression", "train.elastic",
+                 "train.pytree", "launch.train", "launch.specs"):
         assert f"repro_torch.{name}" in expected, name
 
 
