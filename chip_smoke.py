@@ -241,13 +241,36 @@ non-zero and nothing falls back to the CPU:
    microbatches against 1 at lr 1e-5 within (a)'s tolerances; (e) ``quantize_int8`` /
    ``ef_quantize`` card == CPU bit for bit, and ``compressed_psum`` over 4
    gloo ranks sharing the card (this script with ``--compress-rank``)
-   bit-equal to a numpy transcription of the reference's; then the result
-   lines: a JSON object of phase 24's training numbers, a JSON object of
-   kernel measurements, then ``{"ok": true, "device": {...}}`` as the last
-   line.
+   bit-equal to a numpy transcription of the reference's; then a JSON
+   object of phase 24's training numbers;
+25. the placement layer: (a) the Qwen2-1.5B ``train_4k`` dry run
+   (``launch/dryrun.py``) on the 16x16 and 2x16x16 meshes, two CPU
+   processes on a fake process group, started first: each cell ``ok``,
+   its per-rank parameter and moment bytes equal to the specs'
+   arithmetic, argument bytes, collectives by kind and the H100 roofline
+   printed; (c) phase 24(b) ran through ``--mesh local`` on a (1, 1)
+   mesh, and the plain step loop (no group, no mesh) gives its losses bit
+   for bit, both step times printed; (d) phase 6's 16 requests after a
+   warm-up, plainly and under ``MISS_SANITIZE=1`` with the steady stream
+   inside ``sanitize.steady_state()``: no unnamed sync, no new PRNG root,
+   no library built or loaded, ``steady_recompiles`` 0, answers bit-equal;
+   (e) the sharded decode: row 4's log-sum-exps (``return_lse``) against
+   the plain version's at the LM serve's shape in f32 and bf16, a cache
+   split into 2 and 4 parts over its positions merged (``ops.merge``)
+   against the whole, and Qwen2-1.5B's attention layer decoding 3 steps
+   (self-attention over a placed cache, then cross-attention over a
+   placed memory) on a one-rank NCCL ``(1, 1)`` mesh with the rows over
+   "data" and the positions over "model": one row-4 launch a call, equal
+   to the plain layer, the cache rows written in place equal;
+   (b), sharded training on 4 gloo ranks sharing the card, is left out:
+   gloo's functional all-gather of a CUDA tensor crashes every rank, and
+   DTensor gathers parameters through it (``--gloo-probe``); then the
+   result lines: a JSON object of phase 25's numbers, a JSON object of
+   kernel measurements, then ``{"ok": true, "device": {...}}`` as the
+   last line.
 
-Phases 6, 7, 12, 14, 16, 18, 19, 20, 21(d-f), 22(d-f) and 23(d-e) are the
-main paths: every
+Phases 6, 7, 12, 14, 16, 18, 19, 20, 21(d-f), 22(d-f), 23(d-e) and 25(d)
+are the main paths: every
 kernel's launch count is set to 0 just before each and read just after; the launches of the
 other phases (the comparisons with the plain versions) count nowhere, but
 phase 15's and phase 17's are printed and kept in the kernels line.  Phase
@@ -256,7 +279,10 @@ kernel lies on it.
 
 ``python3 chip_smoke.py --mesh-rank RANK WORLD STORE OUT`` runs one rank of
 phase 17's mesh; phase 17 starts them itself.  ``--compress-rank RANK WORLD
-STORE OUT`` runs one rank of phase 24(e).
+STORE OUT`` runs one rank of phase 24(e).  ``--gloo-probe`` runs, each on 4
+gloo ranks sharing the card, c10d's all-gather, the functional all-gather
+and the functional reduce-scatter of a CUDA tensor and prints each rank's
+exit code and result.
 """
 import collections
 import dataclasses
@@ -4013,6 +4039,7 @@ def phase_train_full_width(card: str) -> dict:
            "bound_ms": fl / BF16_PEAK_FLOPS * 1e3,
            "bf16_peak_share": fl / step_s / BF16_PEAK_FLOPS,
            "peak_gb": peak / 1e9, "losses": losses,
+           "mesh": tuple(out["mesh"].shape),
            "eval_forwards": tr.info["model_forwards"],
            "full_eval_forwards": tr.info["full_eval_forwards"],
            "eval_success": bool(tr.success), "eval_error": float(tr.error),
@@ -4193,6 +4220,404 @@ def phase_train(card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the placement layer
+# ---------------------------------------------------------------------------
+
+DRY_ARCH = "qwen2-1.5b"
+DRY_SHAPE = "train_4k"
+DRY_MESHES = (((16, 16), ("data", "model"), "16x16"),
+              ((2, 16, 16), ("pod", "data", "model"), "2x16x16"))
+
+
+def start_dryruns(out: Path) -> list:
+    """(a) starts: the Qwen2-1.5B ``train_4k`` dry run on both production
+    meshes, one CPU process each (``python -m repro_torch.launch.dryrun``,
+    one thread), while (c) and (d) use the card."""
+    import os
+
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": str(ROOT / "src")}
+    return [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRY_ARCH, "--shape", DRY_SHAPE, "--out", str(out)]
+        + (["--multi-pod"] if len(shape) == 3 else []),
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for shape, _, _ in DRY_MESHES]
+
+
+def _spec_share(tree, mesh, *, itemsize=None) -> int:
+    """Bytes of ``tree`` one rank holds under ``param_shardings`` on
+    ``mesh`` (each leaf's bytes over the sizes of the axes its spec
+    names), the leaves taken at ``itemsize`` bytes when given."""
+    from repro_torch.launch import sharding
+
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    total = 0
+    for x, spec in zip(sharding.pytree.leaves(tree), sharding.spec_list(
+            sharding.param_shardings(tree, mesh))):
+        div = 1
+        for entry in spec:
+            for a in (() if entry is None else entry if isinstance(
+                    entry, tuple) else (entry,)):
+                div *= sizes[a]
+        total += x.numel() * (itemsize or x.element_size()) // div
+    return total
+
+
+def phase_dryrun(procs, out: Path) -> dict:
+    """(a) ends: each cell ``ok``; its per-rank parameter and moment bytes
+    equal the specs' arithmetic (params in their dtype, AdamW's two f32
+    moments and its int32 step); per-rank argument bytes, collective counts
+    and bytes by kind, and the roofline terms printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import model as M
+
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    params = M.trainable(M.init_model(get_config(DRY_ARCH), 0, "meta"))
+    rows = {}
+    for (shape, axes, name), p, log in zip(DRY_MESHES, procs, logs):
+        check(p.returncode == 0, f"dry run {name} exited {p.returncode}: "
+              f"{log[-3000:]}")
+        with open(out / f"{DRY_ARCH}__{DRY_SHAPE}__{name}.json") as f:
+            rec = json.load(f)
+        check(rec["status"] == "ok", f"dry run {name}: {rec.get('error')}\n"
+              f"{rec.get('traceback', '')[-3000:]}")
+        mesh = MeshShape(shape, axes)
+        want_p = _spec_share(params, mesh)
+        want_o = 2 * _spec_share(params, mesh, itemsize=4) + 4
+        parts = rec["memory_analysis"]["argument_parts"]
+        check(parts["params"] == want_p and parts["opt"] == want_o,
+              f"dry run {name}: per-rank params {parts['params']} / moments "
+              f"{parts['opt']} != the specs' {want_p} / {want_o}")
+        coll, terms = rec["collective_bytes"], rec["roofline"]
+        rows[name] = {
+            "argument_bytes": rec["memory_analysis"][
+                "argument_size_in_bytes"],
+            "argument_parts": parts, "flops": rec["cost_analysis"]["flops"],
+            "op_bytes": rec["cost_analysis"]["bytes accessed"],
+            "collective_bytes": coll, "roofline": terms,
+            "model_flops_ratio": rec["model_flops_ratio"],
+            "collectives_by_op": rec["collectives_by_op"],
+            "trace_s": rec["t_trace_s"]}
+        print(f"  (a) {DRY_ARCH} {DRY_SHAPE} on {name}: per-rank arguments "
+              f"{rows[name]['argument_bytes']} B (params {parts['params']}, "
+              f"moments {parts['opt']} = the specs' arithmetic, batch "
+              f"{parts['inputs']}); flops/rank {rows[name]['flops']:.4e}, "
+              f"op bytes/rank {rows[name]['op_bytes']:.4e}; collectives "
+              + ", ".join(f"{k} {coll['counts'][k]} x {coll[k]} B"
+                          for k in coll["counts"])
+              + f" (total {coll['total']} B); roofline compute "
+              f"{terms['t_compute_s']:.4f} s, memory {terms['t_memory_s']:.4f}"
+              f" s, collective {terms['t_collective_s']:.4f} s: "
+              f"{terms['dominant']}; model flops ratio "
+              f"{rec['model_flops_ratio']:.4f}; traced in "
+              f"{rec['t_trace_s']} s; collective bytes by op: "
+              + ", ".join(f"{op} {b / coll['total']:.1%}" for op, b in
+                          list(rec["collectives_by_op"].items())[:4]))
+    return rows
+
+
+def phase_mesh_local_identity(row: dict) -> dict:
+    """(c) Phase 24(b) trained through ``--mesh local``: a one-rank group
+    and a (1, 1) mesh.  The same steps through the plain step loop with no
+    group and no mesh (the path before the placement layer) give the same
+    losses bit for bit; both step times printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig, build_train_step
+
+    check(row["mesh"] == (1, 1), f"phase 24(b) ran on mesh {row['mesh']}")
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(optimizer=AdamWConfig(
+        lr_peak=1e-3, warmup_steps=5, total_steps=max(TRAIN_STEPS, 10)),
+        remat="dots", microbatches=1)
+    init_fn, step_fn = build_train_step(cfg, tcfg)
+    params, opt = init_fn(0, "cuda")
+    kw = pipeline.batch_kwargs_for(cfg, TRAIN_SEQ)
+    losses, step_s = [], []
+    for step in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        batch = pipeline.batch_for_step(
+            step, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            vocab=cfg.vocab_size, seed=0, device="cuda", **kw)
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t)
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(losses == row["losses"],
+          f"--mesh local losses {row['losses']} != the plain loop's {losses}")
+    plain_ms = statistics.median(step_s[1:TRAIN_STEPS - 1]) * 1e3
+    print(f"  (c) phase 24(b) ran on a {row['mesh']} mesh; its {TRAIN_STEPS} "
+          f"losses equal the plain step loop's bit for bit; step "
+          f"{row['step_ms']:.1f} ms (mesh) against {plain_ms:.1f} ms (plain "
+          f"loop), medians of steps 2-{TRAIN_STEPS - 1}")
+    return {"mesh_step_ms": row["step_ms"], "plain_step_ms": plain_ms,
+            "plain_step_ms_all": [x * 1e3 for x in step_s]}
+
+
+def phase_sanitized_serve():
+    """(d) Phase 6's 16 solo requests on lineitem SF10, after a warm-up of
+    one avg and one var request, once plainly and once with
+    ``MISS_SANITIZE=1`` and the steady stream under
+    ``sanitize.steady_state()`` (each pool round under the transfer guard:
+    any unnamed sync raises; no new PRNG root; no CUDA library built or
+    loaded); the pool's ``steady_recompiles`` is 0 and the answers equal
+    the plain run's bit for bit.  A main path: the launch counts are set to
+    0 before the sanitized run and read after it."""
+    import contextlib
+    import os
+
+    from repro_torch.aqp.query import Query, Request
+    from repro_torch.core import sanitize
+    from repro_torch.serve import AQPSession, Planner, Route
+
+    data, _ = _lineitem("shipinstruct")
+    reqs, _ = serve_requests(data)
+
+    def run(sanitized: bool):
+        os.environ["MISS_SANITIZE"] = "1" if sanitized else ""
+        try:
+            sess = AQPSession(data, planner=Planner(mode=Route.POOL,
+                                                    pool_lanes=8), **SERVE)
+            for f, e in (reqs[0], reqs[2]):
+                sess.submit(Request(query=Query(func=f, epsilon=e)))
+            sess.drain()
+            guard = (sanitize.steady_state() if sanitized
+                     else contextlib.nullcontext())
+            t = time.perf_counter()
+            with guard:
+                for f, e in reqs:
+                    sess.submit(Request(query=Query(func=f, epsilon=e)))
+                res = sess.drain()
+            torch.cuda.synchronize()
+            return res, sess.stats()["pool"], time.perf_counter() - t
+        finally:
+            os.environ.pop("MISS_SANITIZE", None)
+
+    plain, _, plain_s = run(False)
+    reset_counts()
+    san, pool, san_s = run(True)
+    counts = read_counts()
+    check(len(san) == len(plain) == 16, "sanitized serve: answers missing")
+    for (f, e), a, b in zip(reqs, san, plain):
+        check(a.route is Route.POOL and a.success,
+              f"sanitized {f} eps={e:.4g} failed or left the pool")
+        check(np.asarray(a.theta).tobytes() == np.asarray(b.theta).tobytes()
+              and np.float32(a.error) == np.float32(b.error)
+              and np.array_equal(a.n, b.n)
+              and a.rows_sampled == b.rows_sampled,
+              f"sanitized {f} eps={e:.4g}: answer != the plain run's")
+    check(pool["steady_recompiles"] == 0,
+          f"steady_recompiles = {pool['steady_recompiles']}")
+    check(counts["poisson_bootstrap"] > 0,
+          "the sanitized serve launched no Poisson-bootstrap kernel")
+    print(f"  (d) 16 solo requests on lineitem SF10 under MISS_SANITIZE=1 "
+          f"steady_state: no unnamed sync, no new PRNG root, no library "
+          f"built or loaded, steady_recompiles 0, answers bit-equal to the "
+          f"plain run's; {san_s:.3f} s sanitized against {plain_s:.3f} s "
+          f"plain; launches {counts}")
+    del data
+    torch.cuda.empty_cache()
+    return counts, {"sanitized_s": san_s, "plain_s": plain_s}
+
+
+def phase_sharded_decode() -> dict:
+    """(e) The sharded decode through row 4 on the card (see the module
+    docstring).  Returns the errors."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import attention as A
+    from repro_torch.models import shardctx
+
+    cfg = get_config(LM_ARCH)
+    B, T = 8, 2048
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator().manual_seed(25)
+    lens = torch.tensor([1, 63, 64, 65, 700, 1024, 2047, 2048],
+                        dtype=torch.int32, device="cuda")
+    row = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q = (torch.randn((B, H, dh), generator=g) * 0.3).to("cuda", dt)
+        k, v = ((torch.randn((B, T, Hkv, dh), generator=g) * s).to("cuda", dt)
+                for s in (0.3, 1.0))
+        out, lse = da_ops.decode_attention(q, k, v, lens, return_lse=True)
+        want, wlse = da_ref.decode_attention_ref(
+            q.float(), k.float(), v.float(), lens, return_lse=True)
+        check(torch.equal(out, da_ops.decode_attention(q, k, v, lens)),
+              "asking for the lse changed row 4's output")
+        lse_err = float((lse - wlse).abs().max())
+        check(torch.allclose(lse, wlse, rtol=1e-6, atol=1e-5),
+              f"row 4's lse != plain ({dt}): {lse_err:.3g}")
+        for n in (2, 4):
+            sl = [slice(i * T // n, (i + 1) * T // n) for i in range(n)]
+            outs, lses = zip(*(da_ops.decode_attention(
+                q, k[:, p], v[:, p], lens - p.start, return_lse=True)
+                for p in sl))
+            merged = da_ops.merge(torch.stack(outs), torch.stack(lses))
+            err = float((merged - want).abs().max())
+            tol = 1e-5 if dt == torch.float32 else 1e-2
+            check(err <= tol, f"{n} parts merged != plain ({dt}): {err:.3g}")
+            row[f"merge_{n}_{str(dt)[6:]}"] = err
+        row[f"lse_{str(dt)[6:]}"] = lse_err
+    mesh = make_local_mesh(device_type="cuda")
+    try:
+        whole, rows, parts = ([Replicate(), Replicate()],
+                              [Shard(0), Replicate()], [Shard(0), Shard(1)])
+
+        def put(x, pl):
+            return distribute_tensor(x, mesh, pl)
+
+        for cross in (False, True):
+            ap = {n: t.cuda() for n, t in A.init_attn(
+                g, cfg, torch.float32, "cpu", cross=cross).items()}
+            dp = {n: put(t, whole) for n, t in ap.items()}
+            k, v = (torch.randn((B, T, Hkv, dh), generator=g).cuda()
+                    for _ in range(2))
+            pc = A.KVCache(k.clone(), v.clone(), lens.clone())
+            sc = A.KVCache(put(k, parts), put(v, parts), put(lens, rows))
+            errs = []
+            for _ in range(3):
+                x = torch.randn((B, 1, cfg.d_model), generator=g).cuda()
+                n0 = da_ops.counter.launches
+                with torch.no_grad(), shardctx.mixed():
+                    if cross:
+                        so = A.cross_attention(dp, cfg, put(x, rows),
+                                               (sc.k, sc.v))
+                    else:
+                        so, sc = A.decode_self_attention(dp, cfg,
+                                                         put(x, rows), sc)
+                launched = da_ops.counter.launches - n0
+                with torch.no_grad():
+                    if cross:
+                        po = A.cross_attention(ap, cfg, x, (pc.k, pc.v))
+                    else:
+                        po, pc = A.decode_self_attention(ap, cfg, x, pc)
+                err = float((so.full_tensor() - po).abs().max())
+                check(launched == 1, f"sharded decode launched row 4 "
+                      f"{launched} times a call")
+                check(err <= 1e-5 * float(po.abs().max()),
+                      f"sharded decode != plain: {err:.3g}")
+                errs.append(err)
+            if not cross:
+                check(torch.equal(sc.k.full_tensor(), pc.k)
+                      and torch.equal(sc.v.full_tensor(), pc.v)
+                      and torch.equal(sc.length.full_tensor(), pc.length),
+                      "the sharded cache's rows != the plain cache's")
+            row["cross" if cross else "self"] = max(errs)
+    finally:
+        dist.destroy_process_group()
+    print(f"  (e) sharded decode through row 4: lse vs plain "
+          f"{row['lse_float32']:.3g} (f32) / {row['lse_bfloat16']:.3g} "
+          f"(bf16); 2 / 4 parts merged vs the whole "
+          f"{row['merge_2_float32']:.3g} / {row['merge_4_float32']:.3g} "
+          f"(f32), {row['merge_2_bfloat16']:.3g} / "
+          f"{row['merge_4_bfloat16']:.3g} (bf16); {LM_ARCH}'s attention on a "
+          f"(1, 1) NCCL mesh, 3 steps, one launch a call: self "
+          f"{row['self']:.3g}, cross {row['cross']:.3g} from the plain layer")
+    return row
+
+
+def gloo_probe_rank(argv) -> None:
+    """One rank of ``--gloo-probe``: one collective on a CUDA tensor over
+    gloo, its result printed."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fc
+
+    op, rank, world, store = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            rank=rank, world_size=world)
+    x = torch.arange(8, dtype=torch.float32, device="cuda") + rank
+    if op == "c10d_all_gather_into_tensor":
+        out = torch.empty(8 * world, device="cuda")
+        dist.all_gather_into_tensor(out, x)
+    elif op == "funcol_all_gather_tensor":
+        out = fc.all_gather_tensor(x, 0, dist.group.WORLD)
+    else:
+        out = fc.reduce_scatter_tensor(x, "sum", 0, dist.group.WORLD)
+    print("RESULT", float(out.sum()), flush=True)
+    dist.destroy_process_group()
+
+
+def gloo_probe() -> None:
+    """``--gloo-probe``: which form of all-gather gloo carries for CUDA
+    tensors over 4 ranks sharing the card (each a process of its own; a
+    crash prints its signal).  DTensor's Shard -> Replicate goes through
+    the functional all-gather."""
+    import os
+    import tempfile
+
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    print(torch.__version__, torch.cuda.get_device_name(0))
+    for op in ("c10d_all_gather_into_tensor", "funcol_all_gather_tensor",
+               "funcol_reduce_scatter_tensor"):
+        with tempfile.TemporaryDirectory() as tmp:
+            procs = [subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--gloo-probe-rank", op, str(k), "4", str(Path(tmp) / "s")],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True) for k in range(4)]
+            outs = []
+            for p in procs:
+                try:
+                    outs.append(p.communicate(timeout=120)[0])
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    outs.append(p.communicate()[0] + " TIMEOUT")
+            print(op, [p.returncode for p in procs],
+                  [o.strip().splitlines()[-1:] for o in outs])
+
+
+def phase_placement(train_row: dict):
+    """Phase 25: (a) the dry run (two CPU processes, started first), (c),
+    (d) and (e) on the card meanwhile, then (a)'s results.  (b) sharded
+    training on 4 gloo ranks sharing the card is left out: gloo's
+    functional all-gather of a CUDA tensor crashes every rank (SIGSEGV) on
+    this PyTorch, and every sharded step gathers parameters through it
+    (``--gloo-probe``; the CPU tests hold the 4-rank path).  Returns the
+    phase's row and (d)'s launch counts."""
+    import tempfile
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        procs = start_dryruns(out)
+        try:
+            row = {"mesh_local": phase_mesh_local_identity(train_row)}
+            counts, row["sanitized"] = phase_sanitized_serve()
+            row["sharded_decode"] = phase_sharded_decode()
+        except BaseException:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise
+        print("  (b) left out: gloo's functional all-gather of a CUDA tensor "
+              "crashes (ROADMAP Queue 3 item 7; python3 chip_smoke.py "
+              "--gloo-probe)")
+        row["dryrun"] = phase_dryrun(procs, out)
+    row["phase_s"] = time.perf_counter() - t
+    print(f"  phase 25: {row['phase_s']:.1f} s")
+    return row, counts
+
+
 def _lineitem(group_by: str):
     from repro_torch.data import make_lineitem
 
@@ -4214,6 +4639,12 @@ def main() -> None:
         return
     if len(sys.argv) > 1 and sys.argv[1] == "--compress-rank":
         compress_rank_main(sys.argv[2:])
+        return
+    if len(sys.argv) > 1 and sys.argv[1] == "--gloo-probe-rank":
+        gloo_probe_rank(sys.argv[2:])
+        return
+    if len(sys.argv) > 1 and sys.argv[1] == "--gloo-probe":
+        gloo_probe()
         return
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.poisson_bootstrap import ops as pb_ops
@@ -4355,8 +4786,16 @@ def main() -> None:
           f"resume, microbatches, int8 gradient compression")
     train_row = phase_train(card)
     print(json.dumps({"train": train_row}))
+    # -- phase 25 --
+    print(f"phase 25: the placement layer: the {DRY_ARCH} {DRY_SHAPE} dry "
+          f"run on both production meshes, launch.train --mesh local against "
+          f"the plain step loop, the sanitized solo serve, the sharded "
+          f"decode")
+    place_row, san_counts = phase_placement(train_row)
+    launches = add_counts(launches, san_counts)
+    print(json.dumps({"placement": place_row, "card": card}))
     print(f"  launches on the main paths (phases 6 + 7 + 12 + 14 + 16 + 18 + "
-          f"19 + 20 + 21 + 22 + 23): {launches}")
+          f"19 + 20 + 21 + 22 + 23 + 25(d)): {launches}")
     print(f"  result rows: Poisson bootstrap at the solo serve's most used "
           f"width w={w_main}; segment bootstrap at L={L_main}; aggregate over "
           f"the whole table GROUP BY TAX with a random mask (phase 4; its "
@@ -4385,7 +4824,8 @@ def main() -> None:
         "sharded_launches": {
             "phase17": shard_cpu_counts["poisson_bootstrap"],
             "phase17_mesh_rank0": mesh_rank_launches,
-            "phase18": shard_counts["poisson_bootstrap"]}},
+            "phase18": shard_counts["poisson_bootstrap"]},
+        "sanitized_launches": san_counts["poisson_bootstrap"]},
         {
         "name": "segment_bootstrap", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_agg.cu",

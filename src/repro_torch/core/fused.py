@@ -48,13 +48,14 @@ ported.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..kernels import prng, resolve_use_kernel
-from . import bootstrap, error_model, keys as keylib, sampling
+from . import bootstrap, error_model, keys as keylib, sampling, sanitize
 from .mesh import DataMesh
 from .estimators import get as get_estimator, moment_family_index
 from .reduce import tree_sum
@@ -135,6 +136,14 @@ def _bucket_widths(n_cap: int, base: int) -> Tuple[int, ...]:
         w *= 2
     widths.append(n_cap)
     return tuple(widths)
+
+
+@functools.lru_cache(maxsize=None)
+def _bucket_bounds(widths: Tuple[int, ...], dev) -> torch.Tensor:
+    """The ladder's bounds below its top rung on ``dev``, uploaded once (a
+    named transfer)."""
+    with sanitize.harvest():
+        return torch.as_tensor(widths[:-1], dtype=torch.int32, device=dev)
 
 
 def bucket_ladder(n_cap: int, n_max: int) -> Tuple[int, ...]:
@@ -466,8 +475,9 @@ def _segment_tick(values: torch.Tensor, s: LaneState, p: LaneParams, *,
     ext_w = torch.clamp(hi - filled0, min=0)       # inactive: hi <= filled
     est_w = torch.where(active, hi - lo, 0)
     # ---- the tick's one host read: stream lengths + slot bound ----
-    host = torch.stack([ext_w.sum(), est_w.sum(),
-                        torch.amax(torch.where(active, hi, 0))]).cpu()
+    with sanitize.harvest():
+        host = torch.stack([ext_w.sum(), est_w.sum(),
+                            torch.amax(torch.where(active, hi, 0))]).cpu()
     g_total, e_total, n_slots = (int(v) for v in host)
     if max(g_total, e_total) > seg_cap:
         raise ValueError(f"packed stream of {max(g_total, e_total)} exceeds "
@@ -542,16 +552,17 @@ def _step_body(values: torch.Tensor, s: LaneState, p: LaneParams, *,
             r2=r2, failed_fit=failed_fit)
     # ---- the tick's one host read: bucket index + active lanes ----
     needed = torch.clamp(torch.amax(torch.where(act2, win_hi, 0)), min=1)
-    w_arr = torch.as_tensor(widths[:-1], dtype=torch.int32, device=dev)
-    b_idx = torch.sum(needed > w_arr).to(torch.int64).reshape(1)
-    host = torch.cat([b_idx, active.to(torch.int64)]).cpu().numpy()
-    width = widths[int(host[0])]
-    gather_lanes = (np.nonzero(host[1:])[0] if gate_gather
-                    else np.arange(q))
+    b_idx = torch.sum(needed > _bucket_bounds(widths, dev)).to(
+        torch.int64).reshape(1)
+    with sanitize.harvest():
+        host = torch.cat([b_idx, active.to(torch.int64)]).cpu().numpy()
+        width = widths[int(host[0])]
+        gather_lanes = torch.as_tensor(
+            np.nonzero(host[1:])[0] if gate_gather else np.arange(q),
+            dtype=torch.int64, device=dev)
     # ---- extend the carried nested samples by the window only ----
     _gather_windows(values, s.buf, s.filled, win_hi, p.slot_idx,
-                    torch.as_tensor(gather_lanes, dtype=torch.int64,
-                                    device=dev), ext_cap)
+                    gather_lanes, ext_cap)
     filled = torch.maximum(s.filled, win_hi)
     # ---- bootstrap estimate on the active width bucket ----
     seeds = _bootstrap_seeds(p, s.k, m)
@@ -722,10 +733,11 @@ def _sharded_step_body(values: torch.Tensor, s: LaneState, p: LaneParams,
     llo, lhi = local(win_lo), local(win_hi)
     # ---- the tick's one host read: active lanes + widest active windows ----
     need = torch.amax(torch.where(act2[None], lhi, 0).reshape(S, -1), 1)
-    host = torch.cat([active.to(torch.int64), need.to(torch.int64)]).cpu()
-    host = host.numpy()
-    lanes = torch.as_tensor(np.nonzero(host[:q])[0], dtype=torch.int64,
-                            device=dev)
+    with sanitize.harvest():
+        host = torch.cat([active.to(torch.int64),
+                          need.to(torch.int64)]).cpu().numpy()
+        lanes = torch.as_tensor(np.nonzero(host[:q])[0], dtype=torch.int64,
+                                device=dev)
 
     def seg_tick(si: int, buf_seg: torch.Tensor, table: torch.Tensor):
         """Gather + RAW moment sums of segment ``si`` (``buf_seg`` a view of

@@ -13,8 +13,12 @@
 // length + 1.  Scores are f32 dot products times `scale`; the result is
 // acc / max(l, 1e-30) written in the dtype of q (f32 or bf16), so an empty
 // range reads zeros.  A position outside [lo, hi) is never read.  Head
-// dimensions 32, 64, 120 and 128.  The plain PyTorch version beside it is
-// src/repro_torch/kernels/decode_attention/ref.py.
+// dimensions 32, 64, 120 and 128.  On request the kernel also writes each
+// query head's log-sum-exp of its scores, m + log(l) in f32 (-1e30 for an
+// empty range), so that the outputs of a cache split over positions -- one
+// call a part, as each rank of a mesh holds its part -- merge into the
+// whole cache's (the caller merges them).  The plain PyTorch version beside
+// it is src/repro_torch/kernels/decode_attention/ref.py.
 //
 // What bounds it.  Bytes: every valid K and V row is read once and the G
 // query heads of a KV head share each read, about one multiply-add per byte.
@@ -292,7 +296,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const void* __restrict__ kv_len,
                    int len_kind, int fixed_len, int window,
-                   T* __restrict__ out,
+                   T* __restrict__ out, float* __restrict__ lse,
                    float* __restrict__ m_part, float* __restrict__ l_part,
                    float* __restrict__ acc_part, int* __restrict__ arrivals,
                    int B, int S, int Hkv, int G, long long k_sb,
@@ -650,7 +654,9 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
   if (ns == 1) {
-    each([&](int g, int c, float x, float y, float, float l) {
+    each([&](int g, int c, float x, float y, float m, float l) {
+      if (lse != nullptr && c == 0)        // one thread a head
+        lse[bh * G + g] = l > 0.f ? m + logf(l) : kNegInf;
       l = fmaxf(l, 1e-30f);
       store2(out + (bh * G + g) * D + c, x / l, y / l);
     });
@@ -745,6 +751,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < C::GPT; ++j) {
     const int g = g0 + j * C::GSTEP;
     if (g < G) {
+      if (lse != nullptr && c2 == 0)
+        lse[bh * G + g] = L[j] > 0.f ? M[j] + logf(L[j]) : kNegInf;
       const float l = fmaxf(L[j], 1e-30f);
       store2(out + (bh * G + g) * D + c2, A[j][0] / l, A[j][1] / l);
     }
@@ -760,7 +768,8 @@ int prepare() {
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* kv_len,
-           int len_kind, int fixed_len, int window, void* out, float* part,
+           int len_kind, int fixed_len, int window, void* out, float* lse,
+           float* part,
            int* arrivals, int n_blocks, int B, int S, int Hkv, int G,
            long long k_sb, long long k_ss, long long k_sh, long long v_sb,
            long long v_ss, long long v_sh, float scale, cudaStream_t st) {
@@ -768,23 +777,24 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
   decode_attn_kernel<T, D><<<n_blocks, kThreads, smem_bytes<T, D>(B, G), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_len, len_kind, fixed_len, window,
-      static_cast<T*>(out), part + n * D, part + n * D + n, part, arrivals,
-      B, S, Hkv, G, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
+      static_cast<T*>(out), lse, part + n * D, part + n * D + n, part,
+      arrivals, B, S, Hkv, G, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v,
              const void* kv_len, int len_kind, int fixed_len, int window,
-             void* out, float* part, int* arrivals, int n_blocks, int B, int S,
-             int Hkv, int G, long long k_sb, long long k_ss, long long k_sh,
+             void* out, float* lse, float* part, int* arrivals, int n_blocks,
+             int B, int S, int Hkv, int G, long long k_sb, long long k_ss,
+             long long k_sh,
              long long v_sb, long long v_ss, long long v_sh, float scale,
              cudaStream_t st) {
 #define DA_CASE(DD)                                                          \
   case DD:                                                                   \
     return launch<T, DD>(q, k, v, kv_len, len_kind, fixed_len, window, out,  \
-                         part, arrivals, n_blocks, B, S, Hkv, G, k_sb, k_ss, \
-                         k_sh, v_sb, v_ss, v_sh, scale, st);
+                         lse, part, arrivals, n_blocks, B, S, Hkv, G, k_sb,  \
+                         k_ss, k_sh, v_sb, v_ss, v_sh, scale, st);
   switch (D) {
     DA_CASE(32)
     DA_CASE(64)
@@ -818,15 +828,17 @@ extern "C" int da_prepare() {
 // takes fixed_len for every row, 1 reads kv_len as (B,) int32, 2 as (B,)
 // int64; each row attends over [lo, hi) with hi = min(max(kv_len, 0), S)
 // and lo = min(max(kv_len - window, 0), hi) for window > 0, else 0.  out
-// like q.  part holds n_blocks*G*(D+2) floats, 16-byte aligned (acc, then
-// m, then l, of each block's split); arrivals B*Hkv int32 zeros, left zero
+// like q; lse, when not null, (B, Hkv*G) f32 log-sum-exps.  part holds
+// n_blocks*G*(D+2) floats, 16-byte aligned (acc, then m, then l, of each
+// block's split); arrivals B*Hkv int32 zeros, left zero
 // by the call.
 // n_blocks is ops.grid_blocks(B, Hkv, S, n_sm, tile); B <= 1024, G <= 16.
 // Returns the CUDA error of the launch (0 = ok).
 extern "C" int da_launch(const void* q, const void* k, const void* v,
                          const void* kv_len, int len_kind, int fixed_len,
-                         int window, void* out, void* part, void* arrivals,
-                         int n_blocks, int B, int S, int Hkv, int G, int D,
+                         int window, void* out, void* lse, void* part,
+                         void* arrivals, int n_blocks, int B, int S,
+                         int Hkv, int G, int D,
                          long long k_sb, long long k_ss, long long k_sh,
                          long long v_sb, long long v_ss, long long v_sh,
                          float scale, int is_bf16, void* stream) {
@@ -834,14 +846,15 @@ extern "C" int da_launch(const void* q, const void* k, const void* v,
       len_kind < 0 || len_kind > 2 || n_blocks < B * Hkv || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   float* p = static_cast<float*>(part);
+  float* ls = static_cast<float*>(lse);
   int* arr = static_cast<int*>(arrivals);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch_d<__nv_bfloat16>(D, q, k, v, kv_len, len_kind, fixed_len,
-                                   window, out, p, arr, n_blocks, B, S, Hkv,
-                                   G, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-                                   scale, st);
+                                   window, out, ls, p, arr, n_blocks, B, S,
+                                   Hkv, G, k_sb, k_ss, k_sh, v_sb, v_ss,
+                                   v_sh, scale, st);
   return launch_d<float>(D, q, k, v, kv_len, len_kind, fixed_len, window, out,
-                         p, arr, n_blocks, B, S, Hkv, G, k_sb, k_ss, k_sh,
+                         ls, p, arr, n_blocks, B, S, Hkv, G, k_sb, k_ss, k_sh,
                          v_sb, v_ss, v_sh, scale, st);
 }

@@ -6,9 +6,13 @@ attention: one query token per row (q ``(B, Hq, d)``) over the first
 S_max, Hkv, d)``) -- under a sliding window of ``W`` positions over the
 last ``W`` of them, ``[max(0, kv_len[b] - W), kv_len[b])`` -- with
 ``kv_len`` an int or a ``(B,)`` int32/int64 device tensor that the kernel
-reads itself -- no host read of the lengths, no conversion.  On a
-CUDA tensor it launches the kernel, one launch a call (or raises); on a CPU
-tensor it runs the plain version (:mod:`.ref`), because no card is there.
+reads itself -- no host read of the lengths, no conversion.  With
+``return_lse=True`` it also returns each query head's log-sum-exp of its
+scores (``(B, Hq)`` f32, ``-1e30`` for an empty range), with which the
+outputs of a cache split over positions merge (:func:`merge`).  On a CUDA
+tensor it launches the kernel, one launch a call (or raises); on a CPU
+tensor it runs the plain version (:mod:`.ref`), because no card is there,
+and so it does on a meta tensor (a shapes-only trace computes no values).
 It never falls back.
 
 Unlike the reference's wrapper, it neither pads nor transposes the cache:
@@ -42,8 +46,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.da_prepare.argtypes = []
     lib.da_prepare.restype = I
-    lib.da_launch.argtypes = [P, P, P, P, I, I, I, P, P, P, I, I, I, I, I,
-                              I, LL, LL, LL, LL, LL, LL, ctypes.c_float, I,
+    lib.da_launch.argtypes = [P, P, P, P, I, I, I, P, P, P, P, I, I, I, I,
+                              I, I, LL, LL, LL, LL, LL, LL, ctypes.c_float, I,
                               P]
     lib.da_launch.restype = I
 
@@ -131,19 +135,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}, q "
                              f"{q.dtype} on {q.device}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {q.device}")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: Union[int, torch.Tensor], *,
                      window: Optional[int] = None,
-                     use_kernel: Union[bool, str] = "auto") -> torch.Tensor:
+                     use_kernel: Union[bool, str] = "auto",
+                     return_lse: bool = False):
     """(B, Hq, d) attention of each row's query over its first ``kv_len[b]``
     cache positions (the last ``window`` of them under a sliding window),
-    scores scaled by ``d**-0.5``, in q's dtype.  ``use_kernel`` as
-    :func:`..resolve_use_kernel`: ``True`` on a CPU tensor raises, and a
-    CUDA tensor always takes the kernel."""
+    scores scaled by ``d**-0.5``, in q's dtype; with ``return_lse`` the pair
+    (out, lse).  ``use_kernel`` as :func:`..resolve_use_kernel`: ``True`` on
+    a CPU tensor raises, and a CUDA tensor always takes the kernel."""
     _check(q, k, v)
     if window is not None and (int(window) != window or window < 1):
         raise ValueError(f"window must be a positive int, got {window!r}")
@@ -151,8 +156,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if q.device.type == "cuda":
             raise ValueError("a CUDA tensor takes the kernel; the plain "
                              "version is ref.decode_attention_ref")
-        return ref.decode_attention_ref(q, k, v, kv_len, window)
-    return _launch(q, k, v, kv_len, window)
+        return ref.decode_attention_ref(q, k, v, kv_len, window,
+                                        return_lse=return_lse)
+    return _launch(q, k, v, kv_len, window, return_lse)
+
+
+def merge(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """The attention over a cache split into ``n`` parts over positions,
+    from each part's ``(out, lse)``: ``outs`` ``(n, ..., d)``, ``lses``
+    ``(n, ...)`` stacked over the parts.  Each part weighs ``exp(lse -
+    max lse)``; parts with an empty range (lse ``-1e30``) weigh nothing
+    unless every part is empty, and then the zeros average to zeros.  f32."""
+    top = lses.amax(dim=0, keepdim=True)
+    w = torch.exp(lses - top)
+    return (w[..., None] * outs.float()).sum(0) / w.sum(0)[..., None]
 
 
 def _prepared(dev: torch.device, lib: ctypes.CDLL) -> int:
@@ -189,7 +206,7 @@ def _buffers(dev: torch.device, B: int, Hkv: int, n_blocks: int, G: int,
     return bufs
 
 
-def _launch(q, k, v, kv_len, window):
+def _launch(q, k, v, kv_len, window, return_lse=False):
     B, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -223,6 +240,8 @@ def _launch(q, k, v, kv_len, window):
         lens_ptr, kind, fixed = None, 0, min(max(int(kv_len), 0), _MAX_GRID)
     q = q.contiguous()
     out = torch.empty_like(q)
+    lse = (torch.empty(q.shape[:2], dtype=torch.float32, device=dev)
+           if return_lse else None)
     lib = library()
     n_sm = _prepared(dev, lib)
     n_blocks = grid_blocks(B, Hkv, S, n_sm, tile)
@@ -232,10 +251,11 @@ def _launch(q, k, v, kv_len, window):
         rc = lib.da_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            lens_ptr, kind, fixed,
                            min(int(window or 0), _MAX_GRID), out.data_ptr(),
+                           None if lse is None else lse.data_ptr(),
                            part.data_ptr(), arrivals.data_ptr(), n_blocks, B,
                            S, Hkv, G, d, *k.stride()[:3], *v.stride()[:3],
                            d ** -0.5, int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"decode attention launch failed: CUDA error {rc}")
     counter.launches += 1
-    return out
+    return (out, lse) if return_lse else out

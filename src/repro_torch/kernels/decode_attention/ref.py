@@ -39,13 +39,17 @@ def bounds(kv_len: Union[int, torch.Tensor], B: int, S: int,
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_len: Union[int, torch.Tensor],
-                         window: Optional[int] = None) -> torch.Tensor:
+                         window: Optional[int] = None, *,
+                         return_lse: bool = False):
     """q (B, Hq, d); k/v (B, S, Hkv, d), the cache's serving layout; query
     head ``h * G + g`` reads KV head ``h`` (G = Hq / Hkv); scores scaled by
     ``d**-0.5``.  Returns (B, Hq, d) in q's dtype: ``acc / max(l, 1e-30)``
     with ``l`` the softmax denominator over the row's range (:func:`bounds`),
     so an empty range reads zeros, as the kernel writes them.  Positions
-    outside the range add exactly nothing, whatever they hold."""
+    outside the range add exactly nothing, whatever they hold.  With
+    ``return_lse`` also each head's ``m + log(l)`` (``(B, Hq)`` f32, m the
+    largest score), ``NEG_INF`` for an empty range, as the kernel writes
+    it."""
     B, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -55,8 +59,13 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.float().reshape(B, Hkv, G, d)
     s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * d ** -0.5
     s = torch.where(valid[:, None, None], s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * valid[:, None, None]
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * valid[:, None, None]
     vf = v.float().masked_fill(~valid[:, :, None, None], 0.0)
     acc = torch.einsum("bhgs,bshd->bhgd", p, vf)
-    out = acc / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return out.reshape(B, Hq, d).to(q.dtype)
+    l = p.sum(dim=-1, keepdim=True)
+    out = (acc / l.clamp_min(1e-30)).reshape(B, Hq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(l), NEG_INF)
+    return out, lse.reshape(B, Hq)

@@ -47,7 +47,12 @@ def _nvcc() -> str:
 
 class Library:
     """One ``csrc/`` source, built at first use and loaded once.
-    ``declare`` sets ``argtypes``/``restype`` of the loaded entry points."""
+    ``declare`` sets ``argtypes``/``restype`` of the loaded entry points.
+    ``Library.builds`` and ``Library.loads`` count the compiles and loads of
+    every library in the process (the runtime sanitizer's program cache)."""
+
+    builds = 0
+    loads = 0
 
     def __init__(self, source: str, declare: Callable[[ctypes.CDLL], None]):
         self.source = CSRC / source
@@ -83,6 +88,7 @@ class Library:
             if verbose:
                 print(proc.stdout + proc.stderr)
             os.replace(tmp, out)
+            Library.builds += 1
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
@@ -95,4 +101,5 @@ class Library:
                 lib = ctypes.CDLL(str(self.build()))
                 self._declare(lib)
                 self._lib = lib
+                Library.loads += 1
         return self._lib

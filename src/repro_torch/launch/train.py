@@ -14,22 +14,39 @@ resumed from a checkpoint (``--ckpt``: the latest step there, saved every
 an uninterrupted run would.  A straggler watchdog times each step up to
 the synchronising read of its loss.  ``--eval-every N`` certifies the
 per-domain eval loss with MISS (``integration.miss_eval``) every N steps.
-``--mesh`` takes ``local`` only: one device.
+
+``--mesh local`` covers the ranks of the default process group as a
+``("data", "model")`` mesh (``launch.mesh.make_local_mesh``; with no group
+initialised, a one-rank group made for the run and torn down after it);
+``--mesh prod``/``prod2`` take the 16x16 / 2x16x16 production mesh and
+exit unless the group has 256 / 512 ranks.  On a mesh of several ranks
+the parameters are placed by ``param_shardings`` as ``init_model`` draws
+them (each rank holds one full part at most beyond its shards), the
+moments follow them (``opt_shardings``), each batch is placed by
+``batch_shardings``, and the step runs under the activation rules
+(``shardctx.make_rules``).  On a one-device mesh every spec is trivial:
+the step runs on the same plain tensors as without a mesh -- an
+identity, not a fallback.  Checkpoints hold whole tensors, so a run
+resumes on any mesh.  Every rank prints; each loss is the global one.
 """
 from __future__ import annotations
 
 import argparse
 
 import torch
+import torch.distributed as dist
 
 from ..configs import get_config
 from ..data import pipeline
 from ..models import model as M
+from ..models import shardctx
 from ..models.config import reduced_for_smoke
 from ..train import checkpoint as ckpt
 from ..train.elastic import StepWatchdog
 from ..train.optimizer import AdamWConfig
 from ..train.train_step import TrainConfig, build_train_step
+from . import sharding
+from .mesh import make_local_mesh, make_production_mesh
 
 
 def parse_args(argv=None):
@@ -58,18 +75,30 @@ def parse_args(argv=None):
 def run(argv=None) -> dict:
     """Train as ``main`` does; returns ``{"loss": last loss, "losses":
     per step, "step_s": per step seconds, "evals": MISS traces, "params"
-    and "opt_state": the trained state, "start_step": the first step
-    run}``."""
+    and "opt_state": the trained state (DTensors on a mesh of several
+    ranks), "start_step": the first step run, "mesh": the mesh}``."""
     args = parse_args(argv)
-    if args.mesh != "local":
-        raise SystemExit(
-            f"--mesh {args.mesh} needs the sharding layer (launch/mesh.py, "
-            f"launch/sharding.py), not ported yet: ROADMAP.md Queue 1 "
-            f"item 20")
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA card: pass --device cpu to train on the "
                          "CPU")
+    own_group = args.mesh == "local" and not dist.is_initialized()
+    try:
+        if args.mesh == "local":
+            mesh = make_local_mesh(device_type=dev.type)
+        else:
+            mesh = make_production_mesh(multi_pod=args.mesh == "prod2",
+                                        device_type=dev.type)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh}: {e}")
+    try:
+        return _train(args, dev, mesh)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(args, dev, mesh) -> dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced_for_smoke(cfg)
@@ -79,7 +108,15 @@ def run(argv=None) -> dict:
                               total_steps=max(args.steps, 10)),
         remat=args.remat, microbatches=args.microbatches)
     init_fn, step_fn = build_train_step(cfg, tcfg)
-    params, opt_state = init_fn(args.seed, dev)
+    sharded = sharding.ranks(mesh) > 1
+    params, opt_state = init_fn(args.seed, dev, place=(
+        sharding.placer(mesh) if sharded else None))
+    params_sh = sharding.param_shardings(M.trainable(params), mesh)
+    opt_sh = sharding.opt_shardings(opt_state, params_sh, mesh)
+    opt_state = dict(opt_state, step=sharding.place(
+        opt_state["step"], opt_sh["step"], mesh))
+    rules = (shardctx.make_rules(mesh, batch_shardable=args.batch > 1,
+                                 n_heads=cfg.n_heads) if sharded else None)
 
     start_step = 0
     saver = None
@@ -89,7 +126,9 @@ def run(argv=None) -> dict:
         if last is not None:
             state = ckpt.restore(args.ckpt, last,
                                  {"params": M.trainable(params),
-                                  "opt": opt_state})
+                                  "opt": opt_state},
+                                 {"params": params_sh, "opt": opt_sh},
+                                 mesh=mesh)
             params, opt_state = state["params"], state["opt"]
             if cfg.tie_embeddings:
                 M.attach_tied_head(cfg, params)
@@ -98,7 +137,8 @@ def run(argv=None) -> dict:
 
     batch_kw = pipeline.batch_kwargs_for(cfg, args.seq)
     dog = StepWatchdog()
-    out = {"losses": [], "step_s": [], "evals": [], "start_step": start_step}
+    out = {"losses": [], "step_s": [], "evals": [], "start_step": start_step,
+           "mesh": mesh}
     try:
         for step in range(start_step, args.steps):
             dog.start()
@@ -106,7 +146,11 @@ def run(argv=None) -> dict:
                 step, global_batch=args.batch, seq_len=args.seq,
                 vocab=cfg.vocab_size, seed=args.seed, device=dev,
                 **batch_kw)
-            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            batch = sharding.place(batch, sharding.batch_shardings(
+                batch, mesh, shard_batch=args.batch > 1), mesh)
+            with shardctx.use_rules(rules):
+                params, opt_state, metrics = step_fn(params, opt_state,
+                                                     batch)
             del batch
             loss = float(metrics["loss"])        # waits for the step
             slow = dog.stop()
@@ -119,7 +163,9 @@ def run(argv=None) -> dict:
                 saver.save(step, {"params": M.trainable(params),
                                   "opt": opt_state})
             if args.eval_every and (step + 1) % args.eval_every == 0:
-                out["evals"].append(_run_miss_eval(cfg, params, args, dev))
+                # The eval reads whole weights (gathered on a mesh).
+                out["evals"].append(_run_miss_eval(
+                    cfg, sharding.full(params), args, dev))
     finally:
         if saver:
             saver.wait()

@@ -18,6 +18,13 @@ f32, before RoPE.  Unlike the reference, which returns a new cache, decode
 writes the new K/V row into the cache tensors in place (the returned cache
 shares them) and returns a new length tensor.
 
+On a sharded cache (DTensors placed by ``launch.sharding.cache_shardings``:
+rows over the data axes, positions over the model axis, or positions over
+every axis at batch 1) each rank writes the new row into its own part and
+runs the decode-attention op on its part; where the positions are split,
+the parts' outputs merge by their log-sum-exps (``ops.merge``) after one
+all-gather of (out, lse) among the ranks that split them.
+
 Cross-attention (the encoder-decoder's decoder, the vision model's image
 layers) attends over a fixed memory whose K/V are projected once
 (:func:`cross_kv`, no RoPE).  Prefill and teacher forcing run ``_sdpa``
@@ -34,6 +41,7 @@ import torch
 from ..kernels.decode_attention import ops as da_ops
 from . import nn
 from .config import ModelConfig
+from .shardctx import constrain, is_dtensor, merge_heads, split_heads
 
 NEG_INF = -1e30
 
@@ -69,19 +77,19 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig, dtype, device,
 def _project_q(p, cfg: ModelConfig, x, rope):
     """(B, S, H, dh) queries; ``rope`` the (cos, sin) of the positions,
     computed once per call for both projections, or None (no RoPE)."""
-    B, S, _ = x.shape
-    q = nn.dense(p["wq"], x, p.get("bq")).reshape(B, S, cfg.n_heads,
-                                                  cfg.head_dim)
+    q = constrain(split_heads(nn.dense(p["wq"], x, p.get("bq")),
+                              cfg.n_heads, cfg.head_dim), "heads")
     if cfg.qk_norm:
         q = nn.rms_norm(p["q_norm"], q, cfg.rms_eps)
     return q if rope is None else nn.apply_rope(q, *rope)
 
 
 def _project_kv(p, cfg: ModelConfig, x, rope):
-    B, S, _ = x.shape
     dh, Hkv = cfg.head_dim, cfg.n_kv_heads
-    k = nn.dense(p["wk"], x, p.get("bk")).reshape(B, S, Hkv, dh)
-    v = nn.dense(p["wv"], x, p.get("bv")).reshape(B, S, Hkv, dh)
+    k = constrain(split_heads(nn.dense(p["wk"], x, p.get("bk")), Hkv, dh),
+                  "heads")
+    v = constrain(split_heads(nn.dense(p["wv"], x, p.get("bv")), Hkv, dh),
+                  "heads")
     if cfg.qk_norm:
         k = nn.rms_norm(p["k_norm"], k, cfg.rms_eps)
     return (k if rope is None else nn.apply_rope(k, *rope)), v
@@ -95,6 +103,9 @@ def _sdpa(q, k, v, mask):
     qg = q.reshape(B, S, Hkv, H // Hkv, dh)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
                           k.float()) * (dh ** -0.5)
+    # Context-parallel anchor: query-seq dim over the model axis when head
+    # sharding is unavailable (see shardctx "scores").
+    scores = constrain(scores, "scores")
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
@@ -115,14 +126,14 @@ def causal_mask(S: int, T: int, window: Optional[int] = None, device=None):
 
 def self_attention(p, cfg: ModelConfig, x):
     """Training/prefill full-sequence self-attention; returns (out, (k, v))."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     rope = nn.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     q = _project_q(p, cfg, x, rope)
     k, v = _project_kv(p, cfg, x, rope)
     mask = causal_mask(S, S, cfg.sliding_window, device=x.device)
-    out = _sdpa(q, k, v, mask)
-    return nn.dense(p["wo"], out.reshape(B, S, -1)), (k, v)
+    out = constrain(_sdpa(q, k, v, mask), "heads")
+    return constrain(nn.dense(p["wo"], merge_heads(out)), "resid"), (k, v)
 
 
 def _write_rows(cache: KVCache, k_new, v_new) -> None:
@@ -154,6 +165,8 @@ def decode_self_attention(p, cfg: ModelConfig, x, cache: KVCache):
     rope = nn.rope_angles(cache.length[:, None], cfg.head_dim, cfg.rope_theta)
     q = _project_q(p, cfg, x, rope)
     k_new, v_new = _project_kv(p, cfg, x, rope)
+    if is_dtensor(cache.k):
+        return _decode_sharded(p, cfg, q, k_new, v_new, cache)
     _write_rows(cache, k_new[:, 0], v_new[:, 0])
     new_len = cache.length + 1
     # kv_len = length + 1: the op clamps its range to the cache length.
@@ -161,6 +174,80 @@ def decode_self_attention(p, cfg: ModelConfig, x, cache: KVCache):
                                   window=cfg.sliding_window)
     out = nn.dense(p["wo"], out.reshape(B, 1, -1))
     return out, KVCache(cache.k, cache.v, new_len)
+
+
+def _rows(x):
+    """Placements of a tensor split as the rows of the sharded cache ``x``
+    are (dim 0 over the same mesh dims), whole on every other mesh dim."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(0) if pl.is_shard(0) else Replicate()
+            for pl in x.placements]
+
+
+def _part_start(x) -> int:
+    """The first position (dim 1) of this rank's part of the DTensor
+    ``x``: mesh dims that split dim 1 do so in mesh order, major first."""
+    mesh, n, idx = x.device_mesh, 1, 0
+    coord = mesh.get_coordinate()
+    for i, pl in enumerate(x.placements):
+        if pl.is_shard(1):
+            idx = idx * mesh.shape[i] + coord[i]
+            n *= mesh.shape[i]
+    part = x.to_local().shape[1]
+    if part * n != x.shape[1]:
+        raise ValueError(f"positions {x.shape[1]} split unevenly over {n} "
+                         f"ranks")
+    return idx * part
+
+
+def _attend_parts(q, k, v, kv_len, window):
+    """The decode-attention op on each rank's part of a sharded cache.
+    ``q`` (B, 1, H, dh) and ``k``/``v`` (B, T, Hkv, dh) DTensors; ``kv_len``
+    this rank's lengths counted from its part's first position (an int or
+    (B_local,) tensor; the op clamps them to its part).  Returns (B, H, dh)
+    placed as the cache's rows.  Where positions are split, each rank's
+    (out, lse) is gathered among the ranks that split them and merged."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, rows = k.device_mesh, _rows(k)
+    split = any(pl.is_shard(1) for pl in k.placements)
+    res = da_ops.decode_attention(
+        q.redistribute(mesh, rows).to_local()[:, 0], k.to_local(),
+        v.to_local(), kv_len, window=window, return_lse=split)
+    if not split:
+        return DTensor.from_local(res, mesh, rows, run_check=False)
+    out, lse = res
+    both = torch.cat([out.float(), lse[..., None]], dim=-1)[None]
+    spread = [Shard(0) if pl.is_shard(1) else Shard(1) if pl.is_shard(0)
+              else Replicate() for pl in k.placements]
+    parts = DTensor.from_local(both, mesh, spread, run_check=False)
+    parts = parts.redistribute(mesh, [
+        Shard(1) if pl.is_shard(0) else Replicate()
+        for pl in k.placements]).to_local()
+    out = da_ops.merge(parts[..., :-1], parts[..., -1]).to(q.dtype)
+    return DTensor.from_local(out, mesh, rows, run_check=False)
+
+
+def _decode_sharded(p, cfg: ModelConfig, q, k_new, v_new, cache: KVCache):
+    """``decode_self_attention`` on a sharded cache: the new row written in
+    place into the part that holds position ``length`` (rows past ``S_max``
+    keep their cache, as in :func:`_write_rows`), then
+    :func:`_attend_parts` at ``kv_len = length + 1``."""
+    mesh, rows = cache.k.device_mesh, _rows(cache.k)
+    kl, vl = cache.k.to_local(), cache.v.to_local()
+    t0 = _part_start(cache.k)
+    length = cache.length.redistribute(mesh, rows).to_local()
+    at = length.long() - t0
+    keep = ((at >= 0) & (at < kl.shape[1]))[:, None, None]
+    at = at.clamp(0, kl.shape[1] - 1)
+    r = torch.arange(kl.shape[0], device=kl.device)
+    for buf, new in ((kl, k_new), (vl, v_new)):
+        new = new.redistribute(mesh, rows).to_local()[:, 0]
+        buf[r, at] = torch.where(keep, new.to(buf.dtype), buf[r, at])
+    out = _attend_parts(q, cache.k, cache.v, length + 1 - t0,
+                        cfg.sliding_window)
+    B = q.shape[0]
+    out = nn.dense(p["wo"], out.reshape(B, 1, -1))
+    return out, KVCache(cache.k, cache.v, cache.length + 1)
 
 
 def cross_kv(p, cfg: ModelConfig, memory):
@@ -174,18 +261,22 @@ def cross_attention(p, cfg: ModelConfig, x, kv, mem_mask=None):
 
     S > 1 (prefill, teacher forcing) runs ``_sdpa`` over every memory
     position; S == 1 (decode) runs the decode-attention op over all ``T``
-    positions (int ``kv_len``).  ``mem_mask`` (B, T) bool, which no caller
-    passes, takes the plain ``_sdpa`` path at any S."""
+    positions (int ``kv_len``), on each rank's part of a sharded memory.
+    ``mem_mask`` (B, T) bool, which no caller passes, takes the plain
+    ``_sdpa`` path at any S."""
     B, S, _ = x.shape
     k, v = kv
     q = _project_q(p, cfg, x, None)
     if mem_mask is not None:
         out = _sdpa(q, k, v, mem_mask[:, None, None, None, :])
+    elif S == 1 and is_dtensor(k):
+        out = _attend_parts(q, k, v, k.shape[1] - _part_start(k), None)
     elif S == 1:
         out = da_ops.decode_attention(q[:, 0], k, v, k.shape[1])
     else:
         out = _sdpa(q, k, v, None)
-    return nn.dense(p["wo"], out.reshape(B, S, -1))
+    return nn.dense(p["wo"], merge_heads(
+        out.reshape(B, S, cfg.n_heads, cfg.head_dim)))
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype,

@@ -26,6 +26,7 @@ import torch
 
 from . import nn
 from .config import ModelConfig, MoEConfig
+from .shardctx import constrain, replicated
 
 
 # ---------------------------------------------------------------------------
@@ -45,7 +46,8 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, dtype,
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
     h = torch.nn.functional.silu(nn.dense(p["wi_gate"], x)) * nn.dense(
         p["wi_up"], x)
-    return nn.dense(p["wo"], h)
+    h = constrain(h, "ffn")
+    return constrain(nn.dense(p["wo"], h), "resid")
 
 
 # ---------------------------------------------------------------------------
@@ -102,8 +104,14 @@ def route(p, cfg: ModelConfig, xt: torch.Tensor):
     return probs, gate, choice
 
 
+@replicated
 def moe(p, cfg: ModelConfig, x: torch.Tensor):
-    """Token-choice top-k MoE.  x (B, S, d) -> (y, aux_loss)."""
+    """Token-choice top-k MoE.  x (B, S, d) -> (y, aux_loss).
+
+    Under sharding rules the call runs replicated (``shardctx.replicated``):
+    the dispatch's stable sort, scatter and gathers have no DTensor
+    strategy, and the capacity couples every token of the call, so each
+    rank routes the whole global batch as one device would."""
     mo = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -137,12 +145,12 @@ def moe(p, cfg: ModelConfig, x: torch.Tensor):
 
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
     buf[slot] = torch.where(keep[:, None], xt[t_sorted], 0.0)
-    h = buf[:E * C].reshape(E, C, d)
+    h = constrain(buf[:E * C].reshape(E, C, d), "experts")
 
     # ---- stacked expert FFN (one product over E) ----
     hg = torch.nn.functional.silu(torch.bmm(h, p["we_gate"]))
     hu = torch.bmm(h, p["we_up"])
-    ho = torch.bmm(hg * hu, p["we_down"])                        # (E, C, d)
+    ho = constrain(torch.bmm(hg * hu, p["we_down"]), "experts")  # (E, C, d)
 
     # ---- combine: each token's k weighted outputs, ascending expert ----
     contrib = ho.reshape(E * C, d)[torch.clamp(slot, max=E * C - 1)]

@@ -65,6 +65,7 @@ from . import attention as attn
 from . import mlp as mlp_mod
 from . import nn, ssm
 from .config import ModelConfig
+from .shardctx import constrain, embed_lookup, grad_placed
 
 DERIVED = ("tied_head",)        # formed from other params, not counted
 
@@ -164,32 +165,46 @@ def _init_block(gen, kind: str, cfg: ModelConfig, dtype, device):
     return p
 
 
-def init_model(cfg: ModelConfig, seed: int = 0,
-               device="cuda") -> Dict[str, Any]:
+def init_model(cfg: ModelConfig, seed: int = 0, device="cuda",
+               place=None) -> Dict[str, Any]:
     """Random weights drawn on ``device`` from a ``torch.Generator`` seeded
-    with ``seed`` (the reference's initialisers; other random numbers)."""
+    with ``seed`` (the reference's initialisers; other random numbers).  On
+    the ``meta`` device the tree carries shapes and dtypes only (the
+    reference's ``eval_shape`` of its initialiser).
+
+    ``place(path, subtree)``, when given, receives each part as soon as it
+    is drawn -- the embedding, each layer (``"layers/<i>"``), each norm,
+    the untied head -- and returns what the tree keeps (its shards: see
+    ``launch.sharding.placer``), so no more than one full part is held
+    beyond the shards.  The draws are the same with or without it."""
     cfg.validate()
     dtype = _dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if torch.device(device).type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
+    put = place or (lambda path, tree: tree)
     d = cfg.d_model
     params: Dict[str, Any] = {
-        "embed": nn.embed_init(gen, cfg.vocab_size, d, dtype, device),
-        "final_norm": nn.rms_norm_init(d, device),
+        "embed": put("embed", nn.embed_init(gen, cfg.vocab_size, d, dtype,
+                                            device)),
+        "final_norm": put("final_norm", nn.rms_norm_init(d, device)),
     }
+
+    def stack(name, kinds):
+        return [put(f"{name}/{i}", _init_block(gen, kind, cfg, dtype,
+                                                device))
+                for i, kind in enumerate(kinds)]
+
     if cfg.is_encdec:
-        params["enc"] = [_init_block(gen, "dense", cfg, dtype, device)
-                         for _ in range(cfg.n_layers)]
-        params["enc_norm"] = nn.rms_norm_init(d, device)
-        params["dec"] = [_init_block(gen, kind, cfg, dtype, device)
-                         for kind in layer_kinds(cfg)]
+        params["enc"] = stack("enc", ["dense"] * cfg.n_layers)
+        params["enc_norm"] = put("enc_norm", nn.rms_norm_init(d, device))
+        params["dec"] = stack("dec", layer_kinds(cfg))
     else:
-        params["layers"] = [_init_block(gen, kind, cfg, dtype, device)
-                            for kind in layer_kinds(cfg)]
+        params["layers"] = stack("layers", layer_kinds(cfg))
     if cfg.tie_embeddings:
         attach_tied_head(cfg, params)
     else:
-        params["unembed"] = nn.dense_init(gen, d, cfg.vocab_size, dtype,
-                                          device)
+        params["unembed"] = put("unembed", nn.dense_init(
+            gen, d, cfg.vocab_size, dtype, device))
     return params
 
 
@@ -199,6 +214,7 @@ def _apply_block(p, kind: str, cfg: ModelConfig, x, *, cache, memory=None,
     or decode; returns (x, layer cache, the MoE aux loss or None)."""
     mixer, ff = parse_kind(kind)
     aux = None
+    x = constrain(x, "resid")
     h = nn.rms_norm(p["ln1"], x, cfg.rms_eps)
     if mixer == "rwkv":
         if cache is None:
@@ -260,13 +276,13 @@ def _cross_block(p, cfg: ModelConfig, x, h, mixer: str, cache, memory):
 def _bidir_attention(p, cfg: ModelConfig, x):
     """Full bidirectional self-attention (the encoder stack): RoPE at
     positions ``arange(S)``, every key attended."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     rope = nn.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     q = attn._project_q(p, cfg, x, rope)
     k, v = attn._project_kv(p, cfg, x, rope)
     out = attn._sdpa(q, k, v, None)
-    return nn.dense(p["wo"], out.reshape(B, S, -1)), (k, v)
+    return nn.dense(p["wo"], attn.merge_heads(out)), (k, v)
 
 
 # Ops whose outputs each remat policy saves (aten names; the port's
@@ -345,7 +361,7 @@ def _memory(cfg, params, batch, remat=None):
 
 
 def _embed(cfg, params, tokens):
-    return params["embed"][tokens]
+    return constrain(embed_lookup(params["embed"], tokens), "resid")
 
 
 def _unembed(cfg, params, x):
@@ -353,9 +369,9 @@ def _unembed(cfg, params, x):
         emb = params["embed"]
         head = params.get("tied_head")
         if head is None or (emb.requires_grad and torch.is_grad_enabled()):
-            head = _tied_head(cfg, emb)
-        return torch.nn.functional.linear(x, head)
-    return torch.matmul(x, params["unembed"])
+            head = _tied_head(cfg, grad_placed(emb))
+        return constrain(torch.nn.functional.linear(x, head), "logits")
+    return constrain(torch.matmul(x, params["unembed"]), "logits")
 
 
 def train_logits(cfg: ModelConfig, params, batch, remat=None):

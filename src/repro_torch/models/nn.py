@@ -79,8 +79,11 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     """Mean cross entropy over valid positions; logits f32 upcast."""
     lf = logits.float()
     logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    # The difference is taken before the trailing unit dim is dropped: a
+    # vocabulary-sharded DTensor's gather is a masked partial sum, which
+    # reduces only at the shape it was taken (the same values either way).
+    gold = torch.gather(lf, -1, labels[..., None].long())
+    nll = (logz[..., None] - gold)[..., 0]
     if mask is None:
         return torch.mean(nll)
     mask = mask.float()

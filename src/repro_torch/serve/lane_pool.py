@@ -70,7 +70,7 @@ import numpy as np
 import torch
 
 from ..aqp.query import Query
-from ..core import bootstrap, estimators
+from ..core import bootstrap, estimators, sanitize
 from ..core import keys as keylib
 from ..core.fused import (LaneParams, LaneState, bucket_ladder, fused_step,
                           grouped_seg_cap, init_lane_state, lane_boot_seed,
@@ -217,33 +217,37 @@ def _splice(state: LaneState, params: LaneParams, lanes: List[int],
             n_min: int) -> None:
     """Reset ``lanes`` to tick 0 IN PLACE, swapping in their new queries --
     row for row what ``init_lane_state``/``make_lane_params`` build, so a
-    refilled lane is indistinguishable from a lane of a fresh pool."""
-    dev = state.k.device
-    li = torch.as_tensor(lanes, dtype=torch.int64, device=dev)
-    put = lambda t, v: t.index_put_((li,), torch.as_tensor(v, device=dev))
-    state.keys[li] = torch.as_tensor(keys.astype(np.int64), device=dev)
-    state.k[li] = 0
-    state.iters[li] = 0
-    state.n_cur[li] = n_min
-    state.filled[li] = 0
-    state.buf[li] = 0.0
-    state.prof_n[li] = 1.0
-    state.prof_loge[li] = 0.0
-    state.e[li] = float("inf")
-    state.theta[li] = 0.0
-    state.done[li] = False
-    state.failed[li] = False
-    state.beta[li] = 0.0
-    state.r2[li] = 0.0
-    put(params.scale, scale_rows.astype(np.float32))
-    put(params.epsilons, eps.astype(np.float32))
-    put(params.deltas, deltas.astype(np.float32))
-    put(params.est_fids, fids.astype(np.int32))
-    put(params.boot_base,
-        np.asarray([lane_boot_seed(k) for k in keys], np.int64))
-    put(params.warm, warm.astype(np.bool_))
-    put(params.warm_n0, warm_n0.astype(np.int32))
-    put(params.warm_beta, warm_beta.astype(np.float32))
+    refilled lane is indistinguishable from a lane of a fresh pool.
+
+    The rows are host values uploaded one by one, each upload waiting for
+    the device: a named transfer (:func:`sanitize.harvest`)."""
+    with sanitize.harvest():
+        dev = state.k.device
+        li = torch.as_tensor(lanes, dtype=torch.int64, device=dev)
+        put = lambda t, v: t.index_put_((li,), torch.as_tensor(v, device=dev))
+        state.keys[li] = torch.as_tensor(keys.astype(np.int64), device=dev)
+        state.k[li] = 0
+        state.iters[li] = 0
+        state.n_cur[li] = n_min
+        state.filled[li] = 0
+        state.buf[li] = 0.0
+        state.prof_n[li] = 1.0
+        state.prof_loge[li] = 0.0
+        state.e[li] = float("inf")
+        state.theta[li] = 0.0
+        state.done[li] = False
+        state.failed[li] = False
+        state.beta[li] = 0.0
+        state.r2[li] = 0.0
+        put(params.scale, scale_rows.astype(np.float32))
+        put(params.epsilons, eps.astype(np.float32))
+        put(params.deltas, deltas.astype(np.float32))
+        put(params.est_fids, fids.astype(np.int32))
+        put(params.boot_base,
+            np.asarray([lane_boot_seed(k) for k in keys], np.int64))
+        put(params.warm, warm.astype(np.bool_))
+        put(params.warm_n0, warm_n0.astype(np.int32))
+        put(params.warm_beta, warm_beta.astype(np.float32))
 
 
 # The per-lane rows a cross-tier migration carries: every LaneState leaf
@@ -404,6 +408,8 @@ class LanePool:
         self.shed = 0             # requests answered by pilot, never laned
         self.degraded = 0         # requests admitted at a relaxed epsilon
         self.migrations = 0       # cross-tier lane moves
+        self.steady_recompiles = 0  # libraries built/loaded after round 1
+        self._steady_cache0: Optional[int] = None
         self._group_sizes_host = np.diff(self._offsets).astype(np.int64)
         self._pilot_tab: Optional[torch.Tensor] = None   # per sample epoch
         # Hand-off buffer: harvest fills it, drain() pops it.
@@ -696,19 +702,22 @@ class LanePool:
         bootstrap, gathered from the unsharded table on its device (every
         layout sheds alike): ``(e, theta (m, 1))`` as host values, one host
         read."""
-        tab = self._pilot_table()
-        n_pilot = tab.shape[1]
         dev = self.data.device
+        with sanitize.harvest():            # the pilot's host uploads
+            tab = self._pilot_table()
+            n_pilot = tab.shape[1]
+            sizes = torch.as_tensor(
+                np.minimum(self._group_sizes_host, n_pilot), device=dev)
+            scale = torch.as_tensor(tk.scale_row, dtype=torch.float32,
+                                    device=dev)
         sample = self.data.values[tab.to(torch.int64)]         # (m, n, c)
-        sizes = torch.as_tensor(
-            np.minimum(self._group_sizes_host, n_pilot), device=dev)
         mask = (torch.arange(n_pilot, device=dev)[None, :]
                 < sizes[:, None]).to(torch.float32)
         e, theta = bootstrap.estimate_error(
-            estimators.get(tk.func), sample, mask,
-            torch.as_tensor(tk.scale_row, dtype=torch.float32, device=dev),
+            estimators.get(tk.func), sample, mask, scale,
             tk.key, tk.delta, B=B, metric=self._spec["metric"])
-        host = torch.cat([e.reshape(1), theta.reshape(-1)]).cpu().numpy()
+        with sanitize.harvest():
+            host = torch.cat([e.reshape(1), theta.reshape(-1)]).cpu().numpy()
         return float(host[0]), host[1:].reshape(theta.shape)
 
     def _shed(self, tk: _Ticket, now: float) -> None:
@@ -744,10 +753,11 @@ class LanePool:
                 continue
             s = tier.state
             tl = self.tier_lanes
-            host = torch.cat([s.done.to(torch.int64), s.failed.to(torch.int64),
-                              s.k.to(torch.int64),
-                              s.filled.to(torch.int64).reshape(-1)]).cpu()
-            host = host.numpy()
+            with sanitize.harvest():
+                host = torch.cat([
+                    s.done.to(torch.int64), s.failed.to(torch.int64),
+                    s.k.to(torch.int64),
+                    s.filled.to(torch.int64).reshape(-1)]).cpu().numpy()
             done, failed = host[:tl] != 0, host[tl:2 * tl] != 0
             k, filled = host[2 * tl:3 * tl], host[3 * tl:].reshape(tl, -1)
             tier.filled_host = filled.copy()
@@ -757,9 +767,10 @@ class LanePool:
                              or k[lane] >= max_iters)]
             if not finished:
                 continue
-            e, n_cur, iters = s.e.cpu().numpy(), s.n_cur.cpu().numpy(), \
-                s.iters.cpu().numpy()
-            theta, beta = s.theta.cpu().numpy(), s.beta.cpu().numpy()
+            with sanitize.harvest():
+                e, n_cur, iters = (s.e.cpu().numpy(), s.n_cur.cpu().numpy(),
+                                   s.iters.cpu().numpy())
+                theta, beta = s.theta.cpu().numpy(), s.beta.cpu().numpy()
             for lane in finished:
                 t = tier.occupant[lane]
                 rows = int(filled[lane].sum())
@@ -806,11 +817,13 @@ class LanePool:
             s = blk.state
             G = s.k.shape[0]
             f64 = torch.float64
-            host = torch.cat([
-                s.done.to(f64), s.failed.to(f64), s.k.to(f64),
-                s.iters.to(f64), s.n_cur[:, 0].to(f64),
-                s.filled[:, 0].to(f64), s.e.to(f64), s.theta[:, 0, 0].to(f64),
-                s.beta.reshape(-1).to(f64)]).cpu().numpy()
+            with sanitize.harvest():
+                host = torch.cat([
+                    s.done.to(f64), s.failed.to(f64), s.k.to(f64),
+                    s.iters.to(f64), s.n_cur[:, 0].to(f64),
+                    s.filled[:, 0].to(f64), s.e.to(f64),
+                    s.theta[:, 0, 0].to(f64),
+                    s.beta.reshape(-1).to(f64)]).cpu().numpy()
             done, failed, k, iters, n, filled, e, theta = \
                 host[:8 * G].reshape(8, G)
             done, failed = done != 0, failed != 0
@@ -876,7 +889,24 @@ class LanePool:
         """One scheduling round: refill, run ``ticks_per_sync`` ticks per
         busy tier and per resident block (one dispatch each), harvest, feed
         the cost model, maybe migrate a straggler.  Returns busy lanes +
-        blocks."""
+        blocks.
+
+        The round runs under :func:`sanitize.guarded` (inert unless
+        MISS_SANITIZE is set): every device sync in the pump path must be a
+        named :func:`sanitize.harvest` read.  Afterwards the recompile
+        sentinel attributes any CUDA library built or loaded after the
+        first round to ``steady_recompiles``."""
+        with sanitize.guarded():
+            out = self._tick_inner()
+        size = sanitize.program_events()
+        if self._steady_cache0 is None:
+            self._steady_cache0 = size
+        elif size > self._steady_cache0:
+            self.steady_recompiles += size - self._steady_cache0
+            self._steady_cache0 = size
+        return out
+
+    def _tick_inner(self) -> int:
         t0 = self._clock()
         self._maybe_rotate()
         self._refill()
@@ -1040,4 +1070,5 @@ class LanePool:
             "shed": self.shed,
             "degraded": self.degraded,
             "migrations": self.migrations,
+            "steady_recompiles": self.steady_recompiles,
         }

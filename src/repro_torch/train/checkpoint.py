@@ -13,7 +13,9 @@ that the reference saved restores here.  numpy has no bfloat16: a bf16
 leaf is written as its raw 16 bits (int16) with ``"bfloat16"`` in the
 manifest, and read back from those bits (the reference's files hold them
 as ``V2`` records).  ``restore`` places each leaf on the device of the
-matching leaf of ``like``.  CRCs catch torn writes; the atomic rename
+matching leaf of ``like``, placed on a mesh when asked.  A sharded
+(DTensor) leaf is saved whole, so a checkpoint is the same whatever mesh
+wrote it.  CRCs catch torn writes; the atomic rename
 means a crash leaves either the previous complete checkpoint or a
 ``.tmp`` that restore ignores.
 
@@ -31,17 +33,33 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import pytree
 
 PyTree = Any
 
 
+def _whole(leaf):
+    """A DTensor leaf as its full tensor (a collective: every rank of its
+    mesh calls it); any other leaf as it is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        return leaf.full_tensor()
+    return leaf
+
+
+def _writer() -> bool:
+    """Rank 0 of the default process group (or no group) writes files."""
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_rank() != 0)
+
+
 def _host(leaf):
     """(numpy array, manifest dtype name) of a leaf: a bf16 tensor as its
     int16 bits."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = _whole(leaf).detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy(), "bfloat16"
         leaf = t.numpy()
@@ -50,7 +68,16 @@ def _host(leaf):
 
 
 def save(root: str, step: int, tree: PyTree, *, keep: int = 3) -> str:
-    """Synchronous atomic checkpoint.  Returns the committed directory."""
+    """Synchronous atomic checkpoint.  Returns the committed directory.
+
+    A DTensor leaf is written as its full tensor, so the checkpoint does
+    not depend on the mesh; every rank of the mesh must call ``save`` (the
+    gather is a collective), and only rank 0 of the default group writes."""
+    final = os.path.join(root, f"step_{step:08d}")
+    if not _writer():
+        for leaf in pytree.leaves(tree):
+            _whole(leaf)
+        return final
     os.makedirs(root, exist_ok=True)
     name = f"step_{step:08d}"
     tmp = os.path.join(root, name + ".tmp")
@@ -96,20 +123,31 @@ def latest_step(root: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(root: str, step: int, like: PyTree) -> PyTree:
+def restore(root: str, step: int, like: PyTree, shardings=None, *,
+            mesh=None) -> PyTree:
     """Load checkpoint ``step`` shaped like ``like`` (a tree of tensors or
     arrays): each leaf a tensor on the device of ``like``'s leaf (the CPU
-    for an array)."""
+    for an array).
+
+    ``shardings`` (a spec tree of ``launch.sharding``) places each leaf on
+    ``mesh``, whatever mesh saved it: the elastic restart."""
     path = os.path.join(root, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     leaves, skel = pytree.flatten(like)
+    if shardings is None:
+        specs = [None] * len(leaves)
+    elif mesh is None:
+        raise ValueError("restore with shardings needs the target mesh")
+    else:
+        from ..launch.sharding import spec_list
+        specs = spec_list(shardings)
     if len(manifest["leaves"]) != len(leaves):
         raise ValueError(
             f"checkpoint has {len(manifest['leaves'])} leaves, expected "
             f"{len(leaves)} (model/optimizer structure changed?)")
     out = []
-    for meta, like_leaf in zip(manifest["leaves"], leaves):
+    for meta, like_leaf, spec in zip(manifest["leaves"], leaves, specs):
         fp = os.path.join(path, meta["file"])
         with open(fp, "rb") as f:
             crc = zlib.crc32(f.read())
@@ -127,7 +165,11 @@ def restore(root: str, step: int, like: PyTree) -> PyTree:
             t = torch.from_numpy(arr.copy())
         dev = (like_leaf.device if isinstance(like_leaf, torch.Tensor)
                else "cpu")
-        out.append(t.to(dev))
+        t = t.to(dev)
+        if spec is not None:
+            from ..launch.sharding import place
+            t = place(t, spec, mesh)
+        out.append(t)
     return pytree.unflatten(skel, out)
 
 
@@ -141,11 +183,15 @@ class AsyncCheckpointer:
         self.last_error: Optional[BaseException] = None
 
     def save(self, step: int, tree: PyTree):
+        """Every rank calls this (DTensor leaves are gathered); only rank 0
+        writes."""
         self.wait()
         host_tree = pytree.tree_map(
-            lambda x: (x.detach().to("cpu", copy=True)
+            lambda x: (_whole(x).detach().to("cpu", copy=True)
                        if isinstance(x, torch.Tensor) else np.array(x)),
             tree)
+        if not _writer():
+            return
 
         def work():
             try:

@@ -8,7 +8,8 @@ residual (error feedback) makes the compression unbiased over time
     g_sum, new_resid = compressed_psum(g_local, resid, mesh)
 
 ``mesh`` is a :class:`~repro_torch.core.mesh.DataMesh`: one rank per
-process of an initialised ``torch.distributed`` group.  The scales are
+process of an initialised ``torch.distributed`` group (for the pod sync,
+also the ``"pod"`` axis of a ``DeviceMesh``).  The scales are
 max-reduced so every rank dequantizes alike, and the codes are summed as
 int32, which is exact in any order: the result is bit-equal whatever the
 backend's reduction order.  Divisions take their divisor as a tensor on
@@ -18,7 +19,7 @@ reference's ``x / 127.0``, and the card must give the CPU's bits.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -67,14 +68,22 @@ def compressed_psum(x: torch.Tensor, resid: torch.Tensor, mesh: DataMesh
     return total.float() * scale_max, new_resid
 
 
-def make_pod_gradient_sync(pod_mesh: Optional[DataMesh], *,
-                           enabled: bool = True):
+def make_pod_gradient_sync(pod_mesh, *, enabled: bool = True):
     """grad_sync(grads, resids) -> (grads, resids): each leaf summed over
-    ``pod_mesh``'s ranks with int8 error feedback and divided by their
-    count; the identity when disabled or when there is no pod mesh (the
-    reference's case of a mesh without a ``pod`` axis)."""
+    the pod ranks with int8 error feedback and divided by their count.
+
+    ``pod_mesh`` is a :class:`DataMesh` over the pod ranks, or a
+    ``DeviceMesh`` (``launch.mesh``) whose ``"pod"`` axis gives them: each
+    rank reduces over the sub-group of ranks that share its other
+    coordinates.  The identity when disabled, when there is no mesh, or
+    when the mesh has no ``"pod"`` axis (the reference's case)."""
     if not enabled or pod_mesh is None:
         return lambda g, r: (g, r)
+    if not isinstance(pod_mesh, DataMesh):
+        if "pod" not in (pod_mesh.mesh_dim_names or ()):
+            return lambda g, r: (g, r)
+        pod_mesh = DataMesh(group=pod_mesh.get_group("pod"),
+                            device=pod_mesh.device_type)
 
     def grad_sync(grads, resids):
         flat_g, skel = pytree.flatten(grads)

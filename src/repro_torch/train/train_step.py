@@ -13,6 +13,12 @@ carry a tied head formed anew from the updated embedding, so ``prefill``
 and ``decode_step`` serve the trained weights.  Microbatching splits the
 batch axis into ``k`` parts and accumulates the loss and the gradients in
 f32 before scaling by ``1/k``, as the reference's ``lax.scan`` does.
+
+On DTensor parameters (a mesh of several ranks, ``launch.sharding``) the
+same code runs sharded: plain tensors meet DTensors as replicated ones
+(``shardctx.mixed``), each gradient is reduce-scattered to its parameter's
+placements before the update, and the metrics come back whole.  The
+caller installs the activation rules (``shardctx.use_rules``).
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ..models import model as M
+from ..models import shardctx
 from ..models.config import ModelConfig
 from . import pytree
 from .optimizer import AdamWConfig, adamw_init, adamw_update
@@ -40,8 +47,8 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig
                      ) -> Tuple[Callable, Callable]:
     """Returns (init_fn, step_fn); see the module docstring."""
 
-    def init_fn(seed: int = 0, device="cuda"):
-        params = M.init_model(cfg, seed, device=device)
+    def init_fn(seed: int = 0, device="cuda", place=None):
+        params = M.init_model(cfg, seed, device=device, place=place)
         return params, adamw_init(tcfg.optimizer, M.trainable(params))
 
     def value_and_grad(flat, skel, batch):
@@ -50,7 +57,8 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig
                          remat=tcfg.remat)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-        return loss.detach(), list(grads)
+        return loss.detach(), [_placed_like(g, t) for g, t in
+                               zip(grads, flat)]
 
     def grads_of(flat, skel, batch):
         k = tcfg.microbatches
@@ -76,13 +84,31 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig
 
     def step_fn(params, opt_state, batch):
         flat, skel = pytree.flatten(M.trainable(params))
-        loss, grads = grads_of(flat, skel, batch)
-        new, opt_state, metrics = adamw_update(
-            tcfg.optimizer, pytree.unflatten(skel, grads), opt_state,
-            pytree.unflatten(skel, flat))
-        del grads
-        if cfg.tie_embeddings:
-            M.attach_tied_head(cfg, new)
-        return new, opt_state, dict(metrics, loss=loss)
+        sharded = shardctx.is_dtensor(flat[0])
+        with shardctx.mixed(sharded):
+            loss, grads = grads_of(flat, skel, batch)
+            new, opt_state, metrics = adamw_update(
+                tcfg.optimizer, pytree.unflatten(skel, grads), opt_state,
+                pytree.unflatten(skel, flat))
+            del grads
+            if cfg.tie_embeddings:
+                M.attach_tied_head(cfg, new)
+        metrics = dict(metrics, loss=loss)
+        if sharded:
+            metrics = {k: _whole(v) for k, v in metrics.items()}
+        return new, opt_state, metrics
 
     return init_fn, step_fn
+
+
+def _placed_like(g, t):
+    """A gradient on its parameter's placements: the sum over the data
+    axes that DTensor leaves pending (``Partial``) is reduced and scattered
+    to the parameter's shards.  A plain gradient passes through."""
+    if shardctx.is_dtensor(g) and g.placements != t.placements:
+        return g.redistribute(t.device_mesh, t.placements)
+    return g
+
+
+def _whole(x):
+    return x.full_tensor() if shardctx.is_dtensor(x) else x

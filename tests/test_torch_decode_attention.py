@@ -386,3 +386,91 @@ def test_cuda_windowed_kernel_matches_plain_version(dtype):
         assert torch.isfinite(one).all()
         assert torch.equal(one, ops.decode_attention(qc, kc, vc, same,
                                                      window=W))
+
+
+def _merged_parts(q, k, v, lens, window, n_parts):
+    """The op on ``n_parts`` equal slices of the positions, each at its
+    lengths counted from its first position, merged by ``ops.merge``."""
+    S = k.shape[1]
+    part = S // n_parts
+    outs, lses = [], []
+    for i in range(n_parts):
+        t0 = i * part
+        o, lse = ops.decode_attention(
+            q, k[:, t0:t0 + part], v[:, t0:t0 + part], lens - t0,
+            window=window, return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    return ops.merge(torch.stack(outs), torch.stack(lses))
+
+
+# Lengths before, on and past the parts' boundaries, an empty row, a full
+# one and one past S_max (S = 256 in 2 or 4 parts).
+PART_LENS = np.array([0, 1, 63, 64, 65, 128, 200, 256, 300])
+
+
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("n_parts", [2, 4])
+def test_parts_merge_into_the_whole_cache(window, n_parts):
+    """A cache split over positions, the op on each part and the parts
+    merged by their log-sum-exps, equals the op on the whole cache (the
+    sharded decode's arithmetic); the plain version's lse is the scores'
+    logsumexp over each row's range, -1e30 for an empty one, and asking
+    for it leaves the output as it is."""
+    B, Hq, Hkv, d, S = len(PART_LENS), 8, 2, 64, 256
+    q, k, v = (torch.from_numpy(a) for a in _case(B, Hq, Hkv, d, S, seed=5))
+    lens = torch.as_tensor(PART_LENS, dtype=torch.int32)
+    whole, lse = ops.decode_attention(q, k, v, lens, window=window,
+                                      return_lse=True)
+    assert torch.equal(whole, ops.decode_attention(q, k, v, lens,
+                                                   window=window))
+    lo, hi = ref.bounds(lens, B, S, window, "cpu")
+    for b in range(B):
+        s = torch.einsum("hgd,shd->hgs", q[b].reshape(Hkv, Hq // Hkv, d),
+                         k[b, lo[b]:hi[b]]) * d ** -0.5
+        want = (torch.logsumexp(s, -1).reshape(Hq) if hi[b] > lo[b]
+                else torch.full((Hq,), ref.NEG_INF))
+        assert_allclose(lse[b].numpy(), want.numpy(), rtol=1e-6, atol=1e-5)
+    got = _merged_parts(q, k, v, lens, window, n_parts)
+    assert_allclose(got.numpy(), whole.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_lse_and_parts_match_plain_version(dtype):
+    """On the card: the kernel's log-sum-exps against the plain version's
+    (the output unchanged by asking for them, one counted launch a call),
+    at the serve's shape and at the test's part lengths, with and without a
+    window; and the kernel on 2 and 4 parts of the cache, merged, against
+    the plain version on the whole cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(3)
+    cases = [(8, 12, 2, 128, 2048, rng.integers(1, 1057, 8)),
+             (len(PART_LENS), 8, 2, 64, 256, PART_LENS)]
+    for B, Hq, Hkv, d, S, lens in cases:
+        q, k, v = (torch.from_numpy(a).to(dev, tdt)
+                   for a in _case(B, Hq, Hkv, d, S, seed=S))
+        kv_len = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        for window in (None, 40):
+            n = ops.counter.launches
+            got, lse = ops.decode_attention(q, k, v, kv_len, window=window,
+                                            return_lse=True)
+            assert ops.counter.launches == n + 1
+            assert torch.equal(got, ops.decode_attention(q, k, v, kv_len,
+                                                         window=window))
+            want, want_lse = ref.decode_attention_ref(
+                q.float(), k.float(), v.float(), kv_len, window,
+                return_lse=True)
+            torch.cuda.synchronize()
+            assert torch.allclose(lse, want_lse, rtol=1e-6, atol=1e-5)
+            for n_parts in (2, 4):
+                merged = _merged_parts(q, k, v, kv_len, window, n_parts)
+                if dtype == "float32":
+                    assert torch.allclose(merged, want, rtol=1e-5,
+                                          atol=1e-6)
+                else:   # each part rounds once to bf16, then the merge
+                    assert torch.allclose(merged, want, rtol=1e-2,
+                                          atol=1e-2)

@@ -67,3 +67,32 @@ def test_chip_smoke_imports_neither():
     for bad in ("import jax", "from jax", "import repro\n", "from repro.",
                 "from repro ", "import repro."):
         assert bad not in text, bad
+
+
+_PLACEMENT = r"""
+import sys
+sys.modules["jax"] = None
+import importlib
+names = ["repro_torch.launch.mesh", "repro_torch.launch.sharding",
+         "repro_torch.launch.hlo_analysis", "repro_torch.launch.dryrun",
+         "repro_torch.models.shardctx", "repro_torch.core.sanitize"]
+for name in names:
+    importlib.import_module(name)
+import torch.distributed as dist
+leaked = sorted(m for m in sys.modules
+                if m == "repro" or m.startswith("repro."))
+assert not leaked, leaked
+assert not dist.is_initialized(), "a process group was initialised at import"
+fake = [m for m in sys.modules if m.endswith("fake_pg")]
+assert not fake, fake
+print("ok", len(names))
+"""
+
+
+def test_placement_layer_imports_alone():
+    """The placement layer, the dry run, its analysis and the sanitizer
+    import without JAX or the reference, and importing them initialises
+    no process group and loads no fake backend."""
+    out = _run(_PLACEMENT)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.split() == ["ok", "6"]

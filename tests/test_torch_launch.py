@@ -134,7 +134,7 @@ def test_train_main_eval_and_microbatches(capsys):
 
 
 def test_train_main_refusals(monkeypatch):
-    with pytest.raises(SystemExit, match="item 20"):
+    with pytest.raises(SystemExit, match="needs 256 ranks"):
         T.main(SMOKE + ["--mesh", "prod"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
