@@ -1,0 +1,7 @@
+"""Device, in the open-loop cells: 1 - (union of device-busy intervals /
+traced window), in %."""
+from aqpbench.metrics_common import idle_share
+
+
+def read(run):
+    return idle_share(run)
