@@ -3,16 +3,16 @@
 
 Runs one of ``chip_smoke.py``'s serve phases once to warm up, then once
 more under ``torch.profiler``, and prints the wall time, the device busy
-share (summed CUDA kernel time over wall time), and the top device and host
-ops.  The phases (TPC-H lineitem SF10 resident on the card, a forced-POOL
-``AQPSession`` with the reference defaults):
+share (the union of the device's busy intervals over the profiled window,
+read by ``aqpbench/devtrace.py``, which leaves out the device-side copies of
+the program's spans), and the top device and host ops.  The solo and
+grouped serves of the pool are measured by the benchmark's cells
+(``aqpbench/run.py --trace 1``).  The phases (TPC-H lineitem SF10 resident
+on the card):
 
-* default: the solo serve, 16 avg/sum/var/std requests, GROUP BY
-  SHIPINSTRUCT;
-* ``--grouped``: the grouped serve, 8 GROUP BY requests as lane blocks and
-  4 solo requests in one pool, GROUP BY TAX;
-* ``--sharded``: the solo serve through a sharded session
-  (``data_shards=4, mesh=False``), ``chip_smoke.py`` phase 18's pool;
+* ``--sharded``: 16 avg/sum/var/std requests, GROUP BY SHIPINSTRUCT,
+  through a forced-POOL sharded session (``data_shards=4, mesh=False``),
+  ``chip_smoke.py`` phase 18's pool;
 * ``--host``: the host serve of ``chip_smoke.py`` phase 14, its 12
   requests on the HOST route (auto planner) and the engine's exact answers
   of the moment requests, GROUP BY SHIPINSTRUCT; it also prints the
@@ -42,13 +42,21 @@ ops.  The phases (TPC-H lineitem SF10 resident on the card, a forced-POOL
   stacked init probes; every stream-length rung, phase 8's L = 9000 stream
   and the grouped serve's own streams), each from a CUDA graph of 20
   calls, once for each checkout TREE as ``--decode`` does.
+* ``--spans WORKLOAD SEED``: one traced run of a benchmark cell
+  (``aqpbench/run.py --trace 1`` at ``run_seconds``), then its traced
+  sub-window by the program's innermost span: idle device seconds (as
+  ``DeviceTrace.idle_gaps``), and each device operation's launches and
+  device seconds put down to the innermost span around its launch call,
+  found through the profiler's launch correlation, with the ATen op that
+  launched it; and the clock check (no operation starts before its launch
+  call).  With a path, the table and the run's result are written there
+  as JSON.
 
-The solo and grouped profiles print each bootstrap kernel's share of the
-device time.  Run from the root of a checkout on a machine with a CUDA
-card: ``python3 profile_serve.py [--grouped | --sharded | --host | --warm |
---lm | --train | --decode [TREE ...] | --boot [TREE ...]] [TRACE.json]``;
-with a path,
-the Chrome trace is written there.
+The sharded, host and warm profiles print each bootstrap kernel's share of
+the device time.  Run from the root of a checkout on a machine with a CUDA
+card: ``python3 profile_serve.py --sharded | --host | --warm | --lm |
+--train | --decode [TREE ...] | --boot [TREE ...] | --spans WORKLOAD SEED
+[TRACE.json]``; with a path, the Chrome trace is written there.
 """
 import argparse
 import contextlib
@@ -58,26 +66,29 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from aqpbench import devtrace  # noqa: E402
 from chip_smoke import (LM_ARCH, LM_S_MAX, LM_SLOTS, N_CAP,  # noqa: E402
                         N_MAX, SERVE, TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ,
-                        fail, grouped_requests, host_requests, lm_requests,
-                        nvidia_smi, run_lm_serve, serve_requests)
+                        fail, host_requests, lm_requests, nvidia_smi,
+                        run_lm_serve, serve_requests)
 
 
-def serve_once(data, reqs, data_shards: int = 1) -> float:
+def serve_once(data, reqs) -> None:
+    """The requests through a forced-POOL session of 4 row shards on one
+    device (phase 18's pool)."""
     from repro_torch.aqp.query import Query, Request
     from repro_torch.serve import AQPSession, Planner, Route
 
-    sess = AQPSession(data, data_shards=data_shards,
-                      mesh=False if data_shards > 1 else None,
+    sess = AQPSession(data, data_shards=4, mesh=False,
                       planner=Planner(mode=Route.POOL, pool_lanes=8,
-                                      data_shards=data_shards), **SERVE)
+                                      data_shards=4), **SERVE)
     t0 = time.perf_counter()
     for f, e, g in reqs:
         sess.submit(Request(query=Query(func=f, epsilon=e, group_by=g)))
@@ -90,10 +101,9 @@ def serve_once(data, reqs, data_shards: int = 1) -> float:
     print(f"  wall {wall * 1e3:.1f} ms, pool ticks {st['pool']['ticks']}, "
           f"dispatches {st['fused_dispatches']}, block ticks "
           f"{st['pool']['block_ticks']}")
-    return wall
 
 
-def host_once(data, reqs) -> float:
+def host_once(data, reqs) -> None:
     """Phase 14's requests through a fresh session on the HOST route, then
     the engine's exact answers of the moment requests."""
     from repro_torch.aqp.query import Query, Request
@@ -115,13 +125,12 @@ def host_once(data, reqs) -> float:
     st = sess.stats()
     print(f"  wall {wall * 1e3:.1f} ms, rows touched {st['rows_touched']} "
           f"(store {st['store_rows']}, fused {st['fused_rows']})")
-    return wall
 
 
-def warm_once(data, reqs, measured) -> float:
+def warm_once(data, reqs, measured) -> None:
     """Phase 16(a)'s solo waves: the requests cold, then, inside
     ``measured`` (a context manager), their exact repeats and their near
-    repeats at epsilon / 1.1; returns the measured waves' wall time."""
+    repeats at epsilon / 1.1."""
     from repro_torch.aqp.query import Query, Request
     from repro_torch.serve import AQPSession, Planner, Route
 
@@ -149,20 +158,192 @@ def warm_once(data, reqs, measured) -> float:
           f"{st['warm_cache']['exact_hits']}, warm lanes spliced "
           f"{st['pool']['warm_spliced']}, warm_verify_failures "
           f"{st['warm_verify_failures']}")
-    return wall
 
 
-def device_summary(prof, wall: float, what: str):
-    """Device busy time over ``wall`` and the kernel count of a profile."""
-    events = prof.key_averages()
-    cuda = [e for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in cuda)
-    n_kernels = sum(e.count for e in cuda)
-    print(f"  {what}: device busy {dev_us / 1e3:.2f} ms of {wall * 1e3:.1f} "
-          f"ms wall: busy share {dev_us / 1e6 / wall:.3f}, idle share "
-          f"{1 - dev_us / 1e6 / wall:.3f}; {n_kernels} device kernels")
-    return events, cuda, dev_us, n_kernels
+def profiler():
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+@contextlib.contextmanager
+def window(prof):
+    """Profile the block with ``prof``, marked as the window that
+    :func:`device_summary` reads."""
+    with prof, record_function(devtrace.WINDOW):
+        yield prof
+
+
+def device_summary(prof, what: str):
+    """The device's busy time (the union of its busy intervals, so
+    overlapping operations count once) over the profiled window, and the
+    device operations that started in it; returns the profile's
+    ``key_averages()`` and its :class:`devtrace.DeviceTrace`."""
+    tr = devtrace.read(prof)
+    if tr is None:
+        fail("the profile has no window span")
+    busy, wall = tr.busy_s(), tr.window_s
+    print(f"  {what}: device busy {busy * 1e3:.2f} ms of {wall * 1e3:.1f} "
+          f"ms window: busy share {busy / wall:.3f}, idle share "
+          f"{1 - busy / wall:.3f}; {tr.count_in_window()} device ops")
+    return prof.key_averages(), tr
+
+
+NO_SPAN = "host:outside spans"
+# Idle labels that name no phase of the serving loop.
+NO_PHASE = (NO_SPAN, "session.pump", "lane_pool.tick")
+
+
+def _innermost(spans, points):
+    """The name of the innermost of the properly nested ``spans`` (name,
+    start, end) around each of ``points``, or :data:`NO_SPAN`."""
+    order = sorted(range(len(spans)), key=lambda i: (spans[i][1],
+                                                     -spans[i][2]))
+    out = [NO_SPAN] * len(points)
+    stack, j = [], 0
+    for qi in sorted(range(len(points)), key=points.__getitem__):
+        t = points[qi]
+        while j < len(order) and spans[order[j]][1] <= t:
+            start = spans[order[j]][1]
+            while stack and spans[stack[-1]][2] < start:
+                stack.pop()
+            stack.append(order[j])
+            j += 1
+        while stack and spans[stack[-1]][2] < t:
+            stack.pop()
+        if stack:
+            out[qi] = spans[stack[-1]][0]
+    return out
+
+
+def span_table(prof, tr) -> dict:
+    """The traced window by launching span: idle seconds, device ops
+    launched and their device seconds, the top device ops by launching span
+    and ATen op, and the clock check."""
+    from collections import Counter, defaultdict
+
+    cuda = torch.autograd.DeviceType.CUDA
+    lo, hi = tr.window
+    runtime, cpu_ops, device = {}, {}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == cuda:
+            if e.duration_ns() > 0 and not name.startswith(
+                    devtrace.SPANS) and lo <= e.start_ns() < hi:
+                device.append(e)
+        elif name.startswith("cu"):          # CUDA runtime/driver calls
+            runtime[e.correlation_id()] = e
+        elif name.startswith("aten::"):
+            cpu_ops[e.correlation_id()] = e
+    launch, via, aten = [], Counter(), []
+    for e in device:
+        r = runtime.get(e.correlation_id())
+        op = cpu_ops.get(e.linked_correlation_id())
+        if r is not None:
+            launch.append(r.start_ns())
+            via["runtime call"] += 1
+            op = op or cpu_ops.get(r.linked_correlation_id())
+        elif op is not None:
+            launch.append(op.start_ns())
+            via["ATen op"] += 1
+        else:
+            launch.append(e.start_ns())
+            via["none (own start)"] += 1
+        aten.append(op.name() if op is not None else "-")
+    where = _innermost(tr.spans, launch)
+    by_span = defaultdict(lambda: [0.0, 0, 0.0])
+    for name, t in tr.idle_gaps(len(tr.spans) + 1):
+        by_span[name][0] += t
+    top = defaultdict(float)
+    for e, sp, op in zip(device, where, aten):
+        d = e.duration_ns() * 1e-9
+        by_span[sp][1] += 1
+        by_span[sp][2] += d
+        top[(e.name()[:60], sp, op)] += d
+    offsets = np.asarray([e.start_ns() - t for e, t in zip(device, launch)],
+                         np.int64)
+    # How the offsets run over the window: a constant shift of the device
+    # clock against the host's, or a drift.
+    tenth = np.minimum((np.asarray(launch, np.int64) - lo) * 10
+                       // max(hi - lo, 1), 9)
+    drift = [int(np.median(offsets[tenth == i])) if (tenth == i).any()
+             else None for i in range(10)]
+    by_kernel = defaultdict(lambda: [defaultdict(float), defaultdict(float)])
+    for (name, sp, op), d in top.items():
+        by_kernel[name][0][sp] += d
+        by_kernel[name][1][op] += d
+    heavy = sorted(by_kernel, key=lambda k: -sum(by_kernel[k][0].values()))
+    idle = sum(v[0] for v in by_span.values())
+    rows = sorted(([k] + v for k, v in by_span.items()),
+                  key=lambda r: -r[1])
+    return {
+        "window_s": tr.window_s, "busy_s": tr.busy_s(), "idle_s": idle,
+        "idle_no_phase_share": sum(v[0] for k, v in by_span.items()
+                                   if k in NO_PHASE) / max(idle, 1e-12),
+        "rows": rows,
+        "top_ops": [[*k, v] for k, v in sorted(top.items(),
+                                                key=lambda kv: -kv[1])[:25]],
+        "by_kernel": {k: [sorted(by_kernel[k][0].items(),
+                                 key=lambda kv: -kv[1]),
+                          sorted(by_kernel[k][1].items(),
+                                 key=lambda kv: -kv[1])[:10]]
+                      for k in heavy[:3]},
+        "launch_found_by": dict(via),
+        "worst_start_after_launch_ns": (int(offsets.min()) if offsets.size
+                                        else None),
+        "ops_starting_before_launch": int((offsets < 0).sum()),
+        "start_after_launch_quantiles_ns": (
+            [int(x) for x in np.quantile(offsets, [0, 0.01, 0.1, 0.5])]
+            if offsets.size else None),
+        "median_offset_by_tenth_of_window_ns": drift,
+    }
+
+
+def profile_spans(workload: str, seed: int, dest=None) -> None:
+    """One traced run of ``workload`` and its :func:`span_table`, written
+    to ``dest`` as JSON when given."""
+    import json as _json
+    from aqpbench import harness
+    from aqpbench.cell import load_cell
+
+    seen = {}
+    read = devtrace.read
+
+    def keep(prof):
+        seen["prof"], seen["tr"] = prof, read(prof)
+        return seen["tr"]
+
+    manifest = _json.loads((ROOT / "BENCHMARK.json").read_text())
+    devtrace.read = keep
+    try:
+        out = harness.run_cell(load_cell(workload), seed,
+                               float(manifest["run_seconds"]), True,
+                               torch.device("cuda", 0), time.perf_counter())
+    finally:
+        devtrace.read = read
+    print(_json.dumps(out, default=str), flush=True)
+    table = span_table(seen["prof"], seen["tr"])
+    print(f"{workload} seed {seed}: correct {out['correct']}, window "
+          f"{table['window_s']:.3f} s, busy {table['busy_s']:.4f} s, idle "
+          f"{table['idle_s']:.3f} s, of it with no phase label "
+          f"{table['idle_no_phase_share']:.4f}")
+    print("launching span | idle s | device ops | device s")
+    for name, idle, n, dev in table["rows"]:
+        print(f"{name} | {idle:.4f} | {n} | {dev:.5f}")
+    print("device op | launching span | ATen op | device s")
+    for name, sp, op, dev in table["top_ops"]:
+        print(f"{name} | {sp} | {op} | {dev:.5f}")
+    for name, (spans, ops) in table["by_kernel"].items():
+        print(f"{name}: by span {spans}; by ATen op {ops}")
+    print(f"start after launch, quantiles 0/1/10/50 % "
+          f"{table['start_after_launch_quantiles_ns']} ns, median by tenth "
+          f"of the window {table['median_offset_by_tenth_of_window_ns']}")
+    print(f"launch found by {table['launch_found_by']}; worst start after "
+          f"launch {table['worst_start_after_launch_ns']} ns; ops starting "
+          f"before their launch {table['ops_starting_before_launch']}")
+    if dest:
+        dest = Path(dest)
+        dest.parent.mkdir(parents=True, exist_ok=True)
+        dest.write_text(_json.dumps({"table": table, "result": out},
+                                    default=str))
 
 
 def profile_lm(trace) -> None:
@@ -178,20 +359,17 @@ def profile_lm(trace) -> None:
     print("warm-up run")
     run_lm_serve(cfg, params, prompts[:2])
     print("profiled run")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    with window(profiler()) as prof:
         st = run_lm_serve(cfg, params, prompts)
     steps = st["steps"]
     print(f"  {len(st['done'])} requests, {steps} decode steps, "
           f"{len(st['splice_s'])} prefills, wall {st['wall'] * 1e3:.1f} ms")
-    events, cuda, dev_us, _ = device_summary(prof, st["wall"], "serve")
-    da_us = sum(e.self_device_time_total for e in cuda
-                if "decode_attn" in e.key)
-    da_n = sum(e.count for e in cuda if "decode_attn" in e.key)
+    events, tr = device_summary(prof, "serve")
+    da_n, da_s = tr.kernel("decode_attn")
     calls = cfg.n_layers * steps
     print(f"  decode attention: {calls} calls ran {da_n} device kernels, "
-          f"{da_us / 1e3:.3f} ms = {da_us / max(dev_us, 1e-9):.4f} of device "
-          f"time ({da_us / max(calls, 1):.2f} us a call)")
+          f"{da_s * 1e3:.3f} ms = {da_s / max(tr.busy_s(), 1e-12):.4f} of "
+          f"device time ({da_s * 1e6 / max(calls, 1):.2f} us a call)")
     print(events.table(sort_by="self_device_time_total", row_limit=15))
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
     if trace:
@@ -205,17 +383,16 @@ def profile_lm(trace) -> None:
     tok = torch.zeros((LM_SLOTS, 1), dtype=torch.long, device="cuda")
     _, caches = M.decode_step(cfg, params, tok, caches)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    with window(profiler()) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             _, caches = M.decode_step(cfg, params, tok, caches)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _, _, step_us, n_kernels = device_summary(prof, wall,
-                                             f"{n} lone decode steps")
-    print(f"  per decode step: {n_kernels / n:.0f} device kernels, device "
-          f"busy {step_us / n / 1e3:.3f} ms, wall {wall / n * 1e3:.3f} ms")
+    _, tr = device_summary(prof, f"{n} lone decode steps")
+    print(f"  per decode step: {tr.count_in_window() / n:.0f} device ops, "
+          f"device busy {tr.busy_s() / n * 1e3:.3f} ms, wall "
+          f"{wall / n * 1e3:.3f} ms")
 
 
 def _events_ms(fn, n: int) -> float:
@@ -274,14 +451,11 @@ def profile_train(trace) -> None:
     print(f"  \"dots\" step parts: forward + backward {fb:.1f} ms, AdamW "
           f"update {up:.1f} ms ({len(flat)} leaves)")
     del grads[:], g
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        t0 = time.perf_counter()
+    with window(profiler()) as prof:
         params, opt_state, m = step(params, opt_state, batch)
         float(m["loss"])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events, cuda, dev_us, _ = device_summary(prof, wall, "one step")
+    events, _ = device_summary(prof, "one step")
     print(events.table(sort_by="self_device_time_total", row_limit=15))
     print(events.table(sort_by="self_cpu_time_total", row_limit=10))
     if trace:
@@ -406,8 +580,6 @@ def profile_decode(trees) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--grouped", action="store_true",
-                    help="profile the grouped serve (GROUP BY TAX)")
     ap.add_argument("--sharded", action="store_true",
                     help="profile the solo serve on a 4-shard session")
     ap.add_argument("--host", action="store_true",
@@ -426,8 +598,17 @@ def main() -> None:
                     help="time the two bootstrap kernels of each checkout "
                          "(default: this one)")
     ap.add_argument("--boot-tree", help=argparse.SUPPRESS)
-    ap.add_argument("trace", nargs="?", help="write the Chrome trace here")
+    ap.add_argument("--spans", nargs=2, metavar=("WORKLOAD", "SEED"),
+                    help="a traced run of a benchmark cell by launching "
+                         "span")
+    ap.add_argument("trace", nargs="?", help="write the Chrome trace here "
+                    "(with --spans: the table, as JSON)")
     args = ap.parse_args()
+    if not (args.sharded or args.host or args.warm or args.lm or args.train
+            or args.decode is not None or args.boot is not None
+            or args.decode_tree or args.boot_tree or args.spans):
+        ap.error("name a mode; the pool's solo and grouped serves are the "
+                 "benchmark's cells (aqpbench/run.py --trace 1)")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: a CUDA card is required")
     if args.decode_tree:
@@ -437,6 +618,9 @@ def main() -> None:
         boot_one(args.boot_tree)
         return
     print(nvidia_smi("name,power.limit"))
+    if args.spans:
+        profile_spans(args.spans[0], int(args.spans[1]), args.trace)
+        return
     if args.decode is not None:
         profile_decode(args.decode or [str(ROOT)])
         return
@@ -451,36 +635,32 @@ def main() -> None:
         return
     from repro_torch.data import make_lineitem
 
-    data, _ = make_lineitem(scale_factor=10, group_by=(
-        "tax" if args.grouped else "shipinstruct"), device="cuda")
-    once = (host_once if args.host else
-            (lambda d, r: serve_once(d, r, data_shards=4)) if args.sharded
-            else serve_once)
+    data, _ = make_lineitem(scale_factor=10, group_by="shipinstruct",
+                            device="cuda")
     if args.host:
-        reqs = host_requests(data)
-    elif args.grouped:
-        reqs = grouped_requests(data)[0]
+        once, reqs = host_once, host_requests(data)
     else:
+        once = serve_once
         reqs = [r + (False,) for r in serve_requests(data)[0]]
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profiler()
     print("warm-up run")
     if args.warm:
         warm_once(data, reqs, contextlib.nullcontext())
         print("profiled run")
-        wall = warm_once(data, reqs, prof)
+        warm_once(data, reqs, window(prof))
     else:
         once(data, reqs)
         print("profiled run")
-        with prof:
-            wall = once(data, reqs)
-    events, cuda, dev_us, _ = device_summary(prof, wall, "serve")
+        with window(prof):
+            once(data, reqs)
+    events, tr = device_summary(prof, "serve")
+    busy = tr.busy_s()
     for name, tag in (("Poisson bootstrap", "pb_"),
                       ("segment bootstrap", "seg_boot"),
                       ("segment aggregate", "seg_agg")):
-        k_us = sum(e.self_device_time_total for e in cuda if tag in e.key)
-        k_n = sum(e.count for e in cuda if tag in e.key)
-        print(f"  {name}: {k_n} device kernels, {k_us / 1e3:.3f} ms = "
-              f"{k_us / max(dev_us, 1e-9):.4f} of device time")
+        k_n, k_s = tr.kernel(tag)
+        print(f"  {name}: {k_n} device kernels, {k_s * 1e3:.3f} ms = "
+              f"{k_s / max(busy, 1e-12):.4f} of device time")
     print(events.table(sort_by="self_device_time_total", row_limit=12))
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
     if args.trace:

@@ -55,7 +55,8 @@ import numpy as np
 import torch
 
 from ..kernels import prng, resolve_use_kernel
-from . import bootstrap, error_model, keys as keylib, sampling, sanitize
+from . import (bootstrap, error_model, keys as keylib, sampling, sanitize,
+               trace)
 from .mesh import DataMesh
 from .estimators import get as get_estimator, moment_family_index
 from .reduce import tree_sum
@@ -142,7 +143,7 @@ def _bucket_widths(n_cap: int, base: int) -> Tuple[int, ...]:
 def _bucket_bounds(widths: Tuple[int, ...], dev) -> torch.Tensor:
     """The ladder's bounds below its top rung on ``dev``, uploaded once (a
     named transfer)."""
-    with sanitize.harvest():
+    with sanitize.harvest("lane_pool.step.upload"):
         return torch.as_tensor(widths[:-1], dtype=torch.int32, device=dev)
 
 
@@ -469,35 +470,39 @@ def _segment_tick(values: torch.Tensor, s: LaneState, p: LaneParams, *,
     theta_b)``; ``s.buf`` is extended in place.
     """
     q = active.shape[0]
-    filled0 = s.filled[:, 0].to(torch.int64)
-    lo = win_lo[:, 0].to(torch.int64)
-    hi = win_hi[:, 0].to(torch.int64)
-    ext_w = torch.clamp(hi - filled0, min=0)       # inactive: hi <= filled
-    est_w = torch.where(active, hi - lo, 0)
+    with trace.span("lane_pool.step.fit_predict"):
+        filled0 = s.filled[:, 0].to(torch.int64)
+        lo = win_lo[:, 0].to(torch.int64)
+        hi = win_hi[:, 0].to(torch.int64)
+        ext_w = torch.clamp(hi - filled0, min=0)   # inactive: hi <= filled
+        est_w = torch.where(active, hi - lo, 0)
+        bounds = torch.stack([ext_w.sum(), est_w.sum(),
+                              torch.amax(torch.where(active, hi, 0))])
     # ---- the tick's one host read: stream lengths + slot bound ----
-    with sanitize.harvest():
-        host = torch.stack([ext_w.sum(), est_w.sum(),
-                            torch.amax(torch.where(active, hi, 0))]).cpu()
+    with sanitize.harvest("lane_pool.step.read"):
+        host = bounds.cpu()
     g_total, e_total, n_slots = (int(v) for v in host)
     if max(g_total, e_total) > seg_cap:
         raise ValueError(f"packed stream of {max(g_total, e_total)} exceeds "
                          f"seg_cap={seg_cap}: params and seg_cap disagree")
     # ---- one packed gather over the extension windows ----
-    lane_j, off_j = _packed(ext_w, g_total)
-    slot_j = filled0[lane_j] + off_j
-    rows = p.slot_idx[lane_j, 0, slot_j].to(torch.int64)
-    s.buf[lane_j, 0, slot_j] = values[rows]
-    filled = torch.maximum(s.filled, win_hi)
+    with trace.span("lane_pool.step.gather"):
+        lane_j, off_j = _packed(ext_w, g_total)
+        slot_j = filled0[lane_j] + off_j
+        rows = p.slot_idx[lane_j, 0, slot_j].to(torch.int64)
+        s.buf[lane_j, 0, slot_j] = values[rows]
+        filled = torch.maximum(s.filled, win_hi)
     # ---- one segment bootstrap pass over the ESTIMATE windows ----
-    lane_j, off_j = _packed(est_w, e_total)
-    slot_j = lo[lane_j] + off_j
-    x_j = s.buf[lane_j, 0, slot_j, 0]
-    M, M_plain = bootstrap.segment_moment_sums(
-        x_j, lane_j, slot_j, torch.ones_like(x_j), seeds[:, 0], q, B,
-        use_kernel=use_kernel, n_slots=n_slots)
-    e_b, theta_b = bootstrap.finish_lanes_moments(
-        M[:, None], M_plain[:, None], p.scale, p.deltas, est=est,
-        est_fids=p.est_fids, metric=metric)
+    with trace.span("lane_pool.step.estimate"):
+        lane_j, off_j = _packed(est_w, e_total)
+        slot_j = lo[lane_j] + off_j
+        x_j = s.buf[lane_j, 0, slot_j, 0]
+        M, M_plain = bootstrap.segment_moment_sums(
+            x_j, lane_j, slot_j, torch.ones_like(x_j), seeds[:, 0], q, B,
+            use_kernel=use_kernel, n_slots=n_slots)
+        e_b, theta_b = bootstrap.finish_lanes_moments(
+            M[:, None], M_plain[:, None], p.scale, p.deltas, est=est,
+            est_fids=p.est_fids, metric=metric)
     return filled, e_b, theta_b
 
 
@@ -520,68 +525,73 @@ def _step_body(values: torch.Tensor, s: LaneState, p: LaneParams, *,
     l_min = min(max(int(round(l * n_max / (n_min + n_max))), 1), l - 1)
     widths = bucket_ladder(n_cap, n_max) if adaptive else (n_cap,)
 
-    active = lane_active(s, max_iters)                         # (q,)
-    act2 = active[:, None]
-    phase = (s.k[:, None] + torch.arange(m, device=dev)[None, :]) % l
-    n_init = torch.where(phase < l_min, n_min, n_max).to(torch.int32)
-    n_pred, beta, r2, failed_fit = _fit_predict(
-        s, p, tau=tau, growth_cap=growth_cap, max_iters=max_iters, l=l)
-    # Warm lanes take the prediction branch from tick 0.
-    init_phase = (s.k < l) & ~p.warm                           # (q,)
-    n_vec = torch.where(init_phase[:, None], n_init, n_pred)
-    n_vec = torch.minimum(torch.clamp(n_vec, min=1),
-                          torch.clamp(p.group_sizes, max=n_cap))
-    n_vec = torch.minimum(n_vec, s.filled + ext_cap)
-    n_vec = torch.where(act2, n_vec, s.n_cur)
-    # Init probes read stacked windows [filled, filled + n); prediction
-    # ticks reuse the whole prefix (win_lo = 0).
-    win_lo = torch.where(init_phase[:, None],
-                         torch.minimum(s.filled, n_cap - n_vec),
-                         torch.zeros_like(n_vec))
-    win_lo = torch.where(act2, win_lo, torch.zeros_like(win_lo))
-    win_hi = torch.where(act2, win_lo + n_vec,
-                         torch.minimum(s.n_cur, s.filled))
+    with trace.span("lane_pool.step.fit_predict"):
+        active = lane_active(s, max_iters)                     # (q,)
+        act2 = active[:, None]
+        phase = (s.k[:, None] + torch.arange(m, device=dev)[None, :]) % l
+        n_init = torch.where(phase < l_min, n_min, n_max).to(torch.int32)
+        n_pred, beta, r2, failed_fit = _fit_predict(
+            s, p, tau=tau, growth_cap=growth_cap, max_iters=max_iters, l=l)
+        # Warm lanes take the prediction branch from tick 0.
+        init_phase = (s.k < l) & ~p.warm                       # (q,)
+        n_vec = torch.where(init_phase[:, None], n_init, n_pred)
+        n_vec = torch.minimum(torch.clamp(n_vec, min=1),
+                              torch.clamp(p.group_sizes, max=n_cap))
+        n_vec = torch.minimum(n_vec, s.filled + ext_cap)
+        n_vec = torch.where(act2, n_vec, s.n_cur)
+        # Init probes read stacked windows [filled, filled + n); prediction
+        # ticks reuse the whole prefix (win_lo = 0).
+        win_lo = torch.where(init_phase[:, None],
+                             torch.minimum(s.filled, n_cap - n_vec),
+                             torch.zeros_like(n_vec))
+        win_lo = torch.where(act2, win_lo, torch.zeros_like(win_lo))
+        win_hi = torch.where(act2, win_lo + n_vec,
+                             torch.minimum(s.n_cur, s.filled))
+        seeds = _bootstrap_seeds(p, s.k, m)
+        if seg_cap is None:
+            needed = torch.clamp(torch.amax(torch.where(act2, win_hi, 0)),
+                                 min=1)
+            b_idx = torch.sum(needed > _bucket_bounds(widths, dev)).to(
+                torch.int64).reshape(1)
+            host_ask = torch.cat([b_idx, active.to(torch.int64)])
     if seg_cap is not None:
         filled, e_b, theta_b = _segment_tick(
             values, s, p, active=active, win_lo=win_lo, win_hi=win_hi,
-            seeds=_bootstrap_seeds(p, s.k, m), est=est, B=B, seg_cap=seg_cap,
-            metric=metric, use_kernel=use_kernel)
+            seeds=seeds, est=est, B=B, seg_cap=seg_cap, metric=metric,
+            use_kernel=use_kernel)
+    else:
+        # ---- the tick's one host read: bucket index + active lanes ----
+        with sanitize.harvest("lane_pool.step.read"):
+            host = host_ask.cpu().numpy()
+            width = widths[int(host[0])]
+            gather_lanes = torch.as_tensor(
+                np.nonzero(host[1:])[0] if gate_gather else np.arange(q),
+                dtype=torch.int64, device=dev)
+        # ---- extend the carried nested samples by the window only ----
+        with trace.span("lane_pool.step.gather"):
+            _gather_windows(values, s.buf, s.filled, win_hi, p.slot_idx,
+                            gather_lanes, ext_cap)
+            filled = torch.maximum(s.filled, win_hi)
+        # ---- bootstrap estimate on the active width bucket ----
+        with trace.span("lane_pool.step.estimate"):
+            bw = s.buf[:, :, :width]
+            pos = torch.arange(width, dtype=torch.int32,
+                               device=dev)[None, None, :]
+            msk = ((pos >= win_lo[:, :, None]) &
+                   (pos < win_hi[:, :, None])).to(torch.float32)
+            if est is None:
+                e_b, theta_b = bootstrap.estimate_error_lanes_het(
+                    bw, msk, seeds, p.est_fids, p.scale, p.deltas, B=B,
+                    metric=metric, use_kernel=use_kernel, lane_active=active)
+            else:
+                e_b, theta_b = bootstrap.estimate_error_lanes(
+                    est, bw, msk, seeds, p.scale, p.deltas, B=B,
+                    metric=metric, use_kernel=use_kernel, lane_active=active)
+    with trace.span("lane_pool.step.test"):
         return _lane_epilogue(
             s, p, max_iters=max_iters, active=active, init_phase=init_phase,
             e_b=e_b, theta_b=theta_b, n_eff=n_vec, filled=filled, beta=beta,
             r2=r2, failed_fit=failed_fit)
-    # ---- the tick's one host read: bucket index + active lanes ----
-    needed = torch.clamp(torch.amax(torch.where(act2, win_hi, 0)), min=1)
-    b_idx = torch.sum(needed > _bucket_bounds(widths, dev)).to(
-        torch.int64).reshape(1)
-    with sanitize.harvest():
-        host = torch.cat([b_idx, active.to(torch.int64)]).cpu().numpy()
-        width = widths[int(host[0])]
-        gather_lanes = torch.as_tensor(
-            np.nonzero(host[1:])[0] if gate_gather else np.arange(q),
-            dtype=torch.int64, device=dev)
-    # ---- extend the carried nested samples by the window only ----
-    _gather_windows(values, s.buf, s.filled, win_hi, p.slot_idx,
-                    gather_lanes, ext_cap)
-    filled = torch.maximum(s.filled, win_hi)
-    # ---- bootstrap estimate on the active width bucket ----
-    seeds = _bootstrap_seeds(p, s.k, m)
-    bw = s.buf[:, :, :width]
-    pos = torch.arange(width, dtype=torch.int32, device=dev)[None, None, :]
-    msk = ((pos >= win_lo[:, :, None]) &
-           (pos < win_hi[:, :, None])).to(torch.float32)
-    if est is None:
-        e_b, theta_b = bootstrap.estimate_error_lanes_het(
-            bw, msk, seeds, p.est_fids, p.scale, p.deltas, B=B,
-            metric=metric, use_kernel=use_kernel, lane_active=active)
-    else:
-        e_b, theta_b = bootstrap.estimate_error_lanes(
-            est, bw, msk, seeds, p.scale, p.deltas, B=B, metric=metric,
-            use_kernel=use_kernel, lane_active=active)
-    return _lane_epilogue(
-        s, p, max_iters=max_iters, active=active, init_phase=init_phase,
-        e_b=e_b, theta_b=theta_b, n_eff=n_vec, filled=filled, beta=beta,
-        r2=r2, failed_fit=failed_fit)
 
 
 def _lane_epilogue(s: LaneState, p: LaneParams, *, max_iters, active,
@@ -733,7 +743,7 @@ def _sharded_step_body(values: torch.Tensor, s: LaneState, p: LaneParams,
     llo, lhi = local(win_lo), local(win_hi)
     # ---- the tick's one host read: active lanes + widest active windows ----
     need = torch.amax(torch.where(act2[None], lhi, 0).reshape(S, -1), 1)
-    with sanitize.harvest():
+    with sanitize.harvest("lane_pool.step.read"):
         host = torch.cat([active.to(torch.int64),
                           need.to(torch.int64)]).cpu().numpy()
         lanes = torch.as_tensor(np.nonzero(host[:q])[0], dtype=torch.int64,

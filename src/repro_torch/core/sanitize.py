@@ -25,9 +25,11 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Iterator
+from typing import Iterator, Optional
 
 import torch
+
+from . import trace
 
 __all__ = [
     "SanitizerError", "enabled", "no_implicit_sync", "harvest",
@@ -74,14 +76,17 @@ def no_implicit_sync() -> Iterator[None]:
 
 
 @contextlib.contextmanager
-def harvest() -> Iterator[None]:
+def harvest(name: Optional[str] = None) -> Iterator[None]:
     """A named host read (or a host upload that waits for the device):
-    allowed inside :func:`no_implicit_sync`."""
-    if not enabled() or not _card() or torch.cuda.get_sync_debug_mode() == 0:
-        yield
-        return
-    with _sync_mode("default"):
-        yield
+    allowed inside :func:`no_implicit_sync`.  ``name`` also opens a
+    profiler span of that name around it (:func:`.trace.span`)."""
+    with trace.span(name) if name is not None else trace.OFF:
+        if not enabled() or not _card() \
+                or torch.cuda.get_sync_debug_mode() == 0:
+            yield
+            return
+        with _sync_mode("default"):
+            yield
 
 
 @contextlib.contextmanager

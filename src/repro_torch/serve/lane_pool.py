@@ -70,7 +70,7 @@ import numpy as np
 import torch
 
 from ..aqp.query import Query
-from ..core import bootstrap, estimators, sanitize
+from ..core import bootstrap, estimators, sanitize, trace
 from ..core import keys as keylib
 from ..core.fused import (LaneParams, LaneState, bucket_ladder, fused_step,
                           grouped_seg_cap, init_lane_state, lane_boot_seed,
@@ -221,7 +221,7 @@ def _splice(state: LaneState, params: LaneParams, lanes: List[int],
 
     The rows are host values uploaded one by one, each upload waiting for
     the device: a named transfer (:func:`sanitize.harvest`)."""
-    with sanitize.harvest():
+    with sanitize.harvest("lane_pool.refill.upload"):
         dev = state.k.device
         li = torch.as_tensor(lanes, dtype=torch.int64, device=dev)
         put = lambda t, v: t.index_put_((li,), torch.as_tensor(v, device=dev))
@@ -424,7 +424,6 @@ class LanePool:
         self.grouped_retired = 0     # blocks harvested
         self.block_ticks = 0         # block-resident loop ticks
         self.peak_queue_depth = 0
-        self._active_frac_sum = 0.0
         self._retired_rows = 0
         # Per-shard slot residency of retired queries (a single-shard pool
         # reports one shard).
@@ -703,7 +702,7 @@ class LanePool:
         layout sheds alike): ``(e, theta (m, 1))`` as host values, one host
         read."""
         dev = self.data.device
-        with sanitize.harvest():            # the pilot's host uploads
+        with sanitize.harvest("lane_pool.shed.upload"):  # pilot uploads
             tab = self._pilot_table()
             n_pilot = tab.shape[1]
             sizes = torch.as_tensor(
@@ -716,7 +715,7 @@ class LanePool:
         e, theta = bootstrap.estimate_error(
             estimators.get(tk.func), sample, mask, scale,
             tk.key, tk.delta, B=B, metric=self._spec["metric"])
-        with sanitize.harvest():
+        with sanitize.harvest("lane_pool.shed.read"):
             host = torch.cat([e.reshape(1), theta.reshape(-1)]).cpu().numpy()
         return float(host[0]), host[1:].reshape(theta.shape)
 
@@ -753,7 +752,7 @@ class LanePool:
                 continue
             s = tier.state
             tl = self.tier_lanes
-            with sanitize.harvest():
+            with sanitize.harvest("lane_pool.harvest.read"):
                 host = torch.cat([
                     s.done.to(torch.int64), s.failed.to(torch.int64),
                     s.k.to(torch.int64),
@@ -767,7 +766,7 @@ class LanePool:
                              or k[lane] >= max_iters)]
             if not finished:
                 continue
-            with sanitize.harvest():
+            with sanitize.harvest("lane_pool.harvest.read"):
                 e, n_cur, iters = (s.e.cpu().numpy(), s.n_cur.cpu().numpy(),
                                    s.iters.cpu().numpy())
                 theta, beta = s.theta.cpu().numpy(), s.beta.cpu().numpy()
@@ -817,7 +816,7 @@ class LanePool:
             s = blk.state
             G = s.k.shape[0]
             f64 = torch.float64
-            with sanitize.harvest():
+            with sanitize.harvest("lane_pool.harvest_blocks.read"):
                 host = torch.cat([
                     s.done.to(f64), s.failed.to(f64), s.k.to(f64),
                     s.iters.to(f64), s.n_cur[:, 0].to(f64),
@@ -896,7 +895,7 @@ class LanePool:
         named :func:`sanitize.harvest` read.  Afterwards the recompile
         sentinel attributes any CUDA library built or loaded after the
         first round to ``steady_recompiles``."""
-        with sanitize.guarded():
+        with trace.span("lane_pool.tick"), sanitize.guarded():
             out = self._tick_inner()
         size = sanitize.program_events()
         if self._steady_cache0 is None:
@@ -909,7 +908,8 @@ class LanePool:
     def _tick_inner(self) -> int:
         t0 = self._clock()
         self._maybe_rotate()
-        self._refill()
+        with trace.span("lane_pool.refill"):
+            self._refill()
         ran = False
         round_rung = 0
         for tier in self._tiers:
@@ -917,35 +917,40 @@ class LanePool:
             if not busy:
                 continue
             round_rung = max(round_rung, tier.width)
-            if self._mesh is not None:
-                step = make_sharded_step(
-                    self._mesh, num_ticks=self.ticks_per_sync, **self._spec)
-                tier.state = step(self._values, tier.state, tier.params,
-                                  self._shard_spec)
-            else:
-                # One device; a sharded pool's spec carries its exact
-                # per-segment window and runs the sequential segment fold.
-                tier.state = fused_step(
-                    self._values, self._offsets, tier.state, tier.params,
-                    self._shard_spec if self._layout is not None else None,
-                    num_ticks=self.ticks_per_sync, **self._spec)
+            with trace.span("lane_pool.tier_step"):
+                if self._mesh is not None:
+                    step = make_sharded_step(
+                        self._mesh, num_ticks=self.ticks_per_sync,
+                        **self._spec)
+                    tier.state = step(self._values, tier.state, tier.params,
+                                      self._shard_spec)
+                else:
+                    # One device; a sharded pool's spec carries its exact
+                    # per-segment window and runs the sequential fold.
+                    tier.state = fused_step(
+                        self._values, self._offsets, tier.state, tier.params,
+                        self._shard_spec if self._layout is not None
+                        else None,
+                        num_ticks=self.ticks_per_sync, **self._spec)
             self.dispatches += 1
             self.lane_ticks_busy += busy * self.ticks_per_sync
-            self._active_frac_sum += busy / self.tier_lanes
             ran = True
         for blk in self._blocks.values():
-            blk.state = fused_step(
-                self._values, self._goffsets, blk.state, blk.params,
-                num_ticks=self.ticks_per_sync, seg_cap=self._gseg_cap,
-                **self._spec)
+            with trace.span("lane_pool.block_step"):
+                blk.state = fused_step(
+                    self._values, self._goffsets, blk.state, blk.params,
+                    num_ticks=self.ticks_per_sync, seg_cap=self._gseg_cap,
+                    **self._spec)
             self.dispatches += 1
             self.block_ticks += self.ticks_per_sync
             ran = True
         if not ran:
             return 0
         self.ticks += self.ticks_per_sync
-        self._harvest()
-        self._harvest_blocks()
+        with trace.span("lane_pool.harvest"):
+            self._harvest()
+        with trace.span("lane_pool.harvest_blocks"):
+            self._harvest_blocks()
         if self._slo is not None:
             # The harvest's host read closed the round: the wall time covers
             # dispatch and sync.
@@ -1060,10 +1065,7 @@ class LanePool:
             "queue_depth": self.queue_depth,
             "peak_queue_depth": self.peak_queue_depth,
             "lane_occupancy": self.lane_ticks_busy / cap,
-            "active_lane_fraction": (
-                self._active_frac_sum / max(self.dispatches, 1)),
             "rows_gathered": float(rows_gathered),
-            "rows_per_tick": rows_gathered / max(self.ticks, 1),
             "sample_epochs": self.sample_epochs,
             "pending_rotation": self._pending_sample_key is not None,
             "warm_spliced": self.warm_spliced,

@@ -57,6 +57,7 @@ from ..aqp.engine import AQPEngine
 from ..aqp.query import Query, Request
 from ..core import estimators
 from ..core import keys as keylib
+from ..core import trace
 from ..core.fused import fused_l2miss_batch
 from ..core.mesh import DataMesh
 from ..core.sampling import GroupedData, SampleStore
@@ -105,6 +106,11 @@ class SessionResponse:
     group_by: bool = False
     group_error: Optional[np.ndarray] = None     # (G,)
     group_success: Optional[np.ndarray] = None   # (G,)
+    # MISS's own iteration count (a GROUP BY answer: the most over its
+    # groups; 0 for a cache replay or a shed answer) and the pool ticks from
+    # splice to harvest (0 off the pool).
+    iterations: int = 0
+    ticks: int = 0
 
 
 def _request_eps(q: Query) -> float:
@@ -300,16 +306,20 @@ class AQPSession:
     def pump(self) -> int:
         """One scheduler round: re-tune, admit arrivals, tick busy tiers
         once, harvest.  Returns requests in flight."""
-        self._retune()
-        self._admit()
-        pool = self._pool
-        if pool is not None and (pool.busy_lanes or pool.busy_blocks
-                                 or pool.queue_depth):
-            d0 = pool.dispatches
-            pool.tick()
-            self.fused_dispatches += pool.dispatches - d0
-        self._harvest_pool()
-        return self.in_flight
+        with trace.span("session.pump"):
+            with trace.span("session.retune"):
+                self._retune()
+            with trace.span("session.admit"):
+                self._admit()
+            pool = self._pool
+            if pool is not None and (pool.busy_lanes or pool.busy_blocks
+                                     or pool.queue_depth):
+                d0 = pool.dispatches
+                pool.tick()
+                self.fused_dispatches += pool.dispatches - d0
+            with trace.span("session.harvest"):
+                self._harvest_pool()
+            return self.in_flight
 
     def drain(self, max_pumps: int = 100_000) -> List[SessionResponse]:
         """Pump until nothing is in flight; pop and return every finished
@@ -377,7 +387,8 @@ class AQPSession:
                   count_epoch: bool = True, group_error=None,
                   group_success=None, delivered_epsilon=None,
                   delivered_B=None, degraded: bool = False,
-                  shed: bool = False) -> None:
+                  shed: bool = False, iterations: int = 0,
+                  ticks: int = 0) -> None:
         now = time.perf_counter() if now is None else now
         latency = now - entry.ticket.submitted_s
         ddl = entry.request.deadline_s
@@ -391,7 +402,8 @@ class AQPSession:
             delivered_epsilon=delivered_epsilon, delivered_B=delivered_B,
             degraded=degraded, shed=shed,
             group_by=bool(entry.request.query.group_by),
-            group_error=group_error, group_success=group_success)
+            group_error=group_error, group_success=group_success,
+            iterations=iterations, ticks=ticks)
         del self._inflight[entry.request.rid]
         self.completed += 1
         if not count_epoch:
@@ -469,9 +481,11 @@ class AQPSession:
             if pooled:
                 self._admit_pool(pooled)
             if Route.BATCHED in groups:
-                self._run_batched(groups[Route.BATCHED])
+                with trace.span("session.batched"):
+                    self._run_batched(groups[Route.BATCHED])
             if Route.LOOP in groups:
-                self._run_loop(groups[Route.LOOP])
+                with trace.span("session.loop"):
+                    self._run_loop(groups[Route.LOOP])
             for e in groups.get(Route.HOST, ()):
                 self._run_host(e)
         except BaseException:
@@ -560,7 +574,8 @@ class AQPSession:
                 group_success=r.group_success if grouped else None,
                 delivered_epsilon=None if grouped else r.delivered_epsilon,
                 delivered_B=None if grouped else r.delivered_B,
-                degraded=degraded, shed=shed)
+                degraded=degraded, shed=shed, iterations=its,
+                ticks=r.ticks_in_block if grouped else r.ticks_in_lane)
 
     # -- synchronous routes -------------------------------------------------
     def _dispatch_fused(self, func: str, queries: List[Query], keys):
@@ -603,7 +618,7 @@ class AQPSession:
                 e, theta=theta[lane], error=float(err[lane]),
                 success=bool(succ[lane]), n=ns[lane],
                 wall_time_s=wall_s(), queue_wait_s=0.0, route=route,
-                rows_sampled=int(rows[lane]))
+                rows_sampled=int(rows[lane]), iterations=int(its[lane]))
 
     def _run_batched(self, entries: List[_InFlight]) -> None:
         """Closed-loop batching: ONE dispatch per func group, amortized
@@ -642,7 +657,7 @@ class AQPSession:
         self._complete(
             entry, theta=tr.theta, error=tr.error, success=tr.success,
             n=tr.n, wall_time_s=time.perf_counter() - t0, queue_wait_s=0.0,
-            route=Route.HOST, rows_sampled=0)
+            route=Route.HOST, rows_sampled=0, iterations=int(tr.iterations))
 
     def _run_host_grouped(self, entry: _InFlight, t0: float) -> None:
         """``AQPEngine.execute_grouped``: the shared-scan block program,
@@ -654,15 +669,15 @@ class AQPSession:
         self._fused_rows += rows
         self.fused_dispatches += 1
         n = res.n.cpu().numpy()
+        its = int(res.iterations.max())
         self._cache_insert(
             entry, beta=res.beta.cpu().numpy(), n=n, theta=theta,
             error=float(gerr.max()), success=bool(gok.all()),
-            failed=bool(res.failed.cpu().numpy().any()),
-            iterations=int(res.iterations.max()),
+            failed=bool(res.failed.cpu().numpy().any()), iterations=its,
             group_error=gerr, group_success=gok)
         self._complete(
             entry, theta=theta, error=float(gerr.max()),
             success=bool(gok.all()), n=n,
             wall_time_s=time.perf_counter() - t0, queue_wait_s=0.0,
             route=Route.HOST, rows_sampled=rows,
-            group_error=gerr, group_success=gok)
+            group_error=gerr, group_success=gok, iterations=its)
