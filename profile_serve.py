@@ -49,7 +49,12 @@ on the card):
   device seconds put down to the innermost span around its launch call,
   found through the profiler's launch correlation, with the ATen op that
   launched it; and the clock check (no operation starts before its launch
-  call).  With a path, the table and the run's result are written there
+  call).  It also prints the session's pre-read graph counters
+  (``graph_captures``, ``graph_replays``, ``eager_pre_read``,
+  ``pool_rebuilds``) over the warm-up, the window and the traced
+  sub-window, and the sub-window's ``lane_pool.step.fit_predict`` phases
+  by the step or session route around them, with those that replay or
+  capture.  With a path, the table and the run's result are written there
   as JSON.
 
 The sharded, host and warm profiles print each bootstrap kernel's share of
@@ -297,30 +302,104 @@ def span_table(prof, tr) -> dict:
     }
 
 
+GRAPH_COUNTERS = ("graph_captures", "graph_replays", "eager_pre_read",
+                  "pool_rebuilds")
+PHASE_ROUTES = ("lane_pool.tier_step", "lane_pool.block_step",
+                "session.loop", "session.batched")
+
+
+def phase_routes(tr) -> dict:
+    """The traced sub-window's ``lane_pool.step.fit_predict`` phases by
+    the innermost of :data:`PHASE_ROUTES` around them, each with the count
+    of them that hold a ``lane_pool.step.replay`` or a ``.capture``."""
+    lo, hi = tr.window
+    routes = [sp for sp in tr.spans if sp[0] in PHASE_ROUTES]
+    phases = sorted(sp[1:] for sp in tr.spans
+                    if sp[0] == "lane_pool.step.fit_predict"
+                    and lo <= sp[1] < hi)
+    starts = np.asarray([a for a, _ in phases], np.int64)
+    ends = np.asarray([b for _, b in phases], np.int64)
+    held = {}
+    for kind in ("replay", "capture"):
+        # Phases do not nest in one another: a mark lies in the last phase
+        # that starts before it, or in none.
+        t = np.asarray([sp[1] for sp in tr.spans
+                        if sp[0] == f"lane_pool.step.{kind}"], np.int64)
+        i = np.searchsorted(starts, t, side="right") - 1
+        ok = (i >= 0) & (ends[np.maximum(i, 0)] >= t) if starts.size else \
+            np.zeros(t.shape, bool)
+        held[kind] = set(i[ok].tolist())
+    table = {}
+    for i, route in enumerate(_innermost(routes, starts.tolist())):
+        row = table.setdefault(route, {"phases": 0, "replay": 0,
+                                       "capture": 0})
+        row["phases"] += 1
+        for kind in ("replay", "capture"):
+            row[kind] += i in held[kind]
+    return table
+
+
 def profile_spans(workload: str, seed: int, dest=None) -> None:
-    """One traced run of ``workload`` and its :func:`span_table`, written
-    to ``dest`` as JSON when given."""
+    """One traced run of ``workload``, its :func:`span_table`, the
+    session's graph counters by stage and the sub-window's
+    :func:`phase_routes`, written to ``dest`` as JSON when given."""
     import json as _json
+    import weakref
     from aqpbench import harness
     from aqpbench.cell import load_cell
 
-    seen = {}
+    seen, counts = {}, []
     read = devtrace.read
+    make_session, drive, settle = (harness.make_session, harness.drive,
+                                   harness.settle)
+    stage = {0: "window", harness.WARMUP_STREAM: "warm-up",
+             harness.TRACED_STREAM: "traced"}
 
     def keep(prof):
         seen["prof"], seen["tr"] = prof, read(prof)
         return seen["tr"]
 
+    def snap(what):
+        st = seen["sess"]().stats()
+        counts.append((what, {k: int(st.get(k, -1))
+                              for k in GRAPH_COUNTERS}))
+
+    def kept_session(*a, **k):
+        sess = make_session(*a, **k)
+        seen["sess"] = weakref.ref(sess)
+        snap("start")
+        return sess
+
+    def counted_drive(*a, first_stream, **k):
+        seen["stage"] = stage.get(first_stream, str(first_stream))
+        snap(f"{seen['stage']} starts")
+        return drive(*a, first_stream=first_stream, **k)
+
+    def counted_settle(*a, **k):
+        settle(*a, **k)
+        snap(f"{seen['stage']} drained")
+
     manifest = _json.loads((ROOT / "BENCHMARK.json").read_text())
     devtrace.read = keep
+    harness.make_session = kept_session
+    harness.drive, harness.settle = counted_drive, counted_settle
     try:
         out = harness.run_cell(load_cell(workload), seed,
                                float(manifest["run_seconds"]), True,
                                torch.device("cuda", 0), time.perf_counter())
     finally:
         devtrace.read = read
+        harness.make_session = make_session
+        harness.drive, harness.settle = drive, settle
     print(_json.dumps(out, default=str), flush=True)
+    print("session graph counters by stage: " + "; ".join(
+        f"{what} {c}" for what, c in counts))
+    routes = phase_routes(seen["tr"])
+    print("sub-window fit_predict phases by route: " + "; ".join(
+        f"{k} {v}" for k, v in sorted(routes.items())))
     table = span_table(seen["prof"], seen["tr"])
+    table["graph_counters"] = counts
+    table["phase_routes"] = routes
     print(f"{workload} seed {seed}: correct {out['correct']}, window "
           f"{table['window_s']:.3f} s, busy {table['busy_s']:.4f} s, idle "
           f"{table['idle_s']:.3f} s, of it with no phase label "

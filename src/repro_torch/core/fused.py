@@ -57,6 +57,7 @@ import torch
 from ..kernels import prng, resolve_use_kernel
 from . import (bootstrap, error_model, keys as keylib, sampling, sanitize,
                trace)
+from .graphs import PreReadGraphs
 from .mesh import DataMesh
 from .estimators import get as get_estimator, moment_family_index
 from .reduce import tree_sum
@@ -449,9 +450,102 @@ def _packed(widths: torch.Tensor, total: int):
     return lane, j - starts[lane]
 
 
-def _segment_tick(values: torch.Tensor, s: LaneState, p: LaneParams, *,
-                  active, win_lo, win_hi, seeds, est, B: int, seg_cap: int,
-                  metric: str, use_kernel: bool):
+class _PreRead(NamedTuple):
+    """What a tick computes before its host read.  ``ask`` is what the read
+    fetches: a tier's bucket index then its active mask ``(1 + q,)``, a
+    block's two stream lengths and slot bound ``(3,)``.  The last four are
+    a block's packed-stream operands (None for a tier)."""
+    active: torch.Tensor       # (q,) bool
+    init_phase: torch.Tensor   # (q,) bool
+    n_vec: torch.Tensor        # (q, m) int32 this tick's sizes
+    win_lo: torch.Tensor       # (q, m) int32 ESTIMATE windows
+    win_hi: torch.Tensor
+    seeds: torch.Tensor        # (q, m) int64
+    beta: torch.Tensor         # (q, m + 1) f32
+    r2: torch.Tensor           # (q,) f32
+    failed_fit: torch.Tensor   # (q,) bool
+    ask: torch.Tensor          # int64
+    filled0: Optional[torch.Tensor] = None   # (q,) int64 watermarks
+    lo: Optional[torch.Tensor] = None        # (q,) int64 window starts
+    ext_w: Optional[torch.Tensor] = None     # (q,) int64 extension widths
+    est_w: Optional[torch.Tensor] = None     # (q,) int64 ESTIMATE widths
+
+
+# The leaves the pre-read phase reads, and nothing else: what a CUDA graph
+# of it stages (core/graphs.py).
+_PRE_READ_STATE = ("k", "n_cur", "filled", "e", "prof_n", "prof_loge",
+                   "done", "failed")
+_PRE_READ_PARAMS = ("epsilons", "warm", "warm_n0", "warm_beta",
+                    "group_sizes", "boot_base")
+_NO_STATE = LaneState(*([None] * len(LaneState._fields)))
+_NO_PARAMS = LaneParams(*([None] * len(LaneParams._fields)))
+
+
+def _pre_read(s: LaneState, p: LaneParams, *, block: bool, l: int,
+              n_min: int, n_max: int, n_cap: int, ext_cap: int, tau: float,
+              growth_cap: float, max_iters: int,
+              widths: Tuple[int, ...]) -> _PreRead:
+    """FIT + PREDICT and the tick's windows and seeds, up to the host read
+    (reads only the leaves named in ``_PRE_READ_STATE`` and
+    ``_PRE_READ_PARAMS``)."""
+    m = s.n_cur.shape[1]
+    dev = s.k.device
+    # Deterministic balanced two-point design (Eq. 15/16).
+    l_min = min(max(int(round(l * n_max / (n_min + n_max))), 1), l - 1)
+    active = lane_active(s, max_iters)                         # (q,)
+    act2 = active[:, None]
+    phase = (s.k[:, None] + torch.arange(m, device=dev)[None, :]) % l
+    n_init = torch.where(phase < l_min, n_min, n_max).to(torch.int32)
+    n_pred, beta, r2, failed_fit = _fit_predict(
+        s, p, tau=tau, growth_cap=growth_cap, max_iters=max_iters, l=l)
+    # Warm lanes take the prediction branch from tick 0.
+    init_phase = (s.k < l) & ~p.warm                           # (q,)
+    n_vec = torch.where(init_phase[:, None], n_init, n_pred)
+    n_vec = torch.minimum(torch.clamp(n_vec, min=1),
+                          torch.clamp(p.group_sizes, max=n_cap))
+    n_vec = torch.minimum(n_vec, s.filled + ext_cap)
+    n_vec = torch.where(act2, n_vec, s.n_cur)
+    # Init probes read stacked windows [filled, filled + n); prediction
+    # ticks reuse the whole prefix (win_lo = 0).
+    win_lo = torch.where(init_phase[:, None],
+                         torch.minimum(s.filled, n_cap - n_vec),
+                         torch.zeros_like(n_vec))
+    win_lo = torch.where(act2, win_lo, torch.zeros_like(win_lo))
+    win_hi = torch.where(act2, win_lo + n_vec,
+                         torch.minimum(s.n_cur, s.filled))
+    seeds = _bootstrap_seeds(p, s.k, m)
+    pre = _PreRead(active, init_phase, n_vec, win_lo, win_hi, seeds, beta,
+                   r2, failed_fit, ask=None)
+    if not block:
+        needed = torch.clamp(torch.amax(torch.where(act2, win_hi, 0)),
+                             min=1)
+        b_idx = torch.sum(needed > _bucket_bounds(widths, dev)).to(
+            torch.int64).reshape(1)
+        return pre._replace(ask=torch.cat([b_idx, active.to(torch.int64)]))
+    # A block: the packed streams' lengths and the slot bound.
+    filled0 = s.filled[:, 0].to(torch.int64)
+    lo = win_lo[:, 0].to(torch.int64)
+    hi = win_hi[:, 0].to(torch.int64)
+    ext_w = torch.clamp(hi - filled0, min=0)       # inactive: hi <= filled
+    est_w = torch.where(active, hi - lo, 0)
+    bounds = torch.stack([ext_w.sum(), est_w.sum(),
+                          torch.amax(torch.where(active, hi, 0))])
+    return pre._replace(ask=bounds, filled0=filled0, lo=lo, ext_w=ext_w,
+                        est_w=est_w)
+
+
+def _staged_pre_read(*leaves: torch.Tensor, **statics) -> _PreRead:
+    """:func:`_pre_read` over the staged leaves alone (the state's, then the
+    params'), every other leaf None: the function a CUDA graph captures."""
+    k = len(_PRE_READ_STATE)
+    s = _NO_STATE._replace(**dict(zip(_PRE_READ_STATE, leaves[:k])))
+    p = _NO_PARAMS._replace(**dict(zip(_PRE_READ_PARAMS, leaves[k:])))
+    return _pre_read(s, p, **statics)
+
+
+def _segment_tick(values: torch.Tensor, s: LaneState, p: LaneParams,
+                  pre: _PreRead, *, est, B: int, seg_cap: int, metric: str,
+                  use_kernel: bool):
     """Shared-scan SAMPLE + ESTIMATE of a grouped lane block.
 
     The block is ``q`` lanes of m = 1, lane g bound to group g by its
@@ -464,41 +558,34 @@ def _segment_tick(values: torch.Tensor, s: LaneState, p: LaneParams, *,
     block lane's trajectory equals its solo run's bit for bit.
 
     The reference picks padded stream lengths with ``lax.switch``; here the
-    two stream lengths and the slot bound are read on the host in the
-    tick's one transfer and both streams are sized exactly, so no element
-    is padding and no scatter target repeats.  Returns ``(filled, e_b,
-    theta_b)``; ``s.buf`` is extended in place.
+    two stream lengths and the slot bound (``pre.ask``, from
+    :func:`_pre_read`) are read on the host in the tick's one transfer and
+    both streams are sized exactly, so no element is padding and no scatter
+    target repeats.  Returns ``(filled, e_b, theta_b)``; ``s.buf`` is
+    extended in place.
     """
-    q = active.shape[0]
-    with trace.span("lane_pool.step.fit_predict"):
-        filled0 = s.filled[:, 0].to(torch.int64)
-        lo = win_lo[:, 0].to(torch.int64)
-        hi = win_hi[:, 0].to(torch.int64)
-        ext_w = torch.clamp(hi - filled0, min=0)   # inactive: hi <= filled
-        est_w = torch.where(active, hi - lo, 0)
-        bounds = torch.stack([ext_w.sum(), est_w.sum(),
-                              torch.amax(torch.where(active, hi, 0))])
+    q = pre.active.shape[0]
     # ---- the tick's one host read: stream lengths + slot bound ----
     with sanitize.harvest("lane_pool.step.read"):
-        host = bounds.cpu()
+        host = pre.ask.cpu()
     g_total, e_total, n_slots = (int(v) for v in host)
     if max(g_total, e_total) > seg_cap:
         raise ValueError(f"packed stream of {max(g_total, e_total)} exceeds "
                          f"seg_cap={seg_cap}: params and seg_cap disagree")
     # ---- one packed gather over the extension windows ----
     with trace.span("lane_pool.step.gather"):
-        lane_j, off_j = _packed(ext_w, g_total)
-        slot_j = filled0[lane_j] + off_j
+        lane_j, off_j = _packed(pre.ext_w, g_total)
+        slot_j = pre.filled0[lane_j] + off_j
         rows = p.slot_idx[lane_j, 0, slot_j].to(torch.int64)
         s.buf[lane_j, 0, slot_j] = values[rows]
-        filled = torch.maximum(s.filled, win_hi)
+        filled = torch.maximum(s.filled, pre.win_hi)
     # ---- one segment bootstrap pass over the ESTIMATE windows ----
     with trace.span("lane_pool.step.estimate"):
-        lane_j, off_j = _packed(est_w, e_total)
-        slot_j = lo[lane_j] + off_j
+        lane_j, off_j = _packed(pre.est_w, e_total)
+        slot_j = pre.lo[lane_j] + off_j
         x_j = s.buf[lane_j, 0, slot_j, 0]
         M, M_plain = bootstrap.segment_moment_sums(
-            x_j, lane_j, slot_j, torch.ones_like(x_j), seeds[:, 0], q, B,
+            x_j, lane_j, slot_j, torch.ones_like(x_j), pre.seeds[:, 0], q, B,
             use_kernel=use_kernel, n_slots=n_slots)
         e_b, theta_b = bootstrap.finish_lanes_moments(
             M[:, None], M_plain[:, None], p.scale, p.deltas, est=est,
@@ -511,87 +598,73 @@ def _step_body(values: torch.Tensor, s: LaneState, p: LaneParams, *,
                l: int, tau: float, max_iters: int, n_cap: int, metric: str,
                growth_cap: float, ext_cap: int, adaptive: bool,
                use_kernel: bool, gate_gather: bool,
-               seg_cap: Optional[int] = None) -> LaneState:
+               seg_cap: Optional[int] = None,
+               graphs: Optional[PreReadGraphs] = None) -> LaneState:
     """One SAMPLE -> ESTIMATE -> FIT -> PREDICT -> TEST tick over all lanes.
 
     Reads two things on the host, in one transfer: the ESTIMATE bucket index
     and the active-lane mask (which lanes gather).  ``seg_cap`` runs a
     grouped block's tick instead (:func:`_segment_tick`, its own one read).
+    ``graphs`` replays the phase before the read (:func:`_pre_read`) from a
+    CUDA graph keyed on the tick's shapes and statics.
     """
     est = get_estimator(est_name) if est_name is not None else None
     q, m = s.n_cur.shape
     dev = s.k.device
-    # Deterministic balanced two-point design (Eq. 15/16).
-    l_min = min(max(int(round(l * n_max / (n_min + n_max))), 1), l - 1)
     widths = bucket_ladder(n_cap, n_max) if adaptive else (n_cap,)
+    statics = dict(block=seg_cap is not None, l=l, n_min=n_min, n_max=n_max,
+                   n_cap=n_cap, ext_cap=ext_cap, tau=tau,
+                   growth_cap=growth_cap, max_iters=max_iters, widths=widths)
 
     with trace.span("lane_pool.step.fit_predict"):
-        active = lane_active(s, max_iters)                     # (q,)
-        act2 = active[:, None]
-        phase = (s.k[:, None] + torch.arange(m, device=dev)[None, :]) % l
-        n_init = torch.where(phase < l_min, n_min, n_max).to(torch.int32)
-        n_pred, beta, r2, failed_fit = _fit_predict(
-            s, p, tau=tau, growth_cap=growth_cap, max_iters=max_iters, l=l)
-        # Warm lanes take the prediction branch from tick 0.
-        init_phase = (s.k < l) & ~p.warm                       # (q,)
-        n_vec = torch.where(init_phase[:, None], n_init, n_pred)
-        n_vec = torch.minimum(torch.clamp(n_vec, min=1),
-                              torch.clamp(p.group_sizes, max=n_cap))
-        n_vec = torch.minimum(n_vec, s.filled + ext_cap)
-        n_vec = torch.where(act2, n_vec, s.n_cur)
-        # Init probes read stacked windows [filled, filled + n); prediction
-        # ticks reuse the whole prefix (win_lo = 0).
-        win_lo = torch.where(init_phase[:, None],
-                             torch.minimum(s.filled, n_cap - n_vec),
-                             torch.zeros_like(n_vec))
-        win_lo = torch.where(act2, win_lo, torch.zeros_like(win_lo))
-        win_hi = torch.where(act2, win_lo + n_vec,
-                             torch.minimum(s.n_cur, s.filled))
-        seeds = _bootstrap_seeds(p, s.k, m)
-        if seg_cap is None:
-            needed = torch.clamp(torch.amax(torch.where(act2, win_hi, 0)),
-                                 min=1)
-            b_idx = torch.sum(needed > _bucket_bounds(widths, dev)).to(
-                torch.int64).reshape(1)
-            host_ask = torch.cat([b_idx, active.to(torch.int64)])
+        if graphs is None:
+            pre = _pre_read(s, p, **statics)
+        else:
+            pre = graphs.run(
+                (dev, q, m, *sorted(statics.items())),
+                functools.partial(_staged_pre_read, **statics),
+                [getattr(s, f) for f in _PRE_READ_STATE]
+                + [getattr(p, f) for f in _PRE_READ_PARAMS])
     if seg_cap is not None:
         filled, e_b, theta_b = _segment_tick(
-            values, s, p, active=active, win_lo=win_lo, win_hi=win_hi,
-            seeds=seeds, est=est, B=B, seg_cap=seg_cap, metric=metric,
+            values, s, p, pre, est=est, B=B, seg_cap=seg_cap, metric=metric,
             use_kernel=use_kernel)
     else:
         # ---- the tick's one host read: bucket index + active lanes ----
         with sanitize.harvest("lane_pool.step.read"):
-            host = host_ask.cpu().numpy()
+            host = pre.ask.cpu().numpy()
             width = widths[int(host[0])]
             gather_lanes = torch.as_tensor(
                 np.nonzero(host[1:])[0] if gate_gather else np.arange(q),
                 dtype=torch.int64, device=dev)
         # ---- extend the carried nested samples by the window only ----
         with trace.span("lane_pool.step.gather"):
-            _gather_windows(values, s.buf, s.filled, win_hi, p.slot_idx,
+            _gather_windows(values, s.buf, s.filled, pre.win_hi, p.slot_idx,
                             gather_lanes, ext_cap)
-            filled = torch.maximum(s.filled, win_hi)
+            filled = torch.maximum(s.filled, pre.win_hi)
         # ---- bootstrap estimate on the active width bucket ----
         with trace.span("lane_pool.step.estimate"):
             bw = s.buf[:, :, :width]
             pos = torch.arange(width, dtype=torch.int32,
                                device=dev)[None, None, :]
-            msk = ((pos >= win_lo[:, :, None]) &
-                   (pos < win_hi[:, :, None])).to(torch.float32)
+            msk = ((pos >= pre.win_lo[:, :, None]) &
+                   (pos < pre.win_hi[:, :, None])).to(torch.float32)
             if est is None:
                 e_b, theta_b = bootstrap.estimate_error_lanes_het(
-                    bw, msk, seeds, p.est_fids, p.scale, p.deltas, B=B,
-                    metric=metric, use_kernel=use_kernel, lane_active=active)
+                    bw, msk, pre.seeds, p.est_fids, p.scale, p.deltas, B=B,
+                    metric=metric, use_kernel=use_kernel,
+                    lane_active=pre.active)
             else:
                 e_b, theta_b = bootstrap.estimate_error_lanes(
-                    est, bw, msk, seeds, p.scale, p.deltas, B=B,
-                    metric=metric, use_kernel=use_kernel, lane_active=active)
+                    est, bw, msk, pre.seeds, p.scale, p.deltas, B=B,
+                    metric=metric, use_kernel=use_kernel,
+                    lane_active=pre.active)
     with trace.span("lane_pool.step.test"):
         return _lane_epilogue(
-            s, p, max_iters=max_iters, active=active, init_phase=init_phase,
-            e_b=e_b, theta_b=theta_b, n_eff=n_vec, filled=filled, beta=beta,
-            r2=r2, failed_fit=failed_fit)
+            s, p, max_iters=max_iters, active=pre.active,
+            init_phase=pre.init_phase, e_b=e_b, theta_b=theta_b,
+            n_eff=pre.n_vec, filled=filled, beta=pre.beta, r2=pre.r2,
+            failed_fit=pre.failed_fit)
 
 
 def _lane_epilogue(s: LaneState, p: LaneParams, *, max_iters, active,
@@ -858,7 +931,8 @@ def fused_step(values: torch.Tensor, offsets, state: LaneState,
                ext_cap: Optional[int] = None, adaptive: bool = True,
                use_kernel: "bool | str" = "auto", gate_gather: bool = True,
                data_shards: int = 1, seg_window: Optional[int] = None,
-               seg_cap: Optional[int] = None, num_ticks: int = 1) -> LaneState:
+               seg_cap: Optional[int] = None, num_ticks: int = 1,
+               graphs: Optional[PreReadGraphs] = None) -> LaneState:
     """Host-callable resumable step: ``num_ticks`` ticks over all lanes.
 
     Converged/failed/exhausted lanes freeze (predicated updates), so ticking
@@ -881,6 +955,11 @@ def fused_step(values: torch.Tensor, offsets, state: LaneState,
     :func:`grouped_seg_cap` of the block's layout and the dummy ``[0, N]``
     step offsets (the per-group sizes live in ``params.group_sizes``); it
     needs the adaptive path, a moment-family estimator and one shard.
+
+    ``graphs`` is the lane pool's :class:`~.graphs.PreReadGraphs`: each
+    tick's phase before its host read replays from a CUDA graph, bit-equal
+    to the eager run.  The pool passes it on a card; every other caller
+    runs the whole tick eagerly.  Single-shard only.
     """
     if len(offsets) - 1 != state.n_cur.shape[1]:
         raise ValueError("offsets do not match the state's group count")
@@ -902,6 +981,8 @@ def fused_step(values: torch.Tensor, offsets, state: LaneState,
             moment_family_index(est_name)   # raises for non-moment ests
     use_kernel = resolve_use_kernel(use_kernel, values.device)
     if data_shards > 1:
+        if graphs is not None:
+            raise ValueError("the sharded step runs eagerly: no graphs")
         if shard_spec is None:
             raise ValueError("data_shards > 1 requires a shard_spec")
         if not adaptive:
@@ -929,7 +1010,7 @@ def fused_step(values: torch.Tensor, offsets, state: LaneState,
         max_iters=max_iters, n_cap=n_cap, metric=metric,
         growth_cap=growth_cap, ext_cap=resolve_ext_cap(n_cap, n_max, ext_cap),
         adaptive=adaptive, use_kernel=use_kernel,
-        gate_gather=gate_gather, seg_cap=seg_cap)
+        gate_gather=gate_gather, seg_cap=seg_cap, graphs=graphs)
     for _ in range(num_ticks):
         state = _step_body(values, state, params, **spec)
     return state

@@ -58,6 +58,12 @@ the same layout.  Under a mesh every clock reading a policy acts on (the
 deadline stamps, the shed and degrade decisions, the cost model's round
 times) is rank 0's, broadcast, so the ranks never disagree on a decision.
 GROUP BY blocks and migration stay single-shard.
+
+On a card, a single-shard pool replays each tick's phase before its host
+read from CUDA graphs (:class:`~repro_torch.core.graphs.PreReadGraphs`, one
+capture a shape, shared by its tiers and blocks); the answers are those of
+the eager tick bit for bit.  A sharded card pool runs the phase eagerly and
+counts it so in the same object.
 """
 from __future__ import annotations
 
@@ -78,6 +84,7 @@ from ..core.fused import (LaneParams, LaneState, bucket_ladder, fused_step,
                           make_shard_spec, make_sharded_lane_params,
                           make_sharded_step, resolve_ext_cap,
                           resolve_seg_window)
+from ..core.graphs import PreReadGraphs
 from ..core.mesh import make_data_mesh
 from ..core.sampling import (GroupedData, ShardLayout, counter_slot_table,
                              sharded_slot_tables, stratified_slot_tables)
@@ -277,7 +284,9 @@ class LanePool:
     tiers.  ``degrade``/``wfq``/``tenant_weights``/``migrate`` arm the
     overload policies.  ``data_shards > 1`` shards the pool: ``mesh=False``
     on one device, a :class:`~repro_torch.core.mesh.DataMesh` as one rank of
-    it, ``None`` the default process group's mesh."""
+    it, ``None`` the default process group's mesh.  ``pre_read_graphs``
+    shares a graph cache whose captures and counts outlive this pool (a
+    session's); by default a card pool makes its own."""
 
     def __init__(self, data: GroupedData, *, lanes: int = 4, B: int = 300,
                  n_min: int = 1000, n_max: int = 2000, max_iters: int = 24,
@@ -289,7 +298,8 @@ class LanePool:
                  tiers: "int | str" = "auto", data_shards: int = 1,
                  mesh=None, degrade: bool = False, wfq: bool = False,
                  tenant_weights: Optional[Dict[str, float]] = None,
-                 migrate: bool = False, max_degrade: float = 8.0):
+                 migrate: bool = False, max_degrade: float = 8.0,
+                 pre_read_graphs: Optional[PreReadGraphs] = None):
         self.data = data
         self.device = data.device
         self.lanes = int(lanes)
@@ -345,6 +355,13 @@ class LanePool:
                 use_kernel=resolve_use_kernel(use_kernel, self.device),
                 gate_gather=gate_gather)
         self.ticks_per_sync = int(ticks_per_sync)
+        # On a card the tick's pre-read phase replays from CUDA graphs; the
+        # sharded step runs it eagerly and counts it in ``eager``.  The CPU
+        # runs it eagerly, uncounted.
+        self.pre_read_graphs: Optional[PreReadGraphs] = None
+        if self.device.type == "cuda":
+            self.pre_read_graphs = (pre_read_graphs if pre_read_graphs
+                                    is not None else PreReadGraphs())
         self.key = keylib.prng_key(seed)
         if sample_key is None:
             sample_key = keylib.prng_key(seed ^ 0x5A17)
@@ -930,8 +947,12 @@ class LanePool:
                     tier.state = fused_step(
                         self._values, self._offsets, tier.state, tier.params,
                         self._shard_spec if self._layout is not None
-                        else None,
-                        num_ticks=self.ticks_per_sync, **self._spec)
+                        else None, num_ticks=self.ticks_per_sync,
+                        graphs=(self.pre_read_graphs if self._layout is None
+                                else None), **self._spec)
+                if (self._layout is not None
+                        and self.pre_read_graphs is not None):
+                    self.pre_read_graphs.eager += self.ticks_per_sync
             self.dispatches += 1
             self.lane_ticks_busy += busy * self.ticks_per_sync
             ran = True
@@ -940,7 +961,7 @@ class LanePool:
                 blk.state = fused_step(
                     self._values, self._goffsets, blk.state, blk.params,
                     num_ticks=self.ticks_per_sync, seg_cap=self._gseg_cap,
-                    **self._spec)
+                    graphs=self.pre_read_graphs, **self._spec)
             self.dispatches += 1
             self.block_ticks += self.ticks_per_sync
             ran = True

@@ -59,6 +59,7 @@ from ..core import estimators
 from ..core import keys as keylib
 from ..core import trace
 from ..core.fused import fused_l2miss_batch
+from ..core.graphs import PreReadGraphs
 from ..core.mesh import DataMesh
 from ..core.sampling import GroupedData, SampleStore
 from ..kernels import resolve_use_kernel
@@ -197,6 +198,9 @@ class AQPSession:
         self.submitted = 0
         self.completed = 0
         self.pool_rebuilds = 0
+        # CUDA graphs of the pool's tick before its host read: owned here,
+        # so a rebuilt pool replays the captures of the last.
+        self._graphs = PreReadGraphs()
 
     # -- public surface -----------------------------------------------------
     @property
@@ -353,6 +357,9 @@ class AQPSession:
             "store_rows": self.store.rows_touched,
             "fused_rows": self._fused_rows,
             "pool_rebuilds": self.pool_rebuilds,
+            "graph_captures": self._graphs.captures,
+            "graph_replays": self._graphs.replays,
+            "eager_pre_read": self._graphs.eager,
             "sample_epoch": self._epoch_counter,
         }
         if self.cache is not None:
@@ -424,7 +431,7 @@ class AQPSession:
             tiers=self.pool_tiers, data_shards=self.data_shards,
             mesh=self.mesh, degrade=self.degrade, wfq=self.wfq,
             tenant_weights=self.tenant_weights, migrate=self.migrate,
-            max_degrade=self.max_degrade)
+            max_degrade=self.max_degrade, pre_read_graphs=self._graphs)
         self.planner.built_pool(lanes)
         return pool
 

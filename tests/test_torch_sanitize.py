@@ -9,7 +9,9 @@ device); the root lock and the program-cache sentinel hold everywhere.  The
 guarded rounds stay clean on the card along the sharded step (a pool over
 two data segments on one card, the path of a ``data_shards`` session) and
 the shed of a queued ticket whose deadline passed (the SLO pool's pilot,
-run inside ``tick``).  This file imports no JAX.
+run inside ``tick``), and a single-shard pool whose rounds capture and
+replay the tick's pre-read phase from CUDA graphs.  This file imports no
+JAX.
 """
 import time
 import types
@@ -246,3 +248,33 @@ def test_cuda_queued_shed_inside_tick_passes_the_guard(monkeypatch):
     assert {o.qid for o in out} == {q0, q1}
     assert pool.stats()["shed"] == 1
     assert pool.stats()["steady_recompiles"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_graph_capture_and_replay_rounds_pass_the_guard(monkeypatch):
+    """A fresh card pool (two tiers and GROUP BY blocks) serves under
+    ``MISS_SANITIZE=1`` from its first round: the rounds that capture the
+    pre-read graphs and those that replay them run under the transfer
+    guard without raising, and answer as the same pool unsanitized and
+    eager."""
+    data = _card_data()
+
+    def serve(sanitized, graphs):
+        monkeypatch.setenv("MISS_SANITIZE", "1" if sanitized else "")
+        pool = LanePool(data, lanes=4, **POOL_KW)
+        if not graphs:
+            pool.pre_read_graphs = None
+        ks = keys.split(keys.prng_key(41), 6)
+        for i, k in enumerate(ks[:4]):
+            pool.submit(Query(("avg", "var")[i % 2], epsilon=0.25), key=k)
+        pool.submit_group(Query("avg", epsilon=0.3, group_by=True),
+                          key=ks[4])
+        pool.submit_group(Query("var", epsilon=0.5, group_by=True),
+                          key=ks[5])
+        return pool.drain(), pool.pre_read_graphs
+
+    got, g = serve(True, True)
+    assert g.captures == 2 and g.replays > 0
+    want, _ = serve(False, False)
+    assert len(got) == 6
+    _same_answers(got, want)

@@ -10,7 +10,11 @@ counters of ``SessionResponse``.
   and opens one ``lane_pool.step.read`` a tick of every busy tier and
   block;
 * the answers are bit-equal with the profiler on and off;
-* ``SessionResponse.iterations`` / ``.ticks`` are the pool's own counts.
+* ``SessionResponse.iterations`` / ``.ticks`` are the pool's own counts;
+* a pool replaying the tick's pre-read phase from CUDA graphs (on the CPU,
+  ``test_torch_fused_graphs.StandInGraphs``; on a card, ``cuda``) opens
+  ``lane_pool.step.capture`` and ``lane_pool.step.replay`` inside
+  ``lane_pool.step.fit_predict``, inside its tier or block step.
 """
 import re
 from pathlib import Path
@@ -21,10 +25,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.aqp.query import Query, Request
-from repro_torch.core import sanitize, trace
+from repro_torch.core import keys, sanitize, trace
+from repro_torch.core.graphs import PreReadGraphs
 from repro_torch.core.sampling import GroupedData
 from repro_torch.serve import (AQPSession, GroupPoolResponse, Planner,
                                Route)
+from repro_torch.serve.lane_pool import LanePool
+from test_torch_fused_graphs import StandInGraphs
 
 SRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 PREFIXES = ("session.", "lane_pool.")
@@ -52,14 +59,14 @@ REQUESTS = [dict(func="avg", epsilon=0.1, group_by=True),
             dict(func="avg", epsilon=0.08)]
 
 
-def _data() -> GroupedData:
+def _data(device="cpu") -> GroupedData:
     rng = np.random.default_rng(11)
     sizes = (3000, 4500, 2500)
     vals = np.concatenate([rng.normal(4.0 + g, 1.0 + 0.3 * g, size=n)
                            for g, n in enumerate(sizes)]).astype(np.float32)
     offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
-    return GroupedData(torch.from_numpy(vals[:, None]), offsets,
-                       device="cpu")
+    return GroupedData(torch.from_numpy(vals[:, None]).to(device), offsets,
+                       device=device)
 
 
 def _serve(ticks_per_sync: int = 1, pool_log=None):
@@ -234,3 +241,59 @@ def test_counters_off_the_pool():
     sess.submit(Request(query=Query(func="avg", epsilon=0.08)))
     (r,) = sess.drain()
     assert r.route is Route.LOOP and r.ticks == 0 and r.iterations >= 2
+
+
+@pytest.fixture(params=["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def graph_spans(request):
+    """The spans of a pool replaying its pre-read phase: two tiers and a
+    GROUP BY block under the profiler, with the cache's counters."""
+    if request.param == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    graphs = (PreReadGraphs() if request.param == "cuda"
+              else StandInGraphs())
+    pool = LanePool(_data(request.param), lanes=4, B=64, n_min=200,
+                    n_max=400, max_iters=16, n_cap=1 << 12, seed=5,
+                    pre_read_graphs=graphs)
+    pool.pre_read_graphs = graphs       # a CPU pool makes none itself
+    ks = keys.split(keys.prng_key(9), 4)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for r, k in zip(REQUESTS[:4], ks):
+            (pool.submit_group if r.get("group_by") else pool.submit)(
+                Query(func=r["func"], epsilon=r["epsilon"],
+                      group_by=r.get("group_by")), key=k)
+        res = pool.drain()
+    assert len(res) == 4 and all(r.success for r in res)
+    return _spans(prof), graphs
+
+
+def test_capture_and_replay_nest_in_fit_predict(graph_spans):
+    spans, graphs = graph_spans
+    assert graphs.captures == 2 and graphs.replays > graphs.captures
+    got = {"lane_pool.step.capture": 0, "lane_pool.step.replay": 0}
+    for sp in spans:
+        if sp[0] not in got:
+            continue
+        got[sp[0]] += 1
+        up = [a[0] for a in _ancestors(spans, sp)]
+        assert up[0] == "lane_pool.step.fit_predict", (sp[0], up)
+        outer = [a for a in up if not a.startswith("lane_pool.step.")]
+        assert outer[:2] in ([s, "lane_pool.tick"] for s in STEPS), up
+    assert got == {"lane_pool.step.capture": graphs.captures,
+                   "lane_pool.step.replay": graphs.replays}
+
+
+def test_graph_spans_keep_the_pool_prefix(graph_spans):
+    """Every span of a replaying pool keeps a reader's prefix; the new
+    ones the pool's own."""
+    spans, _ = graph_spans
+    names = {n for n, _, _ in spans}
+    assert all(n.startswith(PREFIXES) for n in names), names
+    new = names - {"lane_pool.tick", "lane_pool.refill",
+                   "lane_pool.refill.upload", "lane_pool.harvest",
+                   "lane_pool.harvest.read", "lane_pool.harvest_blocks",
+                   "lane_pool.harvest_blocks.read", *STEPS,
+                   "lane_pool.step.fit_predict", "lane_pool.step.read",
+                   "lane_pool.step.gather", "lane_pool.step.estimate",
+                   "lane_pool.step.test", "lane_pool.step.upload"}
+    assert new == {"lane_pool.step.capture", "lane_pool.step.replay"}
+    assert all(n.startswith("lane_pool.step.") for n in new)
