@@ -1,23 +1,37 @@
 """One cell of ``BENCHMARK.json``, found by name: its configuration
-(``configs/<config>.json``), its traffic mix (``traffic/<traffic>.json``),
-its limits (``checks/<workload>.json``) and the metrics it reports, each
-per-layer metric read by ``metrics/<metric>.py``."""
+(``configs/<config>.json``), the configuration's kind (``kinds/<kind>.py``,
+named by the file's ``"kind"``, ``tpch_lineitem`` where it names none), its
+traffic mix (``traffic/<traffic>.json``), its limits
+(``checks/<workload>.json``) and the metrics it reports, each per-layer
+metric read by ``metrics/<metric>.py``."""
 from __future__ import annotations
 
 import dataclasses
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, List
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+DEFAULT_KIND = "tpch_lineitem"
+
+# What a kind module holds, by role.
+ROLES = {
+    "build": ("make_data", "make_session", "make_traffic"),
+    "client": ("Client",),
+    "counters": ("counters", "describe"),
+    "tracing": ("layer_spans",),
+    "judging": ("answer", "judge", "EXACT_LIMITS", "READ_LIMITS"),
+}
 
 
 @dataclasses.dataclass
 class Cell:
     name: str
     config: dict
+    kind: ModuleType            # kinds/<config's kind>.py
     mix: dict
     chips: int
     limits: dict
@@ -29,7 +43,24 @@ def _reports(entry: dict, workload: str) -> bool:
     return "workloads" not in entry or workload in entry["workloads"]
 
 
-def load_cell(workload: str, root: Path = ROOT) -> Cell:
+def _load(path: Path, name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_kind(kind: str, here: Path = HERE) -> ModuleType:
+    """``kinds/<kind>.py``, checked to fill every role of :data:`ROLES`."""
+    mod = _load(here / "kinds" / f"{kind}.py", f"aqpbench_kind_{kind}")
+    missing = [a for names in ROLES.values() for a in names
+               if not hasattr(mod, a)]
+    if missing:
+        raise SystemExit(f"kind {kind!r} lacks {missing}")
+    return mod
+
+
+def load_cell(workload: str, root: Path = ROOT, here: Path = HERE) -> Cell:
     manifest = json.loads((root / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in manifest["workloads"]}
     if workload not in cells:
@@ -37,21 +68,19 @@ def load_cell(workload: str, root: Path = ROOT) -> Cell:
                          f"{sorted(cells)}")
     w = cells[workload]
     cfg_entry = next(c for c in manifest["configs"] if c["name"] == w["config"])
+    config = json.loads((root / cfg_entry["file"]).read_text())
     return Cell(
         name=workload,
-        config=json.loads((root / cfg_entry["file"]).read_text()),
-        mix=json.loads((HERE / "traffic" / f"{w['traffic']}.json").read_text()),
+        config=config,
+        kind=load_kind(config.get("kind", DEFAULT_KIND), here),
+        mix=json.loads((here / "traffic" / f"{w['traffic']}.json").read_text()),
         chips=int(w["chips"]),
-        limits=json.loads((HERE / "checks" / f"{workload}.json").read_text()),
+        limits=json.loads((here / "checks" / f"{workload}.json").read_text()),
         end_to_end=[m for m in manifest["end_to_end"] if _reports(m, workload)],
         per_layer=[m for m in manifest["per_layer"] if _reports(m, workload)])
 
 
 def reader(metric: str) -> Callable[[dict], object]:
     """``metrics/<metric>.py``'s ``read(run)``."""
-    path = HERE / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"aqpbench_metric_{metric.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(HERE / "metrics" / f"{metric}.py",
+                 f"aqpbench_metric_{metric.replace('.', '_')}").read

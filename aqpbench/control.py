@@ -25,13 +25,17 @@ def specs(traffic, k: int):
 
 
 def control_run(cell, seed: int, k: int, device) -> dict:
+    """The control's answers to the first ``k`` requests, judged by the
+    cell's kind as a run's are."""
     import numpy as np
     import torch
     from aqpbench.data import lineitem
-    from aqpbench.reference import control, exact, judge
+    from aqpbench.reference import control
     from aqpbench.traffic.generator import Traffic
 
     cfg = cell.config
+    if cfg.get("kind", "tpch_lineitem") != "tpch_lineitem":
+        raise SystemExit("the control answers tpch_lineitem cells")
     values, offsets = lineitem.make_table(cfg, seed, device)
     traffic = Traffic(cell.mix, cfg, np.diff(offsets), seed)
     reqs = specs(traffic, k)
@@ -42,12 +46,11 @@ def control_run(cell, seed: int, k: int, device) -> dict:
                                       n_min=s["n_min"], n_cap=s["n_cap"])
                for r in reqs]
     del values
-    ex = exact.exact_answers(cfg, seed, device, {r["func"] for r in reqs})
-    verdict = judge.judge(list(zip(reqs, answers)), ex)
-    table = judge.checks(verdict, cell.limits)
+    judged = cell.kind.judge(cell, seed, device, list(zip(reqs, answers)),
+                             None)
     return {"seed": seed, "requests": len(reqs),
-            "correct": judge.passed(table) and verdict["units"] > 0,
-            "verdict": verdict, "checks": table}
+            "correct": judged["correct"], "verdict": judged["verdict"],
+            "checks": judged["checks"]}
 
 
 def main(argv=None) -> int:

@@ -1,17 +1,20 @@
-"""One run of one cell: make the table, build the session, warm up, drive the
-window, judge every answer against the plain reference, print the result.
+"""One run of one cell: build the deployment, warm up, drive the window,
+judge every answer against the plain reference, print the result.
 
-The timed path is ``AQPSession.submit`` -> ``AQPSession.pump`` ->
-``AQPSession.poll`` of ``repro_torch.serve.session``, driven from one thread:
+What is built, sent, counted and judged is the cell's kind's
+(``kinds/<kind>.py``, found by name): its data and server from the seed,
+its client and traffic, its counters, its spans and its reference.  This
+module holds the order of a run, which every kind shares, driven from one
+thread:
 
-* open loop: each request is submitted once it is due (Poisson arrivals),
-  and its latency runs from the due time, so a stall delays the requests
+* open loop: each request is sent once it is due (Poisson arrivals), and
+  its latency runs from the due time, so a stall delays the requests
   behind it too;
 * closed loop: every client sends its next request as soon as its previous
   answer is polled; latency runs from the send.
 
 The window sends requests for ``seconds``; afterwards nothing new is sent
-and the session is pumped until every request sent in the window has its
+and the server is pumped until every request sent in the window has its
 answer, or a minute has passed.  Latencies are those of every request sent
 in the window (one never answered counts its wait until then);
 ``answers_per_s`` counts the answers polled inside the window.
@@ -27,16 +30,12 @@ import contextlib
 import gc
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Callable, ContextManager, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .cell import Cell, reader
-from .data import lineitem
-from .reference import exact as ref_exact
-from .reference import judge as ref_judge
-from .traffic.generator import Traffic
 
 GRACE_S = 60.0              # how long answers may come after the window
 TRACE_SECONDS = 8.0         # the traced sub-window, after the window
@@ -51,45 +50,7 @@ def forbidden_modules() -> List[str]:
                   & set(FORBIDDEN))
 
 
-class Client:
-    """Sends the cell's requests into the session and records them."""
-
-    def __init__(self, sess, device):
-        from repro_torch.aqp.query import Query, Request
-        self._Query, self._Request = Query, Request
-        self.sess = sess
-        self.device = device
-        self.records: List[dict] = []
-        self.outstanding: Dict[int, dict] = {}
-        self.pump_s: List[float] = []
-
-    def send(self, spec: dict, t_sent: float) -> dict:
-        q = self._Query(func=spec["func"], epsilon=spec["epsilon"],
-                        delta=spec["delta"], group_by=spec["group_by"])
-        ticket = self.sess.submit(self._Request(query=q))
-        rec = {"spec": spec, "ticket": ticket, "t_sent": t_sent,
-               "t_done": None, "resp": None}
-        self.outstanding[ticket.rid] = rec
-        self.records.append(rec)
-        return rec
-
-    def pump(self) -> List[dict]:
-        """One scheduler round, then every answer it finished."""
-        t0 = time.perf_counter()
-        self.sess.pump()
-        t1 = time.perf_counter()
-        self.pump_s.append(t1 - t0)
-        done = []
-        for rid in list(self.outstanding):
-            r = self.sess.poll(self.outstanding[rid]["ticket"])
-            if r is not None:
-                rec = self.outstanding.pop(rid)
-                rec["t_done"], rec["resp"] = t1, r
-                done.append(rec)
-        return done
-
-
-def drive(client: Client, traffic: Traffic, mix: dict, *, seconds: float,
+def drive(client, traffic, mix: dict, *, seconds: float,
           first_stream: int, limit: Optional[int] = None) -> float:
     """Send the mix for ``seconds`` (or ``limit`` requests) from queue
     ``first_stream``; returns the window's start."""
@@ -129,42 +90,11 @@ def drive(client: Client, traffic: Traffic, mix: dict, *, seconds: float,
     return t0
 
 
-def settle(client: Client, grace_s: float) -> None:
+def settle(client, grace_s: float) -> None:
     """Pump until every outstanding request is answered or ``grace_s``."""
     t_stop = time.perf_counter() + grace_s
     while client.outstanding and time.perf_counter() < t_stop:
         client.pump()
-
-
-@contextlib.contextmanager
-def layer_spans():
-    """``record_function`` spans around the calls into each layer, set from
-    the benchmark's side: the session's admission and synchronous routes,
-    the pool's tick and harvests."""
-    from torch.profiler import record_function
-    from repro_torch.serve.lane_pool import LanePool
-    from repro_torch.serve.session import AQPSession
-
-    def wrap(owner, attr, name):
-        fn = getattr(owner, attr)
-
-        def spanned(*a, **k):
-            with record_function(name):
-                return fn(*a, **k)
-        setattr(owner, attr, spanned)
-        return owner, attr, fn
-
-    saved = [wrap(AQPSession, "_admit", "session.admit"),
-             wrap(AQPSession, "_run_loop", "session.loop"),
-             wrap(AQPSession, "_run_batched", "session.batched"),
-             wrap(LanePool, "tick", "lane_pool.tick"),
-             wrap(LanePool, "_harvest", "lane_pool.harvest"),
-             wrap(LanePool, "_harvest_blocks", "lane_pool.harvest_blocks")]
-    try:
-        yield
-    finally:
-        for owner, attr, fn in saved:
-            setattr(owner, attr, fn)
 
 
 @contextlib.contextmanager
@@ -208,8 +138,9 @@ class Tracer:
     the sub-window's clock does, so its one-time start-up (seconds) lies
     outside both windows."""
 
-    def __init__(self, device):
+    def __init__(self, device, spans: Callable[[], ContextManager]):
         self.device = device
+        self.spans = spans                      # the kind's ``layer_spans``
         self.length = TRACE_SECONDS
         self.span: Optional[tuple] = None       # (start, end) perf_counter
         self.calls: Dict[str, list] = {"poisson_bootstrap": [],
@@ -227,7 +158,7 @@ class Tracer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def record(self, client: Client, traffic: Traffic, mix: dict) -> None:
+    def record(self, client, traffic, mix: dict) -> None:
         """Start the profiler, drive the sub-window from a queue of its
         own, stop the profiler."""
         from torch.profiler import ProfilerActivity, profile, record_function
@@ -240,7 +171,7 @@ class Tracer:
         self._sync()
         before = self._counters()
         with contextlib.ExitStack() as stack:
-            stack.enter_context(layer_spans())
+            stack.enter_context(self.spans())
             stack.enter_context(kernel_calls(self.calls))
             stack.enter_context(record_function(WINDOW))
             t0 = drive(client, traffic, mix, seconds=self.length,
@@ -250,23 +181,6 @@ class Tracer:
         after = self._counters()
         self.launches = {k: after[k] - v for k, v in before.items()}
         self.prof.stop()
-
-
-def _response_dict(r) -> dict:
-    out = {"theta": np.ravel(np.asarray(r.theta, np.float64)),
-           "success": bool(r.success), "error": float(r.error)}
-    if r.group_by:
-        out["group_error"] = np.asarray(r.group_error, np.float64)
-        out["group_success"] = np.asarray(r.group_success, bool)
-    return out
-
-
-def _stats(sess) -> dict:
-    st = sess.stats()
-    return {"rows_touched": int(st["rows_touched"]),
-            "fused_dispatches": int(st["fused_dispatches"]),
-            "completed": int(st["completed"]),
-            "pool_rebuilds": int(st["pool_rebuilds"])}
 
 
 def power_limit() -> Optional[str]:
@@ -283,40 +197,29 @@ def power_limit() -> Optional[str]:
 
 
 def make_data(cell: Cell, seed: int, device):
-    """The seed's table on ``device``, handed to the program as its
-    resident ``GroupedData`` (values and group offsets, no sort)."""
-    from repro_torch.core.sampling import GroupedData
-
-    values, offsets = lineitem.make_table(cell.config, seed, device)
-    return GroupedData(values, offsets, device=device)
+    """The kind's deployment data, made on ``device`` from the seed."""
+    return cell.kind.make_data(cell, seed, device)
 
 
 def make_session(cell: Cell, data, seed: int):
-    """The configuration's ``AQPSession`` over ``data``."""
-    from repro_torch.serve import AQPSession
-
-    s = cell.config["session"]
-    session_seed = int(np.random.default_rng(
-        lineitem.seed_words(seed) + [3]).integers(0, 2 ** 31 - 1))
-    return AQPSession(data, B=s["B"], n_min=s["n_min"], n_max=s["n_max"],
-                      max_iters=s["max_iters"], n_cap=s["n_cap"],
-                      seed=session_seed, data_shards=s["data_shards"],
-                      warm_cache=s["warm_cache"], degrade=s["degrade"])
+    """The kind's server over ``data``: the program under test.  Runs call
+    the kind's builders through these two names, so a profiler can wrap
+    them."""
+    return cell.kind.make_session(cell, data, seed)
 
 
-def warm_up(client: Client, traffic: Traffic, mix: dict,
-            grace_s: float) -> int:
+def warm_up(client, traffic, mix: dict, grace_s: float) -> int:
     """Serve ``warmup_requests`` of the mix from streams of their own and
-    drain them; one more idle round lets the planner resize the pool to
-    what it saw (it resizes only when the pool is idle).  Returns the
-    requests served."""
+    drain them, then one idle round of the client (a TPC-H session's
+    planner resizes the pool to what it saw only when the pool is idle).
+    Returns the requests served."""
     drive(client, traffic, mix, seconds=float("inf"),
           first_stream=WARMUP_STREAM,
           limit=int(mix["warmup_requests"]))
     settle(client, grace_s)
     if client.outstanding:
         raise RuntimeError("the warm-up did not drain")
-    client.sess.pump()
+    client.idle_round()
     if client.device.type == "cuda":
         torch.cuda.synchronize(client.device)
     n = len(client.records)
@@ -339,17 +242,16 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
              t_start: float, grace_s: float = GRACE_S) -> dict:
     """One run; returns the result object the command prints."""
     device = torch.device(device)
-    cfg, mix = cell.config, cell.mix
+    kind, mix = cell.kind, cell.mix
     log = lambda *a: print(*a, file=sys.stderr, flush=True)
     t = time.perf_counter()
     prepare_kernels(device)
     t_build = time.perf_counter() - t
     data = make_data(cell, seed, device)
     sess = make_session(cell, data, seed)
-    offsets = data.offsets
+    traffic = kind.make_traffic(cell, data, seed)
     del data
-    traffic = Traffic(mix, cfg, np.diff(offsets), seed)
-    client = Client(sess, device)
+    client = kind.Client(sess, device)
     t = time.perf_counter()
     warm_n = warm_up(client, traffic, mix, grace_s)
     t_warm = time.perf_counter() - t
@@ -357,7 +259,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     log(f"setup {setup_s:.3f} s (kernel libraries {t_build:.3f} s, "
         f"warm-up {t_warm:.3f} s over {warm_n} requests)")
 
-    stats0 = _stats(sess)
+    stats0 = kind.counters(sess)
     t0 = drive(client, traffic, mix, seconds=seconds, first_stream=0)
     t_end = t0 + seconds
     pumps_in_window = len(client.pump_s)
@@ -365,17 +267,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_settled = time.perf_counter()
-    stats1 = _stats(sess)
+    stats1 = kind.counters(sess)
     records = list(client.records)
     tracer = None
     if trace:
-        tracer = Tracer(device)
+        tracer = Tracer(device, kind.layer_spans)
         tracer.record(client, traffic, mix)
         settle(client, grace_s)
-    pool = sess.stats().get("pool", {})
-    log(f"pool: lanes {pool.get('lanes')}, ticks_per_sync "
-        f"{pool.get('ticks_per_sync')}, rebuilds {sess.pool_rebuilds}, "
-        f"peak queue {pool.get('peak_queue_depth')}")
+    log(kind.describe(sess))
 
     found = forbidden_modules()
     if found:
@@ -390,7 +289,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     lat = np.asarray([(r["t_done"] if r["resp"] is not None else t_settled)
                       - r["t_sent"] for r in records])
     pending = [(r["spec"], None if r["resp"] is None
-                else _response_dict(r["resp"])) for r in client.records]
+                else kind.answer(r["resp"])) for r in client.records]
     run = {
         "seconds": seconds, "t0": t0, "t_end": t_end,
         "records": records, "answered": answered, "in_window": in_window,
@@ -413,12 +312,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    exact = ref_exact.exact_answers(cfg, seed, device,
-                                    {spec["func"] for spec, _ in pending})
-    verdict = ref_judge.judge(pending, exact, log=log)
-    table = ref_judge.checks(verdict, cell.limits)
-    correct = ref_judge.passed(table) and verdict["units"] > 0
-    log(f"reference {time.perf_counter() - t:.3f} s: {verdict}")
+    judged = kind.judge(cell, seed, device, pending, log)
+    log(f"reference {time.perf_counter() - t:.3f} s: {judged['verdict']}")
 
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": (torch.cuda.get_device_name(device)
@@ -426,8 +321,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
            "count": cell.chips, "memory_peak_bytes": int(peak)}
     if device.type == "cuda":
         dev["power"] = power_limit()
-    out = {"correct": bool(correct), "attempted": len(pending),
-           "failed": verdict["unanswered"] + verdict["unsuccessful"]}
+    out = {"correct": bool(judged["correct"]), "attempted": len(pending),
+           "failed": judged["failed"]}
     if trace:
         from . import devtrace
         t = time.perf_counter()
@@ -453,7 +348,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                                "unit": m["unit"]} for m in cell.end_to_end}
     out["metrics"] = metrics
     out["device"] = dev
-    out["checks"] = table
+    out["checks"] = judged["checks"]
     return out
 
 

@@ -31,13 +31,13 @@ def main(argv=None) -> int:
     p.add_argument("--rates", type=float, nargs="+", required=True)
     args = p.parse_args(argv)
 
+    import dataclasses
+
     import numpy as np
     import torch
     from aqpbench.cell import load_cell
-    from aqpbench.harness import (GRACE_S, Client, drive, make_data,
-                                  make_session, prepare_kernels, settle,
-                                  warm_up)
-    from aqpbench.traffic.generator import Traffic
+    from aqpbench.harness import (GRACE_S, drive, make_data, make_session,
+                                  prepare_kernels, settle, warm_up)
 
     cell = load_cell(args.workload)
     if cell.mix["loop"] != "open" or not torch.cuda.is_available():
@@ -49,9 +49,10 @@ def main(argv=None) -> int:
     rows = []
     for i, rate in enumerate(args.rates):
         mix = dict(cell.mix, rate_per_s=rate)
-        traffic = Traffic(mix, cell.config, np.diff(data.offsets),
-                          args.seed + i)
-        client = Client(make_session(cell, data, args.seed + i), dev)
+        at_rate = dataclasses.replace(cell, mix=mix)
+        traffic = cell.kind.make_traffic(at_rate, data, args.seed + i)
+        client = cell.kind.Client(make_session(at_rate, data, args.seed + i),
+                                  dev)
         warm_up(client, traffic, mix, GRACE_S)
         t0 = drive(client, traffic, mix, seconds=args.seconds,
                    first_stream=0)

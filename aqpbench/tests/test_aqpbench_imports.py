@@ -50,3 +50,22 @@ def test_harness_loads_no_jax_at_run_time():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_harness_holds_no_kind():
+    """What is built, sent and judged is the kind's: the harness imports no
+    table, traffic, reference or serving code."""
+    tree = ast.parse((HERE / "harness.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = "." * node.level + (node.module or "")
+            names |= {base} | {f"{base}.{a.name}".replace("..", ".")
+                               for a in node.names}
+    kind_code = ("data", "lineitem", "reference", "exact", "judge",
+                 "traffic", "generator", "repro_torch.serve",
+                 "repro_torch.aqp")
+    assert not {n for n in names for k in kind_code
+                if k in n.split(".") or n.startswith(k)}, names

@@ -86,10 +86,33 @@ def test_cell_files_found_by_name(w):
     from aqpbench.cell import load_cell, reader
     cell = load_cell(w["name"])
     assert cell.mix["loop"] in ("open", "closed")
-    exact = {"unanswered", "overclaimed"}
+    exact = set(cell.kind.EXACT_LIMITS)
     assert all(name in cell.limits and cell.limits[name] == 0
                for name in exact)
-    assert set(cell.limits) - exact <= {"miss_share", "far_share"}
-    assert len(cell.limits) >= 3
+    assert set(cell.limits) - exact <= set(cell.kind.READ_LIMITS)
+    assert len(cell.limits) > len(exact)
     for m in cell.per_layer:
         assert callable(reader(m["name"]))
+
+
+@pytest.mark.parametrize("c", M["configs"], ids=lambda c: c["name"])
+def test_config_kind_fills_every_role(c):
+    from aqpbench.cell import DEFAULT_KIND, ROLES, load_kind
+    body = json.loads((ROOT / c["file"]).read_text())
+    kind = load_kind(body.get("kind", DEFAULT_KIND))
+    for role, names in ROLES.items():
+        for name in names:
+            assert hasattr(kind, name), (role, name)
+    for name in ("make_data", "make_session", "make_traffic", "counters",
+                 "describe", "layer_spans", "answer", "judge"):
+        assert callable(getattr(kind, name)), name
+    for name in ("send", "pump", "idle_round"):
+        assert callable(getattr(kind.Client, name, None)), name
+    assert not set(kind.EXACT_LIMITS) & set(kind.READ_LIMITS)
+
+
+def test_tpch_kind_limits_are_the_judges():
+    from aqpbench.cell import load_kind
+    kind = load_kind("tpch_lineitem")
+    assert set(kind.EXACT_LIMITS) == {"unanswered", "overclaimed"}
+    assert set(kind.READ_LIMITS) == {"miss_share", "far_share"}
