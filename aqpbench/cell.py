@@ -11,13 +11,19 @@ import importlib.util
 import json
 from pathlib import Path
 from types import ModuleType
-from typing import Callable, List
+from typing import Callable, List, Tuple
+
+from . import devtrace, kernels
+from .roofline import work
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 DEFAULT_KIND = "tpch_lineitem"
 
-# What a kind module holds, by role.
+# What a kind module holds, by role.  Besides, the tracing role may hold
+# ``SPAN_PREFIXES``, the prefixes of the program's spans (none named:
+# ``devtrace.DEFAULT_PREFIXES``), and ``KERNELS``, the kind's own
+# ``kernels.Kernel`` entries by name beside ``kernels.SHARED``.
 ROLES = {
     "build": ("make_data", "make_session", "make_traffic"),
     "client": ("Client",),
@@ -50,13 +56,31 @@ def _load(path: Path, name: str) -> ModuleType:
     return mod
 
 
+def span_prefixes(kind: ModuleType) -> Tuple[str, ...]:
+    """The prefixes of the kind's program spans."""
+    return tuple(getattr(kind, "SPAN_PREFIXES", devtrace.DEFAULT_PREFIXES))
+
+
 def load_kind(kind: str, here: Path = HERE) -> ModuleType:
-    """``kinds/<kind>.py``, checked to fill every role of :data:`ROLES`."""
+    """``kinds/<kind>.py``, checked to fill every role of :data:`ROLES`,
+    with well-formed span prefixes and kernels of its own."""
     mod = _load(here / "kinds" / f"{kind}.py", f"aqpbench_kind_{kind}")
     missing = [a for names in ROLES.values() for a in names
                if not hasattr(mod, a)]
     if missing:
         raise SystemExit(f"kind {kind!r} lacks {missing}")
+    bad = [p for p in span_prefixes(mod)
+           if not isinstance(p, str) or not devtrace.PREFIX.match(p)]
+    if bad:
+        raise SystemExit(f"kind {kind!r}: span prefixes {bad} do not match "
+                         f"{devtrace.PREFIX.pattern}")
+    own = getattr(mod, "KERNELS", {})
+    bad = [n for n, k in own.items()
+           if n in kernels.SHARED or not isinstance(k, kernels.Kernel)
+           or not k.events or k.peak not in work.PEAKS]
+    if bad:
+        raise SystemExit(f"kind {kind!r}: kernels {bad} are shared, or lack "
+                         f"device-op names or a known peak")
     return mod
 
 

@@ -3,9 +3,15 @@ kineto events (nothing is written to disk).
 
 * device intervals: every operation that ran on the card (kernels, copies,
   sets), by name;
-* host spans: the benchmark's own ``record_function`` spans (names from
-  :data:`SPANS`), with their nesting depth;
+* host spans: ``record_function`` spans whose names start with the
+  benchmark's prefix or one of the program's (the cell's kind names them;
+  :data:`DEFAULT_PREFIXES` where it names none);
 * the window: the ``aqpbench.window`` span.
+
+A span's device-side copy (the profiler's ``gpu_user_annotation``, which
+covers the kernels the span launched) is no operation, so it is dropped by
+the same prefixes; a span of the program under a prefix the cell does not
+name would count as device work.
 
 ``busy_s`` is the union of the device intervals inside the window, so
 overlapping operations count once.
@@ -13,6 +19,7 @@ overlapping operations count once.
 from __future__ import annotations
 
 import dataclasses
+import re
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
@@ -20,7 +27,12 @@ import numpy as np
 import torch
 
 WINDOW = "aqpbench.window"
-SPANS = ("aqpbench.", "session.", "lane_pool.")
+BENCH = "aqpbench."                             # the benchmark's own spans
+DEFAULT_PREFIXES = ("session.", "lane_pool.")   # the program's, by default
+SPANS = (BENCH,) + DEFAULT_PREFIXES
+# A program's prefix: lower case and ending in a dot, so none can take in
+# the card's own operations (``void ...``, ``Memcpy ...``).
+PREFIX = re.compile(r"^[a-z][a-z0-9_]*\.$")
 
 
 def _ns(e, what: str) -> int:
@@ -115,9 +127,12 @@ class DeviceTrace:
         return [[name, t * 1e-9] for name, t in top]
 
 
-def read(prof) -> Optional[DeviceTrace]:
-    """The trace of a stopped ``torch.profiler.profile``; None without a
+def read(prof, prefixes: Tuple[str, ...] = DEFAULT_PREFIXES
+         ) -> Optional[DeviceTrace]:
+    """The trace of a stopped ``torch.profiler.profile``, with the program's
+    spans named by ``prefixes`` (the benchmark's always); None without a
     window span."""
+    spans_of = (BENCH,) + tuple(prefixes)
     cuda = torch.autograd.DeviceType.CUDA
     names, starts, ends, spans = [], [], [], []
     window = None
@@ -127,13 +142,13 @@ def read(prof) -> Optional[DeviceTrace]:
         d = _ns(e, "duration")
         if e.device_type() == cuda:
             # The device side of a ``record_function`` span is no operation.
-            if d > 0 and not name.startswith(SPANS):
+            if d > 0 and not name.startswith(spans_of):
                 names.append(name)
                 starts.append(s)
                 ends.append(s + d)
         elif name == WINDOW:
             window = (s, s + d)
-        elif name.startswith(SPANS):
+        elif name.startswith(spans_of):
             spans.append((name, s, s + d))
     if window is None:
         return None

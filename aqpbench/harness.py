@@ -30,12 +30,13 @@ import contextlib
 import gc
 import sys
 import time
-from typing import Callable, ContextManager, Dict, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from .cell import Cell, reader
+from . import kernels
+from .cell import Cell, reader, span_prefixes
 
 GRACE_S = 60.0              # how long answers may come after the window
 TRACE_SECONDS = 8.0         # the traced sub-window, after the window
@@ -97,62 +98,26 @@ def settle(client, grace_s: float) -> None:
         client.pump()
 
 
-@contextlib.contextmanager
-def kernel_calls(calls: Dict[str, list]):
-    """Record each bootstrap kernel call's shapes and, on the device with
-    no sync, its live rows: the work ``roofline/work.py`` counts."""
-    from repro_torch.kernels.poisson_bootstrap import ops as pb_ops
-    from repro_torch.kernels.segment_agg import ops as seg_ops
-
-    pb, seg = pb_ops.bootstrap_moments_masked, seg_ops.segment_bootstrap_sorted
-
-    def rec_pb(x, mask, seeds, B, *, lane_active=None):
-        live = mask != 0
-        gate = 0
-        if lane_active is not None:
-            live = live & lane_active.bool()[..., None]
-            gate = 1 if lane_active.dtype == torch.bool else 4
-        groups = x.numel() // max(x.shape[-1], 1)
-        calls["poisson_bootstrap"].append(
-            (groups, x.shape[-1], int(B), gate, live.sum()))
-        return pb(x, mask, seeds, B, lane_active=lane_active)
-
-    def rec_seg(x, mask, slot, seed, lane_off, B, n_slots):
-        calls["segment_boot"].append(
-            (x.shape[0], lane_off.shape[0] - 1, int(B), (mask > 0).sum()))
-        return seg(x, mask, slot, seed, lane_off, B, n_slots)
-
-    pb_ops.bootstrap_moments_masked = rec_pb
-    seg_ops.segment_bootstrap_sorted = rec_seg
-    try:
-        yield
-    finally:
-        pb_ops.bootstrap_moments_masked = pb
-        seg_ops.segment_bootstrap_sorted = seg
-
-
 class Tracer:
     """The profiler over a sub-window of ``TRACE_SECONDS`` of the cell's
-    traffic, driven once the measured window has drained, with the
-    kernel-call records of the same interval.  The profiler starts before
-    the sub-window's clock does, so its one-time start-up (seconds) lies
-    outside both windows."""
+    traffic, driven once the measured window has drained, with the records
+    and launch counts of every kernel of the kind (``kernels.of``) over the
+    same interval.  The profiler starts before the sub-window's clock does,
+    so its one-time start-up (seconds) lies outside both windows."""
 
-    def __init__(self, device, spans: Callable[[], ContextManager]):
+    def __init__(self, device, kind):
         self.device = device
-        self.spans = spans                      # the kind's ``layer_spans``
+        self.spans = kind.layer_spans
+        self.prefixes = span_prefixes(kind)     # the program's spans
+        self.kernels = kernels.of(kind)
         self.length = TRACE_SECONDS
         self.span: Optional[tuple] = None       # (start, end) perf_counter
-        self.calls: Dict[str, list] = {"poisson_bootstrap": [],
-                                       "segment_boot": []}
+        self.calls: Dict[str, list] = {k: [] for k in self.kernels}
         self.launches: Dict[str, int] = {}
         self.prof = None
 
     def _counters(self):
-        from repro_torch.kernels.poisson_bootstrap import ops as pb_ops
-        from repro_torch.kernels.segment_agg import ops as seg_ops
-        return {"poisson_bootstrap": pb_ops.counter.launches,
-                "segment_boot": seg_ops.boot_counter.launches}
+        return {name: k.launches() for name, k in self.kernels.items()}
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -172,7 +137,7 @@ class Tracer:
         before = self._counters()
         with contextlib.ExitStack() as stack:
             stack.enter_context(self.spans())
-            stack.enter_context(kernel_calls(self.calls))
+            stack.enter_context(kernels.recording(self.kernels, self.calls))
             stack.enter_context(record_function(WINDOW))
             t0 = drive(client, traffic, mix, seconds=self.length,
                        first_stream=TRACED_STREAM)
@@ -271,7 +236,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     records = list(client.records)
     tracer = None
     if trace:
-        tracer = Tracer(device, kind.layer_spans)
+        tracer = Tracer(device, kind)
         tracer.record(client, traffic, mix)
         settle(client, grace_s)
     log(kind.describe(sess))
@@ -326,7 +291,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     if trace:
         from . import devtrace
         t = time.perf_counter()
-        run["trace"] = devtrace.read(tracer.prof)
+        # ``read(prof)`` where the kind keeps the default prefixes, so that
+        # a wrapper of that call (``profile_serve.py --spans``) still fits.
+        run["trace"] = (
+            devtrace.read(tracer.prof)
+            if tracer.prefixes == devtrace.DEFAULT_PREFIXES
+            else devtrace.read(tracer.prof, tracer.prefixes))
         metrics = {}
         for m in cell.per_layer:
             v = reader(m["name"])(run)
@@ -338,10 +308,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             dev["window_s"] = tr.window_s
             out["breakdown"] = {"device_ops": tr.top_ops(),
                                 "idle_gaps": tr.idle_gaps()}
+            events = ", ".join(f"{name} {tr.kernel(k.events[0])[0]}"
+                               for name, k in tracer.kernels.items())
             log(f"trace {time.perf_counter() - t:.3f} s: {len(tr.names)} "
                 f"device ops, launches counted {tracer.launches}, "
-                f"kernel events {tr.kernel('pb_kernel')[0]} pb / "
-                f"{tr.kernel('seg_boot_kernel')[0]} seg")
+                f"kernel events {events}")
     else:
         metrics = {m["name"]: {"value": (setup_s if m["name"] == "setup_s"
                                          else end_to_end(m["name"], run)),

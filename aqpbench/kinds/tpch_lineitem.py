@@ -113,6 +113,12 @@ def describe(sess) -> str:
 
 
 # -- tracing ----------------------------------------------------------------
+# The prefixes of the program's own spans (``repro_torch.core.trace``) and
+# of this kind's ``layer_spans``.  Its kernels are rows 1 and 2, which every
+# kind gets (``aqpbench/kernels.py``).
+SPAN_PREFIXES = ("session.", "lane_pool.")
+
+
 @contextlib.contextmanager
 def layer_spans():
     """``record_function`` spans around the calls into each layer, set from

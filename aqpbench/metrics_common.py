@@ -16,13 +16,18 @@ def idle_share(run) -> Optional[float]:
     return 100.0 * (1.0 - busy / tr.window_s) if busy > 0 else None
 
 
-def roofline(run, kernel: str, names: Sequence[str]) -> Optional[float]:
-    """Sum over the traced calls of the least time, over the device time of
-    the kernels named ``names``; None without calls or without device time,
-    or when the profiler saw another number of launches than were made."""
+def roofline(run, kernel: str,
+             names: Optional[Sequence[str]] = None) -> Optional[float]:
+    """Sum over the traced calls of ``kernel`` of the least time its entry's
+    work function and peak give, over the device time of the kernels named
+    ``names`` (the entry's device-op names where None); None without calls
+    or without device time, or when the profiler saw another number of
+    launches of the first name than were made."""
     tr, tracer = run.get("trace"), run["tracer"]
-    if tr is None or not tracer.calls[kernel]:
+    if tr is None or not tracer.calls.get(kernel):
         return None
+    entry = tracer.kernels[kernel]
+    names = names or entry.events
     launches, seconds = tr.kernel(names[0])
     if launches != tracer.launches.get(kernel) or seconds <= 0:
         return None
@@ -30,16 +35,7 @@ def roofline(run, kernel: str, names: Sequence[str]) -> Optional[float]:
     calls = tracer.calls[kernel]
     live = torch.stack([c[-1] for c in calls]).cpu().tolist()
     least = 0.0
-    for c, rows in zip(calls, live):
-        if kernel == "poisson_bootstrap":
-            groups, width, B, gate, _ = c
-            if groups == 0 or width == 0:
-                continue
-            f, b = work.poisson_bootstrap(groups, width, B, int(rows), gate)
-        else:
-            length, lanes, B, _ = c
-            if length == 0 or lanes == 0:
-                continue
-            f, b = work.segment_boot(length, lanes, B, int(rows))
-        least += work.least_seconds(f, b)
+    for c, n in zip(calls, live):
+        least += work.least_seconds(*entry.work(c[:-1] + (int(n),)),
+                                    peak=entry.peak)
     return 100.0 * least / seconds

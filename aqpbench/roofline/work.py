@@ -1,5 +1,8 @@
 """Work of the bootstrap kernels from the shapes of each call, frozen here
-so that a change to the program cannot move the yardstick.
+so that a change to the program cannot move the yardstick.  A kernel's
+entry (``aqpbench/kernels.py``) names its work function, which takes one
+recorded call (its shapes, then its live count) and returns ``(flops,
+bytes)``, and the key of ``peaks.json`` that bounds its arithmetic.
 
 A call's bootstrap needs one Poisson weight and one multiply-add per moment
 for every (live row, replicate) pair: ``2 * moments + 1`` operations a pair.
@@ -44,8 +47,27 @@ def segment_boot(length: int, lanes: int, B: int, live_rows: int,
     return pair_flops(live_rows * B, moments), float(nbytes)
 
 
-def least_seconds(flops: float, nbytes: float) -> float:
-    """The least time the card could take: the larger of the arithmetic
-    and the byte term at the published peaks."""
-    return max(flops / PEAKS["fp32_flops_per_s"],
-               nbytes / PEAKS["hbm_bytes_per_s"])
+def poisson_bootstrap_record(record: tuple) -> Tuple[float, float]:
+    """A recorded call ``(groups, width, B, gate_bytes, live_rows)``; one
+    over no slot launches nothing."""
+    groups, width, B, gate, live = record
+    if groups == 0 or width == 0:
+        return 0.0, 0.0
+    return poisson_bootstrap(groups, width, B, live, gate)
+
+
+def segment_boot_record(record: tuple) -> Tuple[float, float]:
+    """A recorded call ``(length, lanes, B, live_rows)``; one over an empty
+    stream launches nothing."""
+    length, lanes, B, live = record
+    if length == 0 or lanes == 0:
+        return 0.0, 0.0
+    return segment_boot(length, lanes, B, live)
+
+
+def least_seconds(flops: float, nbytes: float,
+                  peak: str = "fp32_flops_per_s") -> float:
+    """The least time the card could take: the larger of the arithmetic at
+    the published rate ``peak`` and the byte term at the published HBM
+    rate."""
+    return max(flops / PEAKS[peak], nbytes / PEAKS["hbm_bytes_per_s"])

@@ -2,7 +2,8 @@
 the harness read before configurations named their kind: the same table
 from the seed, the same requests in the same order on every stream, the
 same session seed.  And a kind added by files alone, outside the checkout,
-run through the harness on the CPU."""
+with its own span prefix and kernel, run through the harness on the CPU
+(and traced on a card)."""
 import dataclasses
 import hashlib
 import itertools
@@ -11,9 +12,10 @@ import math
 import time
 
 import pytest
+import torch
 
-from aqpbench import harness
-from aqpbench.cell import HERE, load_cell
+from aqpbench import devtrace, harness
+from aqpbench.cell import HERE, load_cell, load_kind
 
 SEEDS = [2**31 + 11, 2**33 + 5]
 MIXES = ["solo_open", "solo_closed", "groupby_closed"]
@@ -117,16 +119,48 @@ def test_requests_on_every_stream(key, m):
 
 
 # A kind added by files alone: sums of slices of a vector on the device,
-# served by a server that answers every queued request each round.
+# served by a server that answers every queued request each round, inside
+# spans of its own prefix, through a "kernel" (a plain torch op behind a
+# call site and a launch counter) registered with its work.
 TOY_KIND = '''
 import contextlib
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
+from torch.profiler import record_function
+
+from aqpbench.kernels import Kernel
 
 EXACT_LIMITS = ("unanswered",)
 READ_LIMITS = ("wrong_share",)
+SPAN_PREFIXES = ("toy.",)
+
+
+def _slice_sum(x):
+    ops.launches += 1
+    return x.sum()
+
+
+ops = SimpleNamespace(slice_sum=_slice_sum, launches=0)
+
+
+def _record(fn, calls):
+    def rec(x):
+        calls.append((x.numel(), (x != 0).sum()))
+        return fn(x)
+    return rec
+
+
+def _work(record):
+    n, live = record
+    return float(live), float(8 * n)
+
+
+KERNELS = {"toy": Kernel(site=lambda: (ops, "slice_sum"), record=_record,
+                         launches=lambda: ops.launches,
+                         events=("reduce_kernel",), work=_work)}
 
 
 def make_data(cell, seed, device):
@@ -141,14 +175,16 @@ class Server:
         self.rows_touched = self.completed = 0
 
     def answer(self, lo, hi):
-        return int(self.data[lo:hi].sum())
+        with record_function("toy.answer"):
+            return int(ops.slice_sum(self.data[lo:hi]))
 
     def round(self):
         time.sleep(0.001)
-        for rid, lo, hi in self.queue:
-            self.done[rid] = self.answer(lo, hi)
-            self.rows_touched += hi - lo
-            self.completed += 1
+        with record_function("toy.round"):
+            for rid, lo, hi in self.queue:
+                self.done[rid] = self.answer(lo, hi)
+                self.rows_touched += hi - lo
+                self.completed += 1
         self.queue = []
 
 
@@ -225,9 +261,7 @@ def answer(resp):
 
 
 def judge(cell, seed, device, pending, log):
-    gen = torch.Generator().manual_seed(seed % (1 << 63))
-    x = torch.randint(0, 1000, (cell.config["rows"],), generator=gen,
-                      dtype=torch.int64).numpy()
+    x = make_data(cell, seed, device).cpu().numpy()
     unanswered = sum(a is None for _, a in pending)
     wrong = sum(a is None or a != int(x[s["lo"]:s["hi"]].sum())
                 for s, a in pending)
@@ -241,13 +275,13 @@ def judge(cell, seed, device, pending, log):
 '''
 
 
-@pytest.fixture
-def toy_cell(tmp_path):
+def write_toy(tmp_path, kind=TOY_KIND):
     """The toy kind, a configuration naming it, a mix, a checks file and a
-    copy of the manifest with the toy cell, all under ``tmp_path``."""
+    copy of the manifest with the toy cell, all under ``tmp_path``; returns
+    the folder that stands for ``aqpbench/``."""
     bench = tmp_path / "aqpbench"
     files = {
-        "kinds/toy_sums.py": TOY_KIND,
+        "kinds/toy_sums.py": kind,
         "configs/toy_sums.json": json.dumps(
             {"name": "toy_sums", "kind": "toy_sums", "rows": 20_000,
              "width": 500, "reduced": []}),
@@ -267,7 +301,13 @@ def toy_cell(tmp_path):
         {"name": "toy_sums.closed", "config": "toy_sums",
          "traffic": "toy_closed", "chips": 1, "why": "a toy"})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(manifest))
-    return load_cell("toy_sums.closed", root=tmp_path, here=bench)
+    return bench
+
+
+@pytest.fixture
+def toy_cell(tmp_path):
+    return load_cell("toy_sums.closed", root=tmp_path,
+                     here=write_toy(tmp_path))
 
 
 def checkout_files():
@@ -292,3 +332,64 @@ def test_kind_added_by_files_alone(toy_cell, monkeypatch, fault):
     assert out["device"]["platform"] == "cpu"
     assert out["correct"] is (not fault), out["checks"]
     assert checkout_files() == before
+
+
+@pytest.mark.parametrize("device", ["cpu",
+                                    pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_kind_names_its_spans_and_kernels(toy_cell, monkeypatch, device):
+    """Traced, the toy's ``toy.`` spans are host spans and their device
+    copies no device work; its kernel's calls are recorded once a launch."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    before = checkout_files()
+    ops, seen = toy_cell.kind.ops, {}
+    record, read = harness.Tracer.record, devtrace.read
+
+    def spy_record(self, client, traffic, mix):
+        seen["tracer"], launched = self, ops.launches
+        record(self, client, traffic, mix)
+        seen["launched"] = ops.launches - launched
+
+    def spy_read(prof, *prefixes):
+        seen["default"] = read(prof)
+        seen["trace"] = read(prof, *prefixes)
+        return seen["trace"]
+
+    monkeypatch.setattr(harness.Tracer, "record", spy_record)
+    monkeypatch.setattr(devtrace, "read", spy_read)
+    monkeypatch.setattr(harness, "TRACE_SECONDS", 1.0)
+    out = harness.run_cell(toy_cell, 2**31 + 9, 2.0, True, device,
+                           time.perf_counter(), grace_s=5.0)
+    tracer, tr, default = seen["tracer"], seen["trace"], seen["default"]
+    assert out["correct"] and out["failed"] == 0, out["checks"]
+    assert tracer.prefixes == ("toy.",)
+    assert set(tracer.calls) == {"poisson_bootstrap", "segment_boot", "toy"}
+    assert tracer.launches["toy"] == seen["launched"] \
+        == len(tracer.calls["toy"]) > 100
+    assert {name for name, _, _ in tr.spans} >= {"toy.answer", "toy.round"}
+    assert not any(name.startswith("toy.") for name in tr.names)
+    assert out["device"]["busy_s"] == tr.busy_s()
+    assert not any(name.startswith("toy.") for name, _, _ in default.spans)
+    if device == "cuda":
+        # The default prefixes count the spans' device copies as work.
+        assert any(name.startswith("toy.") for name in default.names)
+        assert default.busy_s() > tr.busy_s() > 0
+        print(f"toy on {torch.cuda.get_device_name(0)}: busy "
+              f"{tr.busy_s()!r} s with toy., {default.busy_s()!r} s without;"
+              f" device ops {tr.count_in_window()} / "
+              f"{default.count_in_window()}; toy launches "
+              f"{tracer.launches['toy']}, calls {len(tracer.calls['toy'])}, "
+              f"window {tr.window_s!r} s")
+    assert checkout_files() == before
+
+
+@pytest.mark.parametrize("line", [
+    'SPAN_PREFIXES = ("void",)', 'SPAN_PREFIXES = ("Memcpy.",)',
+    'SPAN_PREFIXES = ("",)', 'KERNELS = {"poisson_bootstrap": KERNELS["toy"]}',
+    'KERNELS = {"toy": dataclasses.replace(KERNELS["toy"], peak="fp64")}',
+    'KERNELS = {"toy": dataclasses.replace(KERNELS["toy"], events=())}'])
+def test_kind_with_a_malformed_tracing_role_is_refused(tmp_path, line):
+    bench = write_toy(tmp_path, TOY_KIND + "\nimport dataclasses\n" + line)
+    with pytest.raises(SystemExit):
+        load_kind("toy_sums", here=bench)
+    assert load_kind("toy_sums", here=write_toy(tmp_path / "sound"))

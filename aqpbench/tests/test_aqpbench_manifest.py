@@ -109,6 +109,24 @@ def test_config_kind_fills_every_role(c):
     for name in ("send", "pump", "idle_round"):
         assert callable(getattr(kind.Client, name, None)), name
     assert not set(kind.EXACT_LIMITS) & set(kind.READ_LIMITS)
+    from aqpbench import devtrace, kernels
+    from aqpbench.cell import span_prefixes
+    from aqpbench.roofline import work
+    prefixes = span_prefixes(kind)
+    assert isinstance(prefixes, tuple) and prefixes
+    assert all(devtrace.PREFIX.match(p) for p in prefixes), prefixes
+    # Each kernel entry has its four parts: a call site and its recorder,
+    # a launch counter, its device-op names, and a work function frozen
+    # under roofline/ with the peak that bounds it.
+    for name, k in kernels.of(kind).items():
+        assert NAME.match(name) and isinstance(k, kernels.Kernel), name
+        assert callable(k.site) and callable(k.record), name
+        assert callable(k.launches), name
+        assert k.events and all(isinstance(e, str) and e
+                                for e in k.events), name
+        assert callable(k.work) and k.work.__module__.startswith(
+            "aqpbench.roofline."), name
+        assert k.peak in work.PEAKS and k.peak.endswith("_flops_per_s")
 
 
 def test_tpch_kind_limits_are_the_judges():
@@ -116,3 +134,18 @@ def test_tpch_kind_limits_are_the_judges():
     kind = load_kind("tpch_lineitem")
     assert set(kind.EXACT_LIMITS) == {"unanswered", "overclaimed"}
     assert set(kind.READ_LIMITS) == {"miss_share", "far_share"}
+
+
+def test_tpch_kind_prefixes_are_the_default_spans():
+    """The TPC-H kind's prefixes read the spans ``devtrace.SPANS`` has
+    always named, and its kernels are rows 1 and 2 alone."""
+    from aqpbench import devtrace, kernels
+    from aqpbench.cell import load_kind, span_prefixes
+    kind = load_kind("tpch_lineitem")
+    assert kind.SPAN_PREFIXES == ("session.", "lane_pool.")
+    assert span_prefixes(kind) == devtrace.DEFAULT_PREFIXES
+    assert (devtrace.BENCH,) + span_prefixes(kind) == devtrace.SPANS \
+        == ("aqpbench.", "session.", "lane_pool.")
+    assert list(kernels.of(kind)) == ["poisson_bootstrap", "segment_boot"]
+    assert kernels.of(kind)["segment_boot"].events == ("seg_boot_kernel",
+                                                       "seg_plan_kernel")
