@@ -49,8 +49,9 @@ on the card):
   device seconds put down to the innermost span around its launch call,
   found through the profiler's launch correlation, with the ATen op that
   launched it; and the clock check (no operation starts before its launch
-  call).  It also prints the session's pre-read graph counters
+  call).  It also prints the session's graph counters
   (``graph_captures``, ``graph_replays``, ``eager_pre_read``,
+  ``finish_captures``, ``finish_replays``, ``eager_finish``,
   ``pool_rebuilds``) over the warm-up, the window and the traced
   sub-window, and the sub-window's ``lane_pool.step.fit_predict`` phases
   by the step or session route around them, with those that replay or
@@ -303,6 +304,7 @@ def span_table(prof, tr) -> dict:
 
 
 GRAPH_COUNTERS = ("graph_captures", "graph_replays", "eager_pre_read",
+                  "finish_captures", "finish_replays", "eager_finish",
                   "pool_rebuilds")
 PHASE_ROUTES = ("lane_pool.tier_step", "lane_pool.block_step",
                 "session.loop", "session.batched")

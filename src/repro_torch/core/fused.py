@@ -534,18 +534,29 @@ def _pre_read(s: LaneState, p: LaneParams, *, block: bool, l: int,
                         est_w=est_w)
 
 
-def _staged_pre_read(*leaves: torch.Tensor, **statics) -> _PreRead:
-    """:func:`_pre_read` over the staged leaves alone (the state's, then the
-    params'), every other leaf None: the function a CUDA graph captures."""
+def _stage_pre_read(s: LaneState, p: LaneParams) -> list:
+    """The leaves :func:`_pre_read` reads, in the order a graph stages them
+    (the state's, then the params')."""
+    return ([getattr(s, f) for f in _PRE_READ_STATE]
+            + [getattr(p, f) for f in _PRE_READ_PARAMS])
+
+
+def _unstage_pre_read(leaves) -> Tuple[LaneState, LaneParams]:
+    """The state and params that :func:`_stage_pre_read` staged as
+    ``leaves``, every other leaf None."""
     k = len(_PRE_READ_STATE)
-    s = _NO_STATE._replace(**dict(zip(_PRE_READ_STATE, leaves[:k])))
-    p = _NO_PARAMS._replace(**dict(zip(_PRE_READ_PARAMS, leaves[k:])))
-    return _pre_read(s, p, **statics)
+    return (_NO_STATE._replace(**dict(zip(_PRE_READ_STATE, leaves[:k]))),
+            _NO_PARAMS._replace(**dict(zip(_PRE_READ_PARAMS, leaves[k:]))))
+
+
+def _staged_pre_read(*leaves: torch.Tensor, **statics) -> _PreRead:
+    """:func:`_pre_read` over the staged leaves alone: the function a CUDA
+    graph captures."""
+    return _pre_read(*_unstage_pre_read(leaves), **statics)
 
 
 def _segment_tick(values: torch.Tensor, s: LaneState, p: LaneParams,
-                  pre: _PreRead, *, est, B: int, seg_cap: int, metric: str,
-                  use_kernel: bool):
+                  pre: _PreRead, *, B: int, seg_cap: int, use_kernel: bool):
     """Shared-scan SAMPLE + ESTIMATE of a grouped lane block.
 
     The block is ``q`` lanes of m = 1, lane g bound to group g by its
@@ -561,8 +572,8 @@ def _segment_tick(values: torch.Tensor, s: LaneState, p: LaneParams,
     two stream lengths and the slot bound (``pre.ask``, from
     :func:`_pre_read`) are read on the host in the tick's one transfer and
     both streams are sized exactly, so no element is padding and no scatter
-    target repeats.  Returns ``(filled, e_b, theta_b)``; ``s.buf`` is
-    extended in place.
+    target repeats.  Returns the block's replicate moment sums ``(M (q, 1,
+    B, 3), M_plain (q, 1, 3))``; ``s.buf`` is extended in place.
     """
     q = pre.active.shape[0]
     # ---- the tick's one host read: stream lengths + slot bound ----
@@ -578,7 +589,6 @@ def _segment_tick(values: torch.Tensor, s: LaneState, p: LaneParams,
         slot_j = pre.filled0[lane_j] + off_j
         rows = p.slot_idx[lane_j, 0, slot_j].to(torch.int64)
         s.buf[lane_j, 0, slot_j] = values[rows]
-        filled = torch.maximum(s.filled, pre.win_hi)
     # ---- one segment bootstrap pass over the ESTIMATE windows ----
     with trace.span("lane_pool.step.estimate"):
         lane_j, off_j = _packed(pre.est_w, e_total)
@@ -587,10 +597,7 @@ def _segment_tick(values: torch.Tensor, s: LaneState, p: LaneParams,
         M, M_plain = bootstrap.segment_moment_sums(
             x_j, lane_j, slot_j, torch.ones_like(x_j), pre.seeds[:, 0], q, B,
             use_kernel=use_kernel, n_slots=n_slots)
-        e_b, theta_b = bootstrap.finish_lanes_moments(
-            M[:, None], M_plain[:, None], p.scale, p.deltas, est=est,
-            est_fids=p.est_fids, metric=metric)
-    return filled, e_b, theta_b
+    return M[:, None], M_plain[:, None]
 
 
 def _step_body(values: torch.Tensor, s: LaneState, p: LaneParams, *,
@@ -606,7 +613,9 @@ def _step_body(values: torch.Tensor, s: LaneState, p: LaneParams, *,
     and the active-lane mask (which lanes gather).  ``seg_cap`` runs a
     grouped block's tick instead (:func:`_segment_tick`, its own one read).
     ``graphs`` replays the phase before the read (:func:`_pre_read`) from a
-    CUDA graph keyed on the tick's shapes and statics.
+    CUDA graph keyed on the tick's shapes and statics, and ``graphs.finish``
+    the phase after the moment sums (:func:`_finish_test`), keyed on the
+    same and ``(B, metric, est_name)``.
     """
     est = get_estimator(est_name) if est_name is not None else None
     q, m = s.n_cur.shape
@@ -615,20 +624,18 @@ def _step_body(values: torch.Tensor, s: LaneState, p: LaneParams, *,
     statics = dict(block=seg_cap is not None, l=l, n_min=n_min, n_max=n_max,
                    n_cap=n_cap, ext_cap=ext_cap, tau=tau,
                    growth_cap=growth_cap, max_iters=max_iters, widths=widths)
+    pre_key = (dev, q, m, *sorted(statics.items()))
 
     with trace.span("lane_pool.step.fit_predict"):
         if graphs is None:
             pre = _pre_read(s, p, **statics)
         else:
             pre = graphs.run(
-                (dev, q, m, *sorted(statics.items())),
-                functools.partial(_staged_pre_read, **statics),
-                [getattr(s, f) for f in _PRE_READ_STATE]
-                + [getattr(p, f) for f in _PRE_READ_PARAMS])
+                pre_key, functools.partial(_staged_pre_read, **statics),
+                _stage_pre_read(s, p))
     if seg_cap is not None:
-        filled, e_b, theta_b = _segment_tick(
-            values, s, p, pre, est=est, B=B, seg_cap=seg_cap, metric=metric,
-            use_kernel=use_kernel)
+        M, M_plain = _segment_tick(values, s, p, pre, B=B, seg_cap=seg_cap,
+                                   use_kernel=use_kernel)
     else:
         # ---- the tick's one host read: bucket index + active lanes ----
         with sanitize.harvest("lane_pool.step.read"):
@@ -641,58 +648,136 @@ def _step_body(values: torch.Tensor, s: LaneState, p: LaneParams, *,
         with trace.span("lane_pool.step.gather"):
             _gather_windows(values, s.buf, s.filled, pre.win_hi, p.slot_idx,
                             gather_lanes, ext_cap)
-            filled = torch.maximum(s.filled, pre.win_hi)
-        # ---- bootstrap estimate on the active width bucket ----
+        # ---- bootstrap moment sums on the active width bucket ----
         with trace.span("lane_pool.step.estimate"):
-            bw = s.buf[:, :, :width]
             pos = torch.arange(width, dtype=torch.int32,
                                device=dev)[None, None, :]
             msk = ((pos >= pre.win_lo[:, :, None]) &
                    (pos < pre.win_hi[:, :, None])).to(torch.float32)
-            if est is None:
-                e_b, theta_b = bootstrap.estimate_error_lanes_het(
-                    bw, msk, pre.seeds, p.est_fids, p.scale, p.deltas, B=B,
-                    metric=metric, use_kernel=use_kernel,
-                    lane_active=pre.active)
-            else:
-                e_b, theta_b = bootstrap.estimate_error_lanes(
-                    est, bw, msk, pre.seeds, p.scale, p.deltas, B=B,
-                    metric=metric, use_kernel=use_kernel,
-                    lane_active=pre.active)
+            M, M_plain = bootstrap.lane_moment_sums(
+                s.buf[:, :, :width, 0].to(torch.float32), msk, pre.seeds, B,
+                use_kernel=use_kernel, lane_active=pre.active)
     with trace.span("lane_pool.step.test"):
-        return _lane_epilogue(
-            s, p, max_iters=max_iters, active=pre.active,
-            init_phase=pre.init_phase, e_b=e_b, theta_b=theta_b,
-            n_eff=pre.n_vec, filled=filled, beta=pre.beta, r2=pre.r2,
-            failed_fit=pre.failed_fit)
+        if graphs is None:
+            return _finish_test(M, M_plain, s, p, pre, est=est,
+                                metric=metric, max_iters=max_iters)
+
+        def held():
+            staged, out = graphs.captured(pre_key)
+            return (_finish_held(*_unstage_pre_read(staged), out),
+                    _finish_held(s, p, pre))
+
+        (flat,) = graphs.finish.run(
+            (pre_key, B, metric, est_name),
+            functools.partial(_staged_finish, est=est, metric=metric,
+                              max_iters=max_iters),
+            [M, M_plain] + [getattr(s, f) for f in _FINISH_STATE]
+            + [getattr(p, f) for f in _FINISH_PARAMS], held)
+        return _unpack_finish(flat, s)
 
 
-def _lane_epilogue(s: LaneState, p: LaneParams, *, max_iters, active,
-                   init_phase, e_b, theta_b, n_eff, filled, beta, r2,
-                   failed_fit) -> LaneState:
-    """TEST + the predicated state merge."""
+def _finish_test(M: torch.Tensor, M_plain: torch.Tensor, s: LaneState,
+                 p: LaneParams, pre: _PreRead, *, est, metric: str,
+                 max_iters: int) -> LaneState:
+    """The tick after its replicate moment sums ``M (q, m, B, 3)`` and
+    ``M_plain (q, m, 3)``: the bootstrap finish
+    (:func:`~.bootstrap.finish_lanes_moments`), then TEST and the
+    predicated state merge.  Its shapes follow from ``(q, m, B)`` and
+    statics alone, never from the width rung or the stream lengths: the
+    phase a :class:`~.graphs.FinishGraphs` captures.  Reads the leaves named
+    in ``_FINISH_STATE``, ``_PRE_READ_STATE``, ``_FINISH_PARAMS``,
+    ``epsilons`` and ``_FINISH_PRE``; ``keys`` and ``buf`` pass through."""
+    e_b, theta_b = bootstrap.finish_lanes_moments(
+        M, M_plain, p.scale, p.deltas, est=est, est_fids=p.est_fids,
+        metric=metric)
+    active, init_phase = pre.active, pre.init_phase
     q = active.shape[0]
     loge = torch.clamp(torch.log(torch.clamp(e_b, min=1e-30)), min=LOG_FLOOR)
     qi = torch.arange(q, device=active.device)
     kq = torch.clamp(s.k, max=max_iters - 1).to(torch.int64)
     prof_n = s.prof_n.clone()
-    prof_n[qi, kq] = torch.where(active[:, None], n_eff.to(torch.float32),
+    prof_n[qi, kq] = torch.where(active[:, None], pre.n_vec.to(torch.float32),
                                  s.prof_n[qi, kq])
     prof_loge = s.prof_loge.clone()
     prof_loge[qi, kq] = torch.where(active, loge, s.prof_loge[qi, kq])
     done = s.done | (active & (e_b <= p.epsilons))
-    failed = s.failed | (active & ~init_phase & failed_fit)
+    failed = s.failed | (active & ~init_phase & pre.failed_fit)
     fit_ok = active & ~init_phase
     return LaneState(
         keys=s.keys, k=s.k + 1, iters=s.iters + active.to(torch.int32),
-        n_cur=torch.where(active[:, None], n_eff, s.n_cur),
-        filled=filled, buf=s.buf, prof_n=prof_n, prof_loge=prof_loge,
+        n_cur=torch.where(active[:, None], pre.n_vec, s.n_cur),
+        filled=torch.maximum(s.filled, pre.win_hi), buf=s.buf,
+        prof_n=prof_n, prof_loge=prof_loge,
         e=torch.where(active, e_b, s.e),
         theta=torch.where(active[:, None, None], theta_b, s.theta),
         done=done, failed=failed,
-        beta=torch.where(fit_ok[:, None], beta, s.beta),
-        r2=torch.where(fit_ok, r2, s.r2),
+        beta=torch.where(fit_ok[:, None], pre.beta, s.beta),
+        r2=torch.where(fit_ok, pre.r2, s.r2),
     )
+
+
+# The finish-and-test phase's operands beside the moment sums: staged each
+# tick (the state's and the params' leaves the pre-read phase does not
+# read), or read in place from the same tick's pre-read graph (every state
+# leaf it stages, its ``epsilons``, and the outputs named here).  Its new
+# leaves leave a graph packed in one byte buffer, the 4-byte leaves first
+# so that each starts on its dtype's boundary.
+_FINISH_STATE = ("iters", "theta", "beta", "r2")
+_FINISH_PARAMS = ("scale", "deltas", "est_fids")
+_FINISH_PRE = ("active", "init_phase", "n_vec", "win_hi", "beta", "r2",
+               "failed_fit")
+_FINISH_OUT = ("k", "iters", "n_cur", "filled", "prof_n", "prof_loge", "e",
+               "theta", "beta", "r2", "done", "failed")
+_NO_PRE = _PreRead(*([None] * len(_PreRead._fields)))
+
+
+def _finish_held(s: LaneState, p: LaneParams, pre: _PreRead) -> list:
+    """The finish phase's operands that the pre-read phase also reads (of
+    ``s`` and ``p``) or makes (``pre``), in the order
+    :func:`_staged_finish` takes them."""
+    return [*(getattr(s, f) for f in _PRE_READ_STATE), p.epsilons,
+            *(getattr(pre, f) for f in _FINISH_PRE)]
+
+
+def _staged_finish(M: torch.Tensor, M_plain: torch.Tensor,
+                   *leaves: torch.Tensor, est, metric: str,
+                   max_iters: int) -> Tuple[torch.Tensor]:
+    """:func:`_finish_test` over the staged leaves, then the held ones
+    (:func:`_finish_held`), every other leaf None: the function a CUDA graph
+    captures.  Returns the new leaves of ``_FINISH_OUT`` as one flat byte
+    buffer, so a replay's state is cloned out in one copy."""
+    it = iter(leaves)
+
+    def take(names):
+        return {f: next(it) for f in names}
+
+    s = _NO_STATE._replace(**take(_FINISH_STATE))
+    p = _NO_PARAMS._replace(**take(_FINISH_PARAMS))
+    s = s._replace(**take(_PRE_READ_STATE))
+    p = p._replace(epsilons=next(it))
+    pre = _NO_PRE._replace(**take(_FINISH_PRE))
+    new = _finish_test(M, M_plain, s, p, pre, est=est, metric=metric,
+                       max_iters=max_iters)
+    parts = [getattr(new, f).reshape(-1).view(torch.uint8)
+             for f in _FINISH_OUT]
+    pad = -sum(x.numel() for x in parts) % 4
+    return (torch.cat(parts + [parts[-1].new_zeros(pad)]),)
+
+
+def _unpack_finish(flat: torch.Tensor, s: LaneState) -> LaneState:
+    """The state after :func:`_staged_finish`: each new leaf a view of the
+    byte buffer ``flat`` with the shape and dtype of its leaf in ``s``."""
+    new, at = {}, 0
+    for f in _FINISH_OUT:
+        like = getattr(s, f)
+        size = like.element_size()
+        if at % size:
+            raise ValueError(f"leaf {f} would start at byte {at}, not on "
+                             f"its {size}-byte boundary")
+        n = like.numel() * size
+        new[f] = flat[at:at + n].view(like.dtype).view(like.shape)
+        at += n
+    return s._replace(**new)
 
 
 # ---------------------------------------------------------------------------
@@ -811,7 +896,6 @@ def _sharded_step_body(values: torch.Tensor, s: LaneState, p: LaneParams,
     win_lo = torch.where(act2, win_lo, torch.zeros_like(win_lo))
     win_hi = torch.where(act2, win_lo + n_vec,
                          torch.minimum(s.n_cur, s.filled))
-    filled = torch.maximum(s.filled, win_hi)
     seeds = _bootstrap_seeds(p, s.k, m)
     llo, lhi = local(win_lo), local(win_hi)
     # ---- the tick's one host read: active lanes + widest active windows ----
@@ -852,12 +936,11 @@ def _sharded_step_body(values: torch.Tensor, s: LaneState, p: LaneParams,
         flat = mesh.all_gather_fold(torch.cat([M_s.reshape(-1),
                                                Mp_s.reshape(-1)]))
         M, Mp = flat[:k].reshape(M_s.shape), flat[k:].reshape(Mp_s.shape)
-    e_b, theta_b = bootstrap.finish_lanes_moments(
-        M, Mp, p.scale, p.deltas, est=est, est_fids=p.est_fids, metric=metric)
-    return _lane_epilogue(
-        s, p, max_iters=max_iters, active=active, init_phase=init_phase,
-        e_b=e_b, theta_b=theta_b, n_eff=n_vec, filled=filled, beta=beta,
-        r2=r2, failed_fit=failed_fit)
+    pre = _NO_PRE._replace(active=active, init_phase=init_phase, n_vec=n_vec,
+                           win_hi=win_hi, beta=beta, r2=r2,
+                           failed_fit=failed_fit)
+    return _finish_test(M, Mp, s, p, pre, est=est, metric=metric,
+                        max_iters=max_iters)
 
 
 def make_sharded_lane_params(layout: sampling.ShardLayout, scale, keys,
@@ -958,7 +1041,8 @@ def fused_step(values: torch.Tensor, offsets, state: LaneState,
 
     ``graphs`` is the lane pool's :class:`~.graphs.PreReadGraphs`: each
     tick's phase before its host read replays from a CUDA graph, bit-equal
-    to the eager run.  The pool passes it on a card; every other caller
+    to the eager run, and so does the phase after the moment sums, from
+    ``graphs.finish``.  The pool passes it on a card; every other caller
     runs the whole tick eagerly.  Single-shard only.
     """
     if len(offsets) - 1 != state.n_cur.shape[1]:

@@ -60,10 +60,12 @@ times) is rank 0's, broadcast, so the ranks never disagree on a decision.
 GROUP BY blocks and migration stay single-shard.
 
 On a card, a single-shard pool replays each tick's phase before its host
-read from CUDA graphs (:class:`~repro_torch.core.graphs.PreReadGraphs`, one
-capture a shape, shared by its tiers and blocks); the answers are those of
-the eager tick bit for bit.  A sharded card pool runs the phase eagerly and
-counts it so in the same object.
+read and its finish-and-test phase after the moment sums from CUDA graphs
+(:class:`~repro_torch.core.graphs.PreReadGraphs` and the
+:class:`~repro_torch.core.graphs.FinishGraphs` it owns, one capture a shape
+each, shared by its tiers and blocks); the answers are those of the eager
+tick bit for bit.  A sharded card pool runs both phases eagerly and counts
+them so in the same objects.
 """
 from __future__ import annotations
 
@@ -285,8 +287,9 @@ class LanePool:
     overload policies.  ``data_shards > 1`` shards the pool: ``mesh=False``
     on one device, a :class:`~repro_torch.core.mesh.DataMesh` as one rank of
     it, ``None`` the default process group's mesh.  ``pre_read_graphs``
-    shares a graph cache whose captures and counts outlive this pool (a
-    session's); by default a card pool makes its own."""
+    shares a graph cache (with its ``finish`` cache) whose captures and
+    counts outlive this pool (a session's); by default a card pool makes
+    its own."""
 
     def __init__(self, data: GroupedData, *, lanes: int = 4, B: int = 300,
                  n_min: int = 1000, n_max: int = 2000, max_iters: int = 24,
@@ -355,9 +358,9 @@ class LanePool:
                 use_kernel=resolve_use_kernel(use_kernel, self.device),
                 gate_gather=gate_gather)
         self.ticks_per_sync = int(ticks_per_sync)
-        # On a card the tick's pre-read phase replays from CUDA graphs; the
-        # sharded step runs it eagerly and counts it in ``eager``.  The CPU
-        # runs it eagerly, uncounted.
+        # On a card the tick's pre-read and finish-and-test phases replay
+        # from CUDA graphs; the sharded step runs them eagerly and counts
+        # them in ``eager``.  The CPU runs them eagerly, uncounted.
         self.pre_read_graphs: Optional[PreReadGraphs] = None
         if self.device.type == "cuda":
             self.pre_read_graphs = (pre_read_graphs if pre_read_graphs
@@ -953,6 +956,7 @@ class LanePool:
                 if (self._layout is not None
                         and self.pre_read_graphs is not None):
                     self.pre_read_graphs.eager += self.ticks_per_sync
+                    self.pre_read_graphs.finish.eager += self.ticks_per_sync
             self.dispatches += 1
             self.lane_ticks_busy += busy * self.ticks_per_sync
             ran = True

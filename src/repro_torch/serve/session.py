@@ -198,8 +198,9 @@ class AQPSession:
         self.submitted = 0
         self.completed = 0
         self.pool_rebuilds = 0
-        # CUDA graphs of the pool's tick before its host read: owned here,
-        # so a rebuilt pool replays the captures of the last.
+        # CUDA graphs of the pool's tick before its host read and after its
+        # moment sums: owned here, so a rebuilt pool replays the captures of
+        # the last.
         self._graphs = PreReadGraphs()
 
     # -- public surface -----------------------------------------------------
@@ -360,6 +361,9 @@ class AQPSession:
             "graph_captures": self._graphs.captures,
             "graph_replays": self._graphs.replays,
             "eager_pre_read": self._graphs.eager,
+            "finish_captures": self._graphs.finish.captures,
+            "finish_replays": self._graphs.finish.replays,
+            "eager_finish": self._graphs.finish.eager,
             "sample_epoch": self._epoch_counter,
         }
         if self.cache is not None:

@@ -27,7 +27,7 @@ from repro_torch.aqp.query import Query, Request
 from repro_torch.core import keys
 from repro_torch.core.fused import LaneState, fused_step, init_lane_state
 from repro_torch.core import graphs
-from repro_torch.core.graphs import PreReadGraphs
+from repro_torch.core.graphs import FinishGraphs, PreReadGraphs
 from repro_torch.data import make_grouped
 from repro_torch.serve import AQPSession, Planner, Route
 from repro_torch.serve.lane_pool import LanePool
@@ -53,23 +53,37 @@ def _data(device):
                         biases=[5.0, 3.0, 8.0], device=device)
 
 
-class StandInGraphs(PreReadGraphs):
-    """A :class:`PreReadGraphs` for the CPU, where no CUDA graph exists:
-    its "graph" reruns the captured function on the static input buffers
-    and writes the captured outputs in place, so the cache's keys, its
-    staging of every leaf and the reuse of one set of outputs by every
-    replay are exercised as on a card."""
+class _StandIn:
+    """A graph cache for the CPU, where no CUDA graph exists: its "graph"
+    reruns the captured function on the static input buffers and the held
+    tensors and writes the captured outputs in place, so the cache's keys,
+    its staging of every leaf, the held buffers and the reuse of one set of
+    outputs by every replay are exercised as on a card."""
 
-    def _capture(self, fn, inputs):
+    def _capture(self, fn, inputs, held):
         static = tuple(x.clone() for x in inputs)
-        out = fn(*static)
+        out = fn(*static, *held)
 
         def replay():
-            for dst, src in zip(out, fn(*static)):
+            for dst, src in zip(out, fn(*static, *held)):
                 if dst is not None:
                     dst.copy_(src)
         return graphs._Graph(types.SimpleNamespace(replay=replay), static,
                              out)
+
+
+class StandInFinishGraphs(_StandIn, FinishGraphs):
+    """A :class:`FinishGraphs` for the CPU (:class:`_StandIn`), owned by a
+    :class:`StandInGraphs`."""
+
+
+class StandInGraphs(_StandIn, PreReadGraphs):
+    """A :class:`PreReadGraphs` for the CPU (:class:`_StandIn`), whose
+    ``finish`` cache is a :class:`StandInFinishGraphs`."""
+
+    def __init__(self):
+        super().__init__()
+        self.finish = StandInFinishGraphs(self._pool)
 
 
 def _cache(device):

@@ -10,8 +10,8 @@ guarded rounds stay clean on the card along the sharded step (a pool over
 two data segments on one card, the path of a ``data_shards`` session) and
 the shed of a queued ticket whose deadline passed (the SLO pool's pilot,
 run inside ``tick``), and a single-shard pool whose rounds capture and
-replay the tick's pre-read phase from CUDA graphs.  This file imports no
-JAX.
+replay the tick's pre-read and finish-and-test phases from CUDA graphs.
+This file imports no JAX.
 """
 import time
 import types
@@ -277,4 +277,46 @@ def test_cuda_graph_capture_and_replay_rounds_pass_the_guard(monkeypatch):
     assert g.captures == 2 and g.replays > 0
     want, _ = serve(False, False)
     assert len(got) == 6
+    _same_answers(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_finish_graph_rounds_pass_the_guard(monkeypatch):
+    """A fresh card pool at two ticks a round serves under
+    ``MISS_SANITIZE=1``: its first rounds capture the finish-and-test
+    graphs under the transfer guard, its later rounds replay them under
+    ``steady_state``, and it answers as the same pool unsanitized and
+    eager."""
+    data = _card_data()
+
+    def serve(sanitized, graphs):
+        monkeypatch.setenv("MISS_SANITIZE", "1" if sanitized else "")
+        pool = LanePool(data, lanes=4, ticks_per_sync=2, **POOL_KW)
+        if not graphs:
+            pool.pre_read_graphs = None
+        ks = keys.split(keys.prng_key(43), 8)
+        for i, k in enumerate(ks[:3]):
+            pool.submit(Query(("avg", "std", "sum")[i], epsilon=(
+                0.25, 0.25, 3000.0)[i]), key=k)
+        pool.submit_group(Query("var", epsilon=0.5, group_by=True),
+                          key=ks[3])
+        out = pool.drain()
+        fin = None if pool.pre_read_graphs is None else (
+            pool.pre_read_graphs.finish)
+        captured = None if fin is None else (fin.captures, fin.replays)
+        # A GROUP BY submit uploads its block: outside the steady region.
+        for i, k in enumerate(ks[4:7]):
+            pool.submit(Query(("var", "avg", "std")[i], epsilon=0.3), key=k)
+        pool.submit_group(Query("avg", epsilon=0.3, group_by=True),
+                          key=ks[7])
+        with sanitize.steady_state():
+            out += pool.drain()
+        return out, captured, fin, pool.stats()
+
+    got, captured, fin, st = serve(True, True)
+    assert captured[0] == 2 and fin.captures == 2
+    assert fin.replays > captured[1]
+    assert st["steady_recompiles"] == 0
+    want, _, _, _ = serve(False, False)
+    assert len(got) == 8
     _same_answers(got, want)

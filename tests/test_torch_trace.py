@@ -11,10 +11,16 @@ counters of ``SessionResponse``.
   block;
 * the answers are bit-equal with the profiler on and off;
 * ``SessionResponse.iterations`` / ``.ticks`` are the pool's own counts;
-* a pool replaying the tick's pre-read phase from CUDA graphs (on the CPU,
-  ``test_torch_fused_graphs.StandInGraphs``; on a card, ``cuda``) opens
+* a pool replaying the tick's pre-read and finish-and-test phases from
+  CUDA graphs (on the CPU, ``test_torch_fused_graphs.StandInGraphs``; on a
+  card, ``cuda``) opens
   ``lane_pool.step.capture`` and ``lane_pool.step.replay`` inside
-  ``lane_pool.step.fit_predict``, inside its tier or block step.
+  ``lane_pool.step.fit_predict``, and ``lane_pool.step.finish_capture`` and
+  ``lane_pool.step.finish_replay`` inside ``lane_pool.step.test``, inside
+  its tier or block step;
+* in such a pool on a card both bootstrap kernels stay eager calls through
+  their wrappers: each launch counter rises by one a call and equals the
+  kernel's device events in the profile.
 """
 import re
 from pathlib import Path
@@ -245,8 +251,9 @@ def test_counters_off_the_pool():
 
 @pytest.fixture(params=["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
 def graph_spans(request):
-    """The spans of a pool replaying its pre-read phase: two tiers and a
-    GROUP BY block under the profiler, with the cache's counters."""
+    """The spans of a pool replaying its pre-read and finish-and-test
+    phases: two tiers and a GROUP BY block under the profiler, with the
+    caches' counters."""
     if request.param == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     graphs = (PreReadGraphs() if request.param == "cuda"
@@ -295,5 +302,90 @@ def test_graph_spans_keep_the_pool_prefix(graph_spans):
                    "lane_pool.step.fit_predict", "lane_pool.step.read",
                    "lane_pool.step.gather", "lane_pool.step.estimate",
                    "lane_pool.step.test", "lane_pool.step.upload"}
-    assert new == {"lane_pool.step.capture", "lane_pool.step.replay"}
+    assert new == {"lane_pool.step.capture", "lane_pool.step.replay",
+                   "lane_pool.step.finish_capture",
+                   "lane_pool.step.finish_replay"}
     assert all(n.startswith("lane_pool.step.") for n in new)
+
+
+def test_finish_capture_and_replay_nest_in_test(graph_spans):
+    """The finish-and-test phase's capture and replay lie in the tick's
+    ``lane_pool.step.test``, inside its tier or block step, one a phase."""
+    spans, graphs = graph_spans
+    finish = graphs.finish
+    assert finish.captures == 2 and finish.replays > finish.captures
+    assert (finish.captures, finish.replays) == (graphs.captures,
+                                                 graphs.replays)
+    got = {"lane_pool.step.finish_capture": 0,
+           "lane_pool.step.finish_replay": 0}
+    for sp in spans:
+        if sp[0] not in got:
+            continue
+        got[sp[0]] += 1
+        up = [a[0] for a in _ancestors(spans, sp)]
+        assert up[0] == "lane_pool.step.test", (sp[0], up)
+        outer = [a for a in up if not a.startswith("lane_pool.step.")]
+        assert outer[:2] in ([s, "lane_pool.tick"] for s in STEPS), up
+    assert got == {"lane_pool.step.finish_capture": finish.captures,
+                   "lane_pool.step.finish_replay": finish.replays}
+    # Every tick's TEST phase holds exactly one of the two.
+    tests = [sp for sp in spans if sp[0] == "lane_pool.step.test"]
+    assert len(tests) == finish.captures + finish.replays
+
+
+@pytest.mark.cuda
+def test_bootstrap_kernels_stay_counted_eager_calls(monkeypatch):
+    """A card pool replaying both phases still calls each bootstrap kernel
+    through its wrapper: the launch counter rises by one a call and equals
+    the kernel's device events in the profile (what the benchmark's
+    roofline readers count)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.autograd import DeviceType
+
+    from repro_torch.kernels.poisson_bootstrap import ops as pb_ops
+    from repro_torch.kernels.segment_agg import ops as seg_ops
+    calls = {"pb_kernel": 0, "seg_boot_kernel": 0}
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    monkeypatch.setattr(pb_ops, "bootstrap_moments_masked", counted(
+        "pb_kernel", pb_ops.bootstrap_moments_masked))
+    monkeypatch.setattr(seg_ops, "segment_bootstrap_sorted", counted(
+        "seg_boot_kernel", seg_ops.segment_bootstrap_sorted))
+    pool = LanePool(_data("cuda"), lanes=4, B=64, n_min=200, n_max=400,
+                    max_iters=16, n_cap=1 << 12, seed=5)
+
+    def serve(seed):
+        ks = keys.split(keys.prng_key(seed), 4)
+        for r, k in zip(REQUESTS[:4], ks):
+            (pool.submit_group if r.get("group_by") else pool.submit)(
+                Query(func=r["func"], epsilon=r["epsilon"],
+                      group_by=r.get("group_by")), key=k)
+        assert len(pool.drain()) == 4
+
+    serve(9)                            # captures both phases' graphs
+    pre = pool.pre_read_graphs
+    fin = pre.finish
+    assert pre.captures == fin.captures == 2
+    counters = (pb_ops.counter, seg_ops.boot_counter)
+    before = [c.launches for c in counters]
+    calls.update(pb_kernel=0, seg_boot_kernel=0)
+    replays = fin.replays
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve(10)
+        torch.cuda.synchronize()
+    assert fin.replays > replays and fin.captures == 2
+    events = {name: sum(e.device_type() == DeviceType.CUDA
+                        and name in e.name()
+                        for e in prof.profiler.kineto_results.events())
+              for name in calls}
+    launched = {name: c.launches - b
+                for name, c, b in zip(calls, counters, before)}
+    assert calls == launched == events, (calls, launched, events)
+    assert all(v > 0 for v in calls.values())
