@@ -49,7 +49,7 @@ ported.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,7 +57,7 @@ import torch
 from ..kernels import prng, resolve_use_kernel
 from . import (bootstrap, error_model, keys as keylib, sampling, sanitize,
                trace)
-from .graphs import PreReadGraphs
+from .graphs import Phase, TickGraphs
 from .mesh import DataMesh
 from .estimators import get as get_estimator, moment_family_index
 from .reduce import tree_sum
@@ -471,23 +471,61 @@ class _PreRead(NamedTuple):
     est_w: Optional[torch.Tensor] = None     # (q,) int64 ESTIMATE widths
 
 
-# The leaves the pre-read phase reads, and nothing else: what a CUDA graph
-# of it stages (core/graphs.py).
-_PRE_READ_STATE = ("k", "n_cur", "filled", "e", "prof_n", "prof_loge",
-                   "done", "failed")
-_PRE_READ_PARAMS = ("epsilons", "warm", "warm_n0", "warm_beta",
-                    "group_sizes", "boot_base")
-_NO_STATE = LaneState(*([None] * len(LaneState._fields)))
-_NO_PARAMS = LaneParams(*([None] * len(LaneParams._fields)))
+_NO_LEAVES = tuple(t(*([None] * len(t._fields)))
+                   for t in (LaneState, LaneParams, _PreRead))
 
 
-def _pre_read(s: LaneState, p: LaneParams, *, block: bool, l: int,
-              n_min: int, n_max: int, n_cap: int, ext_cap: int, tau: float,
-              growth_cap: float, max_iters: int,
-              widths: Tuple[int, ...]) -> _PreRead:
-    """FIT + PREDICT and the tick's windows and seeds, up to the host read
-    (reads only the leaves named in ``_PRE_READ_STATE`` and
-    ``_PRE_READ_PARAMS``)."""
+class _Leaves(NamedTuple):
+    """Named leaves of the tick's operands (the state, the params and the
+    pre-read phase's outputs), in the one order in which a replayed phase's
+    graph takes them."""
+    s: Tuple[str, ...] = ()     # LaneState
+    p: Tuple[str, ...] = ()     # LaneParams
+    pre: Tuple[str, ...] = ()   # _PreRead
+
+    def stage(self, s: LaneState, p: LaneParams) -> list:
+        """The named leaves of ``s`` and ``p``."""
+        return [getattr(x, f) for x, names in zip((s, p), self)
+                for f in names]
+
+    def unstage(self, leaves: Iterator[torch.Tensor], base=_NO_LEAVES
+                ) -> Tuple[LaneState, LaneParams, _PreRead]:
+        """``(s, p, pre)`` with the named leaves taken in turn from
+        ``leaves``, laid over ``base`` (by default every leaf None)."""
+        return tuple(b._replace(**{f: next(leaves) for f in names})
+                     for b, names in zip(base, self))
+
+
+# The tick's two phases replayed from CUDA graphs (core/graphs.py), each
+# with the leaves its graph stages.  The pre-read phase reads those leaves
+# and nothing else.  The finish phase also reads, in place, every input and
+# output of the same tick's pre-read graph (``_FINISH_HELD``).  Its new
+# leaves leave a graph packed in one byte buffer (``_FINISH_OUT``), the
+# 4-byte leaves first so that each starts on its dtype's boundary.
+PRE_READ = Phase("lane_pool.step.capture", "lane_pool.step.replay")
+FINISH = Phase("lane_pool.step.finish_capture", "lane_pool.step.finish_replay",
+               copy_out=True, reads=(PRE_READ,))
+_PRE_READ_LEAVES = _Leaves(
+    s=("k", "n_cur", "filled", "e", "prof_n", "prof_loge", "done", "failed"),
+    p=("epsilons", "warm", "warm_n0", "warm_beta", "group_sizes",
+       "boot_base"))
+_FINISH_LEAVES = _Leaves(s=("iters", "theta", "beta", "r2"),
+                         p=("scale", "deltas", "est_fids"))
+_FINISH_HELD = _PRE_READ_LEAVES._replace(pre=_PreRead._fields)
+_FINISH_OUT = ("k", "iters", "n_cur", "filled", "prof_n", "prof_loge", "e",
+               "theta", "beta", "r2", "done", "failed")
+
+
+def _decide(s: LaneState, p: LaneParams, *, cap, limit: Callable, l: int,
+            n_min: int, n_max: int, tau: float, growth_cap: float,
+            max_iters: int) -> _PreRead:
+    """The decisions of every tick before its host read, on one shard or
+    across shards: FIT + PREDICT, then the sizes, windows and seeds
+    (``ask`` None).  ``cap`` is the most slots a group holds (``n_cap`` on
+    one shard, the layout's ``cap_groups (1, m)`` across shards): a size is
+    clamped by it and the group's size, and an init probe's window ends by
+    it.  ``limit(init_phase)`` is the most slots a group's size may reach
+    this tick, given the ``(q,)`` init-probe mask."""
     m = s.n_cur.shape[1]
     dev = s.k.device
     # Deterministic balanced two-point design (Eq. 15/16).
@@ -502,30 +540,44 @@ def _pre_read(s: LaneState, p: LaneParams, *, block: bool, l: int,
     init_phase = (s.k < l) & ~p.warm                           # (q,)
     n_vec = torch.where(init_phase[:, None], n_init, n_pred)
     n_vec = torch.minimum(torch.clamp(n_vec, min=1),
-                          torch.clamp(p.group_sizes, max=n_cap))
-    n_vec = torch.minimum(n_vec, s.filled + ext_cap)
+                          torch.clamp(p.group_sizes, max=cap))
+    n_vec = torch.minimum(n_vec, limit(init_phase))
     n_vec = torch.where(act2, n_vec, s.n_cur)
     # Init probes read stacked windows [filled, filled + n); prediction
     # ticks reuse the whole prefix (win_lo = 0).
     win_lo = torch.where(init_phase[:, None],
-                         torch.minimum(s.filled, n_cap - n_vec),
+                         torch.minimum(s.filled, cap - n_vec),
                          torch.zeros_like(n_vec))
     win_lo = torch.where(act2, win_lo, torch.zeros_like(win_lo))
     win_hi = torch.where(act2, win_lo + n_vec,
                          torch.minimum(s.n_cur, s.filled))
     seeds = _bootstrap_seeds(p, s.k, m)
-    pre = _PreRead(active, init_phase, n_vec, win_lo, win_hi, seeds, beta,
-                   r2, failed_fit, ask=None)
+    return _PreRead(active, init_phase, n_vec, win_lo, win_hi, seeds, beta,
+                    r2, failed_fit, ask=None)
+
+
+def _pre_read(s: LaneState, p: LaneParams, *, block: bool, l: int,
+              n_min: int, n_max: int, n_cap: int, ext_cap: int, tau: float,
+              growth_cap: float, max_iters: int,
+              widths: Tuple[int, ...]) -> _PreRead:
+    """The phase of a single-shard tick before its host read: the
+    decisions (:func:`_decide`, a group growing by at most ``ext_cap``
+    slots past its watermark) and what the read fetches.  Reads only the
+    leaves ``_PRE_READ_LEAVES`` names."""
+    pre = _decide(s, p, cap=n_cap, limit=lambda init: s.filled + ext_cap,
+                  l=l, n_min=n_min, n_max=n_max, tau=tau,
+                  growth_cap=growth_cap, max_iters=max_iters)
+    active = pre.active
     if not block:
-        needed = torch.clamp(torch.amax(torch.where(act2, win_hi, 0)),
-                             min=1)
-        b_idx = torch.sum(needed > _bucket_bounds(widths, dev)).to(
+        needed = torch.clamp(
+            torch.amax(torch.where(active[:, None], pre.win_hi, 0)), min=1)
+        b_idx = torch.sum(needed > _bucket_bounds(widths, s.k.device)).to(
             torch.int64).reshape(1)
         return pre._replace(ask=torch.cat([b_idx, active.to(torch.int64)]))
     # A block: the packed streams' lengths and the slot bound.
     filled0 = s.filled[:, 0].to(torch.int64)
-    lo = win_lo[:, 0].to(torch.int64)
-    hi = win_hi[:, 0].to(torch.int64)
+    lo = pre.win_lo[:, 0].to(torch.int64)
+    hi = pre.win_hi[:, 0].to(torch.int64)
     ext_w = torch.clamp(hi - filled0, min=0)       # inactive: hi <= filled
     est_w = torch.where(active, hi - lo, 0)
     bounds = torch.stack([ext_w.sum(), est_w.sum(),
@@ -534,25 +586,11 @@ def _pre_read(s: LaneState, p: LaneParams, *, block: bool, l: int,
                         est_w=est_w)
 
 
-def _stage_pre_read(s: LaneState, p: LaneParams) -> list:
-    """The leaves :func:`_pre_read` reads, in the order a graph stages them
-    (the state's, then the params')."""
-    return ([getattr(s, f) for f in _PRE_READ_STATE]
-            + [getattr(p, f) for f in _PRE_READ_PARAMS])
-
-
-def _unstage_pre_read(leaves) -> Tuple[LaneState, LaneParams]:
-    """The state and params that :func:`_stage_pre_read` staged as
-    ``leaves``, every other leaf None."""
-    k = len(_PRE_READ_STATE)
-    return (_NO_STATE._replace(**dict(zip(_PRE_READ_STATE, leaves[:k]))),
-            _NO_PARAMS._replace(**dict(zip(_PRE_READ_PARAMS, leaves[k:]))))
-
-
 def _staged_pre_read(*leaves: torch.Tensor, **statics) -> _PreRead:
-    """:func:`_pre_read` over the staged leaves alone: the function a CUDA
-    graph captures."""
-    return _pre_read(*_unstage_pre_read(leaves), **statics)
+    """:func:`_pre_read` over the leaves ``_PRE_READ_LEAVES`` stages: the
+    function a CUDA graph captures."""
+    s, p, _ = _PRE_READ_LEAVES.unstage(iter(leaves))
+    return _pre_read(s, p, **statics)
 
 
 def _segment_tick(values: torch.Tensor, s: LaneState, p: LaneParams,
@@ -606,16 +644,17 @@ def _step_body(values: torch.Tensor, s: LaneState, p: LaneParams, *,
                growth_cap: float, ext_cap: int, adaptive: bool,
                use_kernel: bool, gate_gather: bool,
                seg_cap: Optional[int] = None,
-               graphs: Optional[PreReadGraphs] = None) -> LaneState:
+               graphs: Optional[TickGraphs] = None) -> LaneState:
     """One SAMPLE -> ESTIMATE -> FIT -> PREDICT -> TEST tick over all lanes.
 
     Reads two things on the host, in one transfer: the ESTIMATE bucket index
     and the active-lane mask (which lanes gather).  ``seg_cap`` runs a
     grouped block's tick instead (:func:`_segment_tick`, its own one read).
-    ``graphs`` replays the phase before the read (:func:`_pre_read`) from a
-    CUDA graph keyed on the tick's shapes and statics, and ``graphs.finish``
-    the phase after the moment sums (:func:`_finish_test`), keyed on the
-    same and ``(B, metric, est_name)``.
+    ``graphs`` replays the phase before the read (:data:`PRE_READ`,
+    :func:`_pre_read`) from a CUDA graph keyed on the tick's shapes and
+    statics, and the phase after the moment sums (:data:`FINISH`,
+    :func:`_finish_test`) from one keyed on the same and ``(B, metric,
+    est_name)``.
     """
     est = get_estimator(est_name) if est_name is not None else None
     q, m = s.n_cur.shape
@@ -631,8 +670,9 @@ def _step_body(values: torch.Tensor, s: LaneState, p: LaneParams, *,
             pre = _pre_read(s, p, **statics)
         else:
             pre = graphs.run(
-                pre_key, functools.partial(_staged_pre_read, **statics),
-                _stage_pre_read(s, p))
+                pre_key, PRE_READ,
+                functools.partial(_staged_pre_read, **statics),
+                _PRE_READ_LEAVES.stage(s, p))
     if seg_cap is not None:
         M, M_plain = _segment_tick(values, s, p, pre, B=B, seg_cap=seg_cap,
                                    use_kernel=use_kernel)
@@ -661,18 +701,12 @@ def _step_body(values: torch.Tensor, s: LaneState, p: LaneParams, *,
         if graphs is None:
             return _finish_test(M, M_plain, s, p, pre, est=est,
                                 metric=metric, max_iters=max_iters)
-
-        def held():
-            staged, out = graphs.captured(pre_key)
-            return (_finish_held(*_unstage_pre_read(staged), out),
-                    _finish_held(s, p, pre))
-
-        (flat,) = graphs.finish.run(
-            (pre_key, B, metric, est_name),
+        (flat,) = graphs.run(
+            pre_key, FINISH,
             functools.partial(_staged_finish, est=est, metric=metric,
                               max_iters=max_iters),
-            [M, M_plain] + [getattr(s, f) for f in _FINISH_STATE]
-            + [getattr(p, f) for f in _FINISH_PARAMS], held)
+            [M, M_plain, *_FINISH_LEAVES.stage(s, p)],
+            sub=(B, metric, est_name))
         return _unpack_finish(flat, s)
 
 
@@ -684,9 +718,9 @@ def _finish_test(M: torch.Tensor, M_plain: torch.Tensor, s: LaneState,
     (:func:`~.bootstrap.finish_lanes_moments`), then TEST and the
     predicated state merge.  Its shapes follow from ``(q, m, B)`` and
     statics alone, never from the width rung or the stream lengths: the
-    phase a :class:`~.graphs.FinishGraphs` captures.  Reads the leaves named
-    in ``_FINISH_STATE``, ``_PRE_READ_STATE``, ``_FINISH_PARAMS``,
-    ``epsilons`` and ``_FINISH_PRE``; ``keys`` and ``buf`` pass through."""
+    phase :data:`FINISH`.  Reads, of ``s`` and ``p``, the leaves
+    ``_FINISH_LEAVES`` and ``_PRE_READ_LEAVES`` name; ``keys`` and ``buf``
+    pass through."""
     e_b, theta_b = bootstrap.finish_lanes_moments(
         M, M_plain, p.scale, p.deltas, est=est, est_fids=p.est_fids,
         metric=metric)
@@ -716,46 +750,15 @@ def _finish_test(M: torch.Tensor, M_plain: torch.Tensor, s: LaneState,
     )
 
 
-# The finish-and-test phase's operands beside the moment sums: staged each
-# tick (the state's and the params' leaves the pre-read phase does not
-# read), or read in place from the same tick's pre-read graph (every state
-# leaf it stages, its ``epsilons``, and the outputs named here).  Its new
-# leaves leave a graph packed in one byte buffer, the 4-byte leaves first
-# so that each starts on its dtype's boundary.
-_FINISH_STATE = ("iters", "theta", "beta", "r2")
-_FINISH_PARAMS = ("scale", "deltas", "est_fids")
-_FINISH_PRE = ("active", "init_phase", "n_vec", "win_hi", "beta", "r2",
-               "failed_fit")
-_FINISH_OUT = ("k", "iters", "n_cur", "filled", "prof_n", "prof_loge", "e",
-               "theta", "beta", "r2", "done", "failed")
-_NO_PRE = _PreRead(*([None] * len(_PreRead._fields)))
-
-
-def _finish_held(s: LaneState, p: LaneParams, pre: _PreRead) -> list:
-    """The finish phase's operands that the pre-read phase also reads (of
-    ``s`` and ``p``) or makes (``pre``), in the order
-    :func:`_staged_finish` takes them."""
-    return [*(getattr(s, f) for f in _PRE_READ_STATE), p.epsilons,
-            *(getattr(pre, f) for f in _FINISH_PRE)]
-
-
 def _staged_finish(M: torch.Tensor, M_plain: torch.Tensor,
                    *leaves: torch.Tensor, est, metric: str,
                    max_iters: int) -> Tuple[torch.Tensor]:
-    """:func:`_finish_test` over the staged leaves, then the held ones
-    (:func:`_finish_held`), every other leaf None: the function a CUDA graph
+    """:func:`_finish_test` over the leaves ``_FINISH_LEAVES`` stages, then
+    those ``_FINISH_HELD`` reads in place: the function a CUDA graph
     captures.  Returns the new leaves of ``_FINISH_OUT`` as one flat byte
     buffer, so a replay's state is cloned out in one copy."""
     it = iter(leaves)
-
-    def take(names):
-        return {f: next(it) for f in names}
-
-    s = _NO_STATE._replace(**take(_FINISH_STATE))
-    p = _NO_PARAMS._replace(**take(_FINISH_PARAMS))
-    s = s._replace(**take(_PRE_READ_STATE))
-    p = p._replace(epsilons=next(it))
-    pre = _NO_PRE._replace(**take(_FINISH_PRE))
+    s, p, pre = _FINISH_HELD.unstage(it, _FINISH_LEAVES.unstage(it))
     new = _finish_test(M, M_plain, s, p, pre, est=est, metric=metric,
                        max_iters=max_iters)
     parts = [getattr(new, f).reshape(-1).view(torch.uint8)
@@ -826,8 +829,8 @@ def _sharded_step_body(values: torch.Tensor, s: LaneState, p: LaneParams,
                        n_min: int, n_max: int, l: int, tau: float,
                        max_iters: int, n_cap: int, metric: str,
                        growth_cap: float, seg_window: int, use_kernel: bool,
-                       data_shards: int,
-                       mesh: Optional[DataMesh] = None) -> LaneState:
+                       data_shards: int, mesh: Optional[DataMesh] = None,
+                       graphs: Optional[TickGraphs] = None) -> LaneState:
     """One tick with the buffer slot axis cut into S shard segments.
 
     The decisions are :func:`_step_body`'s; SAMPLE and the replicate moment
@@ -847,27 +850,18 @@ def _sharded_step_body(values: torch.Tensor, s: LaneState, p: LaneParams,
     Poisson-bootstrap launch (:func:`~.bootstrap.prefix_lane_moment_sums`);
     the plain path windows chunks of lanes
     (:func:`~.bootstrap.windowed_lane_moment_sums`), bit-equal to it.
+    The phases a single-shard tick replays (:data:`PRE_READ`,
+    :data:`FINISH`) run eagerly here, each tick counted in ``graphs.eager``.
     """
     est = get_estimator(est_name) if est_name is not None else None
     S = data_shards
     cap_s = n_cap // S
     q, m = s.n_cur.shape
     dev = s.k.device
-    l_min = min(max(int(round(l * n_max / (n_min + n_max))), 1), l - 1)
     # Per-segment ESTIMATE rungs: from the segment's share of n_min (a
     # window holds ~1/S of a lane's rows) up to the segment capacity.
     seg_base = max(min(-(-n_max // S), -(-n_min // S)), 32)
     seg_widths = _window_ladder(cap_s, min(seg_base, cap_s))
-
-    active = lane_active(s, max_iters)                         # (q,)
-    act2 = active[:, None]
-    phase = (s.k[:, None] + torch.arange(m, device=dev)[None, :]) % l
-    n_init = torch.where(phase < l_min, n_min, n_max).to(torch.int32)
-    n_pred, beta, r2, failed_fit = _fit_predict(
-        s, p, tau=tau, growth_cap=growth_cap, max_iters=max_iters, l=l)
-    init_phase = (s.k < l) & ~p.warm                           # (q,)
-    n_vec = torch.where(init_phase[:, None], n_init, n_pred)
-    n_vec = torch.minimum(torch.clamp(n_vec, min=1), spec.cap_groups[None, :])
 
     def local(idx: torch.Tensor) -> torch.Tensor:
         """(S, q, m) segment-local slot counts at logical slots ``idx``."""
@@ -886,20 +880,16 @@ def _sharded_step_body(values: torch.Tensor, s: LaneState, p: LaneParams,
     # growth; a prediction tick reads the prefix [0, n), so it may reach the
     # watermark plus the growth.  (The reference clamps both by the growth
     # alone, which stalls a prediction below its own watermark.)
-    n_vec = torch.minimum(n_vec, torch.where(init_phase[:, None], allowed,
-                                             s.filled + allowed))
-    n_vec = torch.where(act2, n_vec, s.n_cur)
-    win_lo = torch.where(init_phase[:, None],
-                         torch.minimum(s.filled,
-                                       spec.cap_groups[None, :] - n_vec),
-                         torch.zeros_like(n_vec))
-    win_lo = torch.where(act2, win_lo, torch.zeros_like(win_lo))
-    win_hi = torch.where(act2, win_lo + n_vec,
-                         torch.minimum(s.n_cur, s.filled))
-    seeds = _bootstrap_seeds(p, s.k, m)
-    llo, lhi = local(win_lo), local(win_hi)
+    pre = _decide(s, p, cap=spec.cap_groups[None, :],
+                  limit=lambda init: torch.where(init[:, None], allowed,
+                                                 s.filled + allowed),
+                  l=l, n_min=n_min, n_max=n_max, tau=tau,
+                  growth_cap=growth_cap, max_iters=max_iters)
+    active = pre.active
+    llo, lhi = local(pre.win_lo), local(pre.win_hi)
     # ---- the tick's one host read: active lanes + widest active windows ----
-    need = torch.amax(torch.where(act2[None], lhi, 0).reshape(S, -1), 1)
+    need = torch.amax(torch.where(active[None, :, None], lhi, 0)
+                      .reshape(S, -1), 1)
     with sanitize.harvest("lane_pool.step.read"):
         host = torch.cat([active.to(torch.int64),
                           need.to(torch.int64)]).cpu().numpy()
@@ -911,7 +901,7 @@ def _sharded_step_body(values: torch.Tensor, s: LaneState, p: LaneParams,
         its ``(q, m, cap_s, c)`` slots, updated in place)."""
         _gather_windows(values, buf_seg, lfill[si], lhi[si], table, lanes,
                         seg_window)
-        seeds_s = prng.hash3(seeds, si, _SALT_SHARD)
+        seeds_s = prng.hash3(pre.seeds, si, _SALT_SHARD)
         vals = buf_seg[..., 0]
         if use_kernel:
             needed = max(int(host[q + si]), 1)
@@ -936,9 +926,8 @@ def _sharded_step_body(values: torch.Tensor, s: LaneState, p: LaneParams,
         flat = mesh.all_gather_fold(torch.cat([M_s.reshape(-1),
                                                Mp_s.reshape(-1)]))
         M, Mp = flat[:k].reshape(M_s.shape), flat[k:].reshape(Mp_s.shape)
-    pre = _NO_PRE._replace(active=active, init_phase=init_phase, n_vec=n_vec,
-                           win_hi=win_hi, beta=beta, r2=r2,
-                           failed_fit=failed_fit)
+    if graphs is not None:
+        graphs.eager.update((PRE_READ, FINISH))
     return _finish_test(M, Mp, s, p, pre, est=est, metric=metric,
                         max_iters=max_iters)
 
@@ -979,15 +968,17 @@ def make_sharded_lane_params(layout: sampling.ShardLayout, scale, keys,
             np.broadcast_to(layout.cap_groups, (q, m)).copy(), device=dev))
 
 
-def make_sharded_step(mesh: DataMesh, *, num_ticks: int = 1, **statics):
+def make_sharded_step(mesh: DataMesh, *, num_ticks: int = 1,
+                      graphs: Optional[TickGraphs] = None, **statics):
     """The mesh tick: ``step(values, state, params, shard_spec) -> state``
     runs ``num_ticks`` sharded ticks of this rank (``values`` its row block,
     ``state.buf`` its segment, ``params.slot_idx`` its ``(1, m, seg_cap)``
-    local table), one collective a tick.  ``statics`` are the sharded
-    body's keywords (``est_name``, ``B``, ``n_min``, ``n_max``, ``l``,
-    ``tau``, ``max_iters``, ``n_cap``, ``metric``, ``growth_cap``,
-    ``seg_window`` resolved by :func:`resolve_seg_window`, ``use_kernel``,
-    ``data_shards``).  Nothing compiles, so there is nothing to memoise."""
+    local table), one collective a tick, each counted in ``graphs.eager``.
+    ``statics`` are the sharded body's keywords (``est_name``, ``B``,
+    ``n_min``, ``n_max``, ``l``, ``tau``, ``max_iters``, ``n_cap``,
+    ``metric``, ``growth_cap``, ``seg_window`` resolved by
+    :func:`resolve_seg_window`, ``use_kernel``, ``data_shards``).  Nothing
+    compiles, so there is nothing to memoise."""
     if mesh.size != statics["data_shards"]:
         raise ValueError(f"mesh has {mesh.size} ranks; the step wants "
                          f"data_shards={statics['data_shards']}")
@@ -999,7 +990,7 @@ def make_sharded_step(mesh: DataMesh, *, num_ticks: int = 1, **statics):
                              "local slot table")
         for _ in range(num_ticks):
             state = _sharded_step_body(values, state, params, shard_spec,
-                                       mesh=mesh, **statics)
+                                       mesh=mesh, graphs=graphs, **statics)
         return state
 
     return step
@@ -1015,7 +1006,7 @@ def fused_step(values: torch.Tensor, offsets, state: LaneState,
                use_kernel: "bool | str" = "auto", gate_gather: bool = True,
                data_shards: int = 1, seg_window: Optional[int] = None,
                seg_cap: Optional[int] = None, num_ticks: int = 1,
-               graphs: Optional[PreReadGraphs] = None) -> LaneState:
+               graphs: Optional[TickGraphs] = None) -> LaneState:
     """Host-callable resumable step: ``num_ticks`` ticks over all lanes.
 
     Converged/failed/exhausted lanes freeze (predicated updates), so ticking
@@ -1039,11 +1030,11 @@ def fused_step(values: torch.Tensor, offsets, state: LaneState,
     step offsets (the per-group sizes live in ``params.group_sizes``); it
     needs the adaptive path, a moment-family estimator and one shard.
 
-    ``graphs`` is the lane pool's :class:`~.graphs.PreReadGraphs`: each
+    ``graphs`` is the lane pool's :class:`~.graphs.TickGraphs`: each
     tick's phase before its host read replays from a CUDA graph, bit-equal
-    to the eager run, and so does the phase after the moment sums, from
-    ``graphs.finish``.  The pool passes it on a card; every other caller
-    runs the whole tick eagerly.  Single-shard only.
+    to the eager run, and so does the phase after the moment sums.  The
+    pool passes it on a card; every other caller runs the whole tick
+    eagerly.  The sharded step runs both phases eagerly and counts them.
     """
     if len(offsets) - 1 != state.n_cur.shape[1]:
         raise ValueError("offsets do not match the state's group count")
@@ -1065,8 +1056,6 @@ def fused_step(values: torch.Tensor, offsets, state: LaneState,
             moment_family_index(est_name)   # raises for non-moment ests
     use_kernel = resolve_use_kernel(use_kernel, values.device)
     if data_shards > 1:
-        if graphs is not None:
-            raise ValueError("the sharded step runs eagerly: no graphs")
         if shard_spec is None:
             raise ValueError("data_shards > 1 requires a shard_spec")
         if not adaptive:
@@ -1084,7 +1073,7 @@ def fused_step(values: torch.Tensor, offsets, state: LaneState,
             seg_window=(seg_window if seg_window is not None else
                         resolve_seg_window(n_cap, n_max, data_shards,
                                            ext_cap)),
-            use_kernel=use_kernel, data_shards=data_shards)
+            use_kernel=use_kernel, data_shards=data_shards, graphs=graphs)
         for _ in range(num_ticks):
             state = _sharded_step_body(values, state, params, shard_spec,
                                        **sspec)

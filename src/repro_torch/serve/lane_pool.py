@@ -61,11 +61,10 @@ GROUP BY blocks and migration stay single-shard.
 
 On a card, a single-shard pool replays each tick's phase before its host
 read and its finish-and-test phase after the moment sums from CUDA graphs
-(:class:`~repro_torch.core.graphs.PreReadGraphs` and the
-:class:`~repro_torch.core.graphs.FinishGraphs` it owns, one capture a shape
-each, shared by its tiers and blocks); the answers are those of the eager
-tick bit for bit.  A sharded card pool runs both phases eagerly and counts
-them so in the same objects.
+(:class:`~repro_torch.core.graphs.TickGraphs`, one capture a shape and
+phase, shared by its tiers and blocks); the answers are those of the eager
+tick bit for bit.  A sharded card pool's step runs both phases eagerly and
+counts them so in the same object.
 """
 from __future__ import annotations
 
@@ -86,7 +85,7 @@ from ..core.fused import (LaneParams, LaneState, bucket_ladder, fused_step,
                           make_shard_spec, make_sharded_lane_params,
                           make_sharded_step, resolve_ext_cap,
                           resolve_seg_window)
-from ..core.graphs import PreReadGraphs
+from ..core.graphs import TickGraphs
 from ..core.mesh import make_data_mesh
 from ..core.sampling import (GroupedData, ShardLayout, counter_slot_table,
                              sharded_slot_tables, stratified_slot_tables)
@@ -286,10 +285,9 @@ class LanePool:
     tiers.  ``degrade``/``wfq``/``tenant_weights``/``migrate`` arm the
     overload policies.  ``data_shards > 1`` shards the pool: ``mesh=False``
     on one device, a :class:`~repro_torch.core.mesh.DataMesh` as one rank of
-    it, ``None`` the default process group's mesh.  ``pre_read_graphs``
-    shares a graph cache (with its ``finish`` cache) whose captures and
-    counts outlive this pool (a session's); by default a card pool makes
-    its own."""
+    it, ``None`` the default process group's mesh.  ``graphs`` shares a
+    graph cache whose captures and counts outlive this pool (a session's);
+    by default a card pool makes its own."""
 
     def __init__(self, data: GroupedData, *, lanes: int = 4, B: int = 300,
                  n_min: int = 1000, n_max: int = 2000, max_iters: int = 24,
@@ -302,7 +300,7 @@ class LanePool:
                  mesh=None, degrade: bool = False, wfq: bool = False,
                  tenant_weights: Optional[Dict[str, float]] = None,
                  migrate: bool = False, max_degrade: float = 8.0,
-                 pre_read_graphs: Optional[PreReadGraphs] = None):
+                 graphs: Optional[TickGraphs] = None):
         self.data = data
         self.device = data.device
         self.lanes = int(lanes)
@@ -361,10 +359,9 @@ class LanePool:
         # On a card the tick's pre-read and finish-and-test phases replay
         # from CUDA graphs; the sharded step runs them eagerly and counts
         # them in ``eager``.  The CPU runs them eagerly, uncounted.
-        self.pre_read_graphs: Optional[PreReadGraphs] = None
+        self.graphs: Optional[TickGraphs] = None
         if self.device.type == "cuda":
-            self.pre_read_graphs = (pre_read_graphs if pre_read_graphs
-                                    is not None else PreReadGraphs())
+            self.graphs = graphs if graphs is not None else TickGraphs()
         self.key = keylib.prng_key(seed)
         if sample_key is None:
             sample_key = keylib.prng_key(seed ^ 0x5A17)
@@ -941,7 +938,7 @@ class LanePool:
                 if self._mesh is not None:
                     step = make_sharded_step(
                         self._mesh, num_ticks=self.ticks_per_sync,
-                        **self._spec)
+                        graphs=self.graphs, **self._spec)
                     tier.state = step(self._values, tier.state, tier.params,
                                       self._shard_spec)
                 else:
@@ -951,12 +948,7 @@ class LanePool:
                         self._values, self._offsets, tier.state, tier.params,
                         self._shard_spec if self._layout is not None
                         else None, num_ticks=self.ticks_per_sync,
-                        graphs=(self.pre_read_graphs if self._layout is None
-                                else None), **self._spec)
-                if (self._layout is not None
-                        and self.pre_read_graphs is not None):
-                    self.pre_read_graphs.eager += self.ticks_per_sync
-                    self.pre_read_graphs.finish.eager += self.ticks_per_sync
+                        graphs=self.graphs, **self._spec)
             self.dispatches += 1
             self.lane_ticks_busy += busy * self.ticks_per_sync
             ran = True
@@ -965,7 +957,7 @@ class LanePool:
                 blk.state = fused_step(
                     self._values, self._goffsets, blk.state, blk.params,
                     num_ticks=self.ticks_per_sync, seg_cap=self._gseg_cap,
-                    graphs=self.pre_read_graphs, **self._spec)
+                    graphs=self.graphs, **self._spec)
             self.dispatches += 1
             self.block_ticks += self.ticks_per_sync
             ran = True

@@ -58,8 +58,8 @@ from ..aqp.query import Query, Request
 from ..core import estimators
 from ..core import keys as keylib
 from ..core import trace
-from ..core.fused import fused_l2miss_batch
-from ..core.graphs import PreReadGraphs
+from ..core.fused import FINISH, PRE_READ, fused_l2miss_batch
+from ..core.graphs import TickGraphs
 from ..core.mesh import DataMesh
 from ..core.sampling import GroupedData, SampleStore
 from ..kernels import resolve_use_kernel
@@ -201,7 +201,7 @@ class AQPSession:
         # CUDA graphs of the pool's tick before its host read and after its
         # moment sums: owned here, so a rebuilt pool replays the captures of
         # the last.
-        self._graphs = PreReadGraphs()
+        self._graphs = TickGraphs()
 
     # -- public surface -----------------------------------------------------
     @property
@@ -358,12 +358,12 @@ class AQPSession:
             "store_rows": self.store.rows_touched,
             "fused_rows": self._fused_rows,
             "pool_rebuilds": self.pool_rebuilds,
-            "graph_captures": self._graphs.captures,
-            "graph_replays": self._graphs.replays,
-            "eager_pre_read": self._graphs.eager,
-            "finish_captures": self._graphs.finish.captures,
-            "finish_replays": self._graphs.finish.replays,
-            "eager_finish": self._graphs.finish.eager,
+            "graph_captures": self._graphs.captures[PRE_READ],
+            "graph_replays": self._graphs.replays[PRE_READ],
+            "eager_pre_read": self._graphs.eager[PRE_READ],
+            "finish_captures": self._graphs.captures[FINISH],
+            "finish_replays": self._graphs.replays[FINISH],
+            "eager_finish": self._graphs.eager[FINISH],
             "sample_epoch": self._epoch_counter,
         }
         if self.cache is not None:
@@ -435,7 +435,7 @@ class AQPSession:
             tiers=self.pool_tiers, data_shards=self.data_shards,
             mesh=self.mesh, degrade=self.degrade, wfq=self.wfq,
             tenant_weights=self.tenant_weights, migrate=self.migrate,
-            max_degrade=self.max_degrade, pre_read_graphs=self._graphs)
+            max_degrade=self.max_degrade, graphs=self._graphs)
         self.planner.built_pool(lanes)
         return pool
 

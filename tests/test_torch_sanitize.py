@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.aqp.query import Query, Request
 from repro_torch.core import keys, sanitize
+from repro_torch.core.fused import FINISH, PRE_READ
 from repro_torch.data import make_grouped
 from repro_torch.kernels import nvcc
 from repro_torch.serve import AQPSession, Planner, Route
@@ -263,7 +264,7 @@ def test_cuda_graph_capture_and_replay_rounds_pass_the_guard(monkeypatch):
         monkeypatch.setenv("MISS_SANITIZE", "1" if sanitized else "")
         pool = LanePool(data, lanes=4, **POOL_KW)
         if not graphs:
-            pool.pre_read_graphs = None
+            pool.graphs = None
         ks = keys.split(keys.prng_key(41), 6)
         for i, k in enumerate(ks[:4]):
             pool.submit(Query(("avg", "var")[i % 2], epsilon=0.25), key=k)
@@ -271,10 +272,10 @@ def test_cuda_graph_capture_and_replay_rounds_pass_the_guard(monkeypatch):
                           key=ks[4])
         pool.submit_group(Query("var", epsilon=0.5, group_by=True),
                           key=ks[5])
-        return pool.drain(), pool.pre_read_graphs
+        return pool.drain(), pool.graphs
 
     got, g = serve(True, True)
-    assert g.captures == 2 and g.replays > 0
+    assert g.captures[PRE_READ] == 2 and g.replays[PRE_READ] > 0
     want, _ = serve(False, False)
     assert len(got) == 6
     _same_answers(got, want)
@@ -293,7 +294,7 @@ def test_cuda_finish_graph_rounds_pass_the_guard(monkeypatch):
         monkeypatch.setenv("MISS_SANITIZE", "1" if sanitized else "")
         pool = LanePool(data, lanes=4, ticks_per_sync=2, **POOL_KW)
         if not graphs:
-            pool.pre_read_graphs = None
+            pool.graphs = None
         ks = keys.split(keys.prng_key(43), 8)
         for i, k in enumerate(ks[:3]):
             pool.submit(Query(("avg", "std", "sum")[i], epsilon=(
@@ -301,9 +302,9 @@ def test_cuda_finish_graph_rounds_pass_the_guard(monkeypatch):
         pool.submit_group(Query("var", epsilon=0.5, group_by=True),
                           key=ks[3])
         out = pool.drain()
-        fin = None if pool.pre_read_graphs is None else (
-            pool.pre_read_graphs.finish)
-        captured = None if fin is None else (fin.captures, fin.replays)
+        g = pool.graphs
+        captured = None if g is None else (g.captures[FINISH],
+                                           g.replays[FINISH])
         # A GROUP BY submit uploads its block: outside the steady region.
         for i, k in enumerate(ks[4:7]):
             pool.submit(Query(("var", "avg", "std")[i], epsilon=0.3), key=k)
@@ -311,11 +312,11 @@ def test_cuda_finish_graph_rounds_pass_the_guard(monkeypatch):
                           key=ks[7])
         with sanitize.steady_state():
             out += pool.drain()
-        return out, captured, fin, pool.stats()
+        return out, captured, g, pool.stats()
 
-    got, captured, fin, st = serve(True, True)
-    assert captured[0] == 2 and fin.captures == 2
-    assert fin.replays > captured[1]
+    got, captured, g, st = serve(True, True)
+    assert captured[0] == 2 and g.captures[FINISH] == 2
+    assert g.replays[FINISH] > captured[1]
     assert st["steady_recompiles"] == 0
     want, _, _, _ = serve(False, False)
     assert len(got) == 8

@@ -32,7 +32,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.aqp.query import Query, Request
 from repro_torch.core import keys, sanitize, trace
-from repro_torch.core.graphs import PreReadGraphs
+from repro_torch.core.fused import FINISH, PRE_READ
+from repro_torch.core.graphs import TickGraphs
 from repro_torch.core.sampling import GroupedData
 from repro_torch.serve import (AQPSession, GroupPoolResponse, Planner,
                                Route)
@@ -253,15 +254,15 @@ def test_counters_off_the_pool():
 def graph_spans(request):
     """The spans of a pool replaying its pre-read and finish-and-test
     phases: two tiers and a GROUP BY block under the profiler, with the
-    caches' counters."""
+    cache's counters."""
     if request.param == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    graphs = (PreReadGraphs() if request.param == "cuda"
+    graphs = (TickGraphs() if request.param == "cuda"
               else StandInGraphs())
     pool = LanePool(_data(request.param), lanes=4, B=64, n_min=200,
                     n_max=400, max_iters=16, n_cap=1 << 12, seed=5,
-                    pre_read_graphs=graphs)
-    pool.pre_read_graphs = graphs       # a CPU pool makes none itself
+                    graphs=graphs)
+    pool.graphs = graphs                # a CPU pool makes none itself
     ks = keys.split(keys.prng_key(9), 4)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for r, k in zip(REQUESTS[:4], ks):
@@ -275,7 +276,8 @@ def graph_spans(request):
 
 def test_capture_and_replay_nest_in_fit_predict(graph_spans):
     spans, graphs = graph_spans
-    assert graphs.captures == 2 and graphs.replays > graphs.captures
+    captures, replays = graphs.captures[PRE_READ], graphs.replays[PRE_READ]
+    assert captures == 2 and replays > captures
     got = {"lane_pool.step.capture": 0, "lane_pool.step.replay": 0}
     for sp in spans:
         if sp[0] not in got:
@@ -285,8 +287,8 @@ def test_capture_and_replay_nest_in_fit_predict(graph_spans):
         assert up[0] == "lane_pool.step.fit_predict", (sp[0], up)
         outer = [a for a in up if not a.startswith("lane_pool.step.")]
         assert outer[:2] in ([s, "lane_pool.tick"] for s in STEPS), up
-    assert got == {"lane_pool.step.capture": graphs.captures,
-                   "lane_pool.step.replay": graphs.replays}
+    assert got == {"lane_pool.step.capture": captures,
+                   "lane_pool.step.replay": replays}
 
 
 def test_graph_spans_keep_the_pool_prefix(graph_spans):
@@ -312,10 +314,10 @@ def test_finish_capture_and_replay_nest_in_test(graph_spans):
     """The finish-and-test phase's capture and replay lie in the tick's
     ``lane_pool.step.test``, inside its tier or block step, one a phase."""
     spans, graphs = graph_spans
-    finish = graphs.finish
-    assert finish.captures == 2 and finish.replays > finish.captures
-    assert (finish.captures, finish.replays) == (graphs.captures,
-                                                 graphs.replays)
+    captures, replays = graphs.captures[FINISH], graphs.replays[FINISH]
+    assert captures == 2 and replays > captures
+    assert (captures, replays) == (graphs.captures[PRE_READ],
+                                   graphs.replays[PRE_READ])
     got = {"lane_pool.step.finish_capture": 0,
            "lane_pool.step.finish_replay": 0}
     for sp in spans:
@@ -326,11 +328,11 @@ def test_finish_capture_and_replay_nest_in_test(graph_spans):
         assert up[0] == "lane_pool.step.test", (sp[0], up)
         outer = [a for a in up if not a.startswith("lane_pool.step.")]
         assert outer[:2] in ([s, "lane_pool.tick"] for s in STEPS), up
-    assert got == {"lane_pool.step.finish_capture": finish.captures,
-                   "lane_pool.step.finish_replay": finish.replays}
+    assert got == {"lane_pool.step.finish_capture": captures,
+                   "lane_pool.step.finish_replay": replays}
     # Every tick's TEST phase holds exactly one of the two.
     tests = [sp for sp in spans if sp[0] == "lane_pool.step.test"]
-    assert len(tests) == finish.captures + finish.replays
+    assert len(tests) == captures + replays
 
 
 @pytest.mark.cuda
@@ -369,18 +371,17 @@ def test_bootstrap_kernels_stay_counted_eager_calls(monkeypatch):
         assert len(pool.drain()) == 4
 
     serve(9)                            # captures both phases' graphs
-    pre = pool.pre_read_graphs
-    fin = pre.finish
-    assert pre.captures == fin.captures == 2
+    g = pool.graphs
+    assert g.captures[PRE_READ] == g.captures[FINISH] == 2
     counters = (pb_ops.counter, seg_ops.boot_counter)
     before = [c.launches for c in counters]
     calls.update(pb_kernel=0, seg_boot_kernel=0)
-    replays = fin.replays
+    replays = g.replays[FINISH]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         serve(10)
         torch.cuda.synchronize()
-    assert fin.replays > replays and fin.captures == 2
+    assert g.replays[FINISH] > replays and g.captures[FINISH] == 2
     events = {name: sum(e.device_type() == DeviceType.CUDA
                         and name in e.name()
                         for e in prof.profiler.kineto_results.events())
